@@ -1,0 +1,189 @@
+"""Packed anti-centrosymmetric 3x3 convolution kernels, in PyTorch.
+
+Port of `differential_equations_resnet_tpu/ops/antisymmetric.py` (the packed
+3x3 layout).  A dense HWIO kernel ``K`` (3, 3, C, C) is antisymmetric when
+
+    K[:, :, i, j] == -rot180(K[:, :, j, i])      for all channel pairs (i, j),
+
+with the spatial centre of every diagonal block pinned to the constant
+``gamma``.  Its free parameters are per-channel vectors a, b, c, d, laid out
+on the diagonal blocks as
+
+    [[ a,  b,  c],
+     [ d,  g, -d],
+     [-c, -b, -a]]        with g = gamma,
+
+and ``cross`` (3, 3, C*(C-1)//2): the free blocks of the channel pairs
+c_in > c_out, ordered by c_out ascending and then c_in ascending.  The blocks
+with c_in < c_out are their mirrors ``-rot180(cross)``.
+
+Materialization is advanced-index assignment, which autograd differentiates,
+so a gradient with respect to the dense kernel folds back onto the packed
+leaves.  The dense-lower (`Antisym3x3DenseParams`) and general k x k
+(`AntisymKxKParams`) layouts are declared here so that parameter trees holding
+them can be read, but their materialization waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+class Antisym3x3Params(NamedTuple):
+    """Packed free parameters of a 3x3 antisymmetric conv, optionally with a
+    leading stacked-layer axis ``(L, ...)``."""
+
+    a: torch.Tensor                       # (..., C)
+    b: torch.Tensor                       # (..., C)
+    c: torch.Tensor                       # (..., C)
+    d: torch.Tensor                       # (..., C)
+    cross: torch.Tensor                   # (..., 3, 3, C*(C-1)//2)
+    bias: Optional[torch.Tensor] = None   # (..., C) or None
+
+
+class Antisym3x3DenseParams(NamedTuple):
+    """The dense-lower storage of the same free parameters: ``cross`` is
+    (..., 3, 3, C, C), strictly lower (c_in > c_out), zeros elsewhere."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+    d: torch.Tensor
+    cross: torch.Tensor
+    bias: Optional[torch.Tensor] = None
+
+
+class AntisymKxKParams(NamedTuple):
+    """Packed free parameters of the general k x k (anti-)centrosymmetric
+    conv."""
+
+    diag: torch.Tensor                    # (..., n_diag_free, C)
+    cross: torch.Tensor                   # (..., k, k, C*(C-1)//2)
+    bias: Optional[torch.Tensor] = None
+
+
+def num_cross_pairs(channels: int) -> int:
+    return channels * (channels - 1) // 2
+
+
+@functools.lru_cache(maxsize=None)
+def cross_pair_indices(channels: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(c_in, c_out) index arrays of the free cross-channel blocks, ordered
+    by c_out ascending and then c_in ascending."""
+    pairs = [(i, j) for j in range(channels) for i in range(j + 1, channels)]
+    if not pairs:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    arr = np.asarray(pairs, dtype=np.int64)
+    return arr[:, 0], arr[:, 1]
+
+
+def he_truncated_normal(
+    generator: torch.Generator,
+    shape: Sequence[int],
+    fan_in: int,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """He-style init: N(0, 2/fan_in) truncated at 2 standard deviations.
+
+    Drawn on the CPU from ``generator``.  The numbers differ from JAX's for
+    any seed; the distribution is the same."""
+    stddev = float(np.sqrt(2.0 / float(fan_in)))
+    unit = torch.empty(tuple(shape), dtype=torch.float32)
+    torch.nn.init.trunc_normal_(unit, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (stddev * unit).to(dtype)
+
+
+def init_antisym_3x3(
+    generator: torch.Generator,
+    channels: int,
+    use_bias: bool = True,
+    dtype: torch.dtype = torch.float32,
+) -> Antisym3x3Params:
+    """Each free scalar He-truncated-normal with fan_in = 9*C; bias zero."""
+    fan_in = 9 * channels
+    draw = lambda shape: he_truncated_normal(generator, shape, fan_in, dtype)
+    return Antisym3x3Params(
+        a=draw((channels,)),
+        b=draw((channels,)),
+        c=draw((channels,)),
+        d=draw((channels,)),
+        cross=draw((3, 3, num_cross_pairs(channels))),
+        bias=torch.zeros((channels,), dtype=dtype) if use_bias else None,
+    )
+
+
+def _diag_blocks(a, b, c, d, gamma: float, axis: int) -> torch.Tensor:
+    """[[a, b, c], [d, g, -d], [-c, -b, -a]] stacked at ``axis`` (rows) and
+    ``axis + 1`` (columns)."""
+    g = torch.full_like(a, gamma)
+    return torch.stack(
+        [
+            torch.stack([a, b, c], dim=axis),
+            torch.stack([d, g, -d], dim=axis),
+            torch.stack([-c, -b, -a], dim=axis),
+        ],
+        dim=axis,
+    )
+
+
+def _index(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(arr, dtype=torch.long, device=device)
+
+
+def materialize_3x3(params: Antisym3x3Params, gamma: float = 0.0) -> torch.Tensor:
+    """Packed params -> dense (3, 3, C, C) HWIO kernel."""
+    a = params.a
+    channels = a.shape[-1]
+    kernel = a.new_zeros((3, 3, channels, channels))
+    idx = torch.arange(channels, device=a.device)
+    kernel[:, :, idx, idx] = _diag_blocks(a, params.b, params.c, params.d, gamma, 0)
+    c_in, c_out = cross_pair_indices(channels)
+    if c_in.size:
+        ci, co = _index(c_in, a.device), _index(c_out, a.device)
+        kernel[:, :, ci, co] = params.cross
+        kernel[:, :, co, ci] = -params.cross.flip(0, 1)
+    return kernel
+
+
+def materialize_3x3_stacked(
+    params: Antisym3x3Params, gamma: float = 0.0
+) -> torch.Tensor:
+    """Stacked packed params (leading layer axis L) -> dense (L, 3, 3, C, C)
+    kernels, all layers in one indexed assignment."""
+    a = params.a
+    num_layers, channels = a.shape
+    kernel = a.new_zeros((num_layers, 3, 3, channels, channels))
+    idx = torch.arange(channels, device=a.device)
+    kernel[:, :, :, idx, idx] = _diag_blocks(
+        a, params.b, params.c, params.d, gamma, 1
+    )
+    c_in, c_out = cross_pair_indices(channels)
+    if c_in.size:
+        ci, co = _index(c_in, a.device), _index(c_out, a.device)
+        kernel[:, :, :, ci, co] = params.cross
+        kernel[:, :, :, co, ci] = -params.cross.flip(1, 2)
+    return kernel
+
+
+def pack_3x3(
+    kernel: torch.Tensor, bias: Optional[torch.Tensor] = None
+) -> Antisym3x3Params:
+    """Inverse of `materialize_3x3` up to the constant gamma centre: the
+    packed free parameters of a dense (3, 3, C, C) kernel."""
+    channels = kernel.shape[-1]
+    idx = torch.arange(channels, device=kernel.device)
+    diag = kernel[:, :, idx, idx]  # (3, 3, C)
+    c_in, c_out = cross_pair_indices(channels)
+    ci, co = _index(c_in, kernel.device), _index(c_out, kernel.device)
+    return Antisym3x3Params(
+        a=diag[0, 0],
+        b=diag[0, 1],
+        c=diag[0, 2],
+        d=diag[1, 0],
+        cross=kernel[:, :, ci, co],
+        bias=bias,
+    )
