@@ -9,16 +9,23 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. device: the card's name and power limit, from nvidia-smi;
 2. build: every CUDA source of the port, compiled from the checkout into
-   build/kernels/ (one nvcc per source, started together);
+   build/kernels/ (one nvcc per source, started together), with each
+   library's ptxas register and spill report;
 3. kernels: each kernel against its plain PyTorch version on the card, TF32
-   off, at the serving path's shape and at small shapes that reach every
-   variant, in fp32 and bf16-operand modes;
+   off, at the main path's shape and at small shapes that reach every
+   variant, in fp32 and bf16-operand modes: the forward kernel B1
+   (fused_euler_fwd) and the backward kernel B2 (fused_euler_bwd);
 4. serve: the 64-layer x 16-filter antisymmetric CIFAR-10 model from a
    seeded init is exported, loaded on the card and asked for batches of 1, 7
    and 32 images; its answers are held against the same export served on
-   the CPU, and every request must launch the fused kernel once;
-5. time: the kernel and its plain version at batch 32 (CUDA events, median
-   of 25), the kernel's bound, and request latency and throughput.
+   the CPU, and every request must launch B1 once;
+5. train: the same model takes 2 train steps on the card and 2 on the CPU
+   (plain path) from the same params and batches, which must agree; every
+   step launches B1 once and B2 once; then 20 steps at batch 32 on one
+   batch must lower the loss, their grad-norm rows logged to a CSV;
+6. time: each kernel and its plain version at batch 32 (CUDA events, median
+   of 25) beside its bound, request latency and throughput, and the train
+   step's time at batch 32.
 
 The last two lines are a JSON summary of the kernels and the device line.
 The script imports nothing of JAX and nothing of the JAX package.
@@ -48,6 +55,12 @@ from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
 )
 from differential_equations_resnet_tpu_torch.ops.kernels import _build
 from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
+from differential_equations_resnet_tpu_torch.train import (
+    CsvLogger,
+    gradient_metric_names,
+    make_adam,
+    make_train_step,
+)
 from differential_equations_resnet_tpu_torch.utils.serving import export_model, load_exported
 
 # H100 SXM fp32 rate outside the tensor cores (NVIDIA data sheet, 700 W) and
@@ -56,7 +69,12 @@ from differential_equations_resnet_tpu_torch.utils.serving import export_model, 
 FP32_CUDA_CORE_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 FP32_TOL = 1e-4   # rtol = atol; sums are ordered differently than cuDNN's
+# Card against CPU in training, per grad norm and per leaf (norm-relative):
+# relu-mask flips where |z| is under the fp32 difference of the two
+# forwards move g_z elements, and 64 layers carry them (phase_kernels_bwd).
+TRAIN_GRAD_TOL = 1e-3
 BF16_TOL = 1e-2   # rtol = atol; see phase_kernels
+LR = 1e-3
 
 
 def log(msg: str) -> None:
@@ -92,15 +110,22 @@ def phase_build():
 
 
 def make_case(batch, height, width, channels, layers, seed):
-    """Random input, packed antisymmetric kernels materialized to dense, and
-    nonzero biases, from a seed, on the card."""
+    """Random input, packed antisymmetric kernels materialized to dense,
+    nonzero biases and a random cotangent of the output, from a seed, on
+    the card."""
     gen = torch.Generator().manual_seed(seed)
     blocks = [init_antisym_3x3(gen, channels) for _ in range(layers)]
     stacked = Antisym3x3Params(*[torch.stack(leaf) for leaf in zip(*blocks)])
     kernels = materialize_3x3_stacked(stacked)
     biases = 0.05 * torch.randn(layers, channels, generator=gen)
     x = torch.randn(batch, height, width, channels, generator=gen)
-    return [t.cuda() for t in (x, kernels, biases)]
+    g = torch.randn(batch, height, width, channels, generator=gen)
+    return [t.cuda() for t in (x, kernels, biases, g)]
+
+
+def norm_rel(got, want):
+    """||got - want|| / ||want||, in float64."""
+    return float((got.double() - want.double()).norm() / want.double().norm())
 
 
 def max_violation(got, want, tol):
@@ -125,7 +150,7 @@ def phase_kernels():
     ]
     slice_err = 0.0
     for i, (b, hh, ww, c, layers, h) in enumerate(cases):
-        x, kernels, biases = make_case(b, hh, ww, c, layers, 100 + i)
+        x, kernels, biases, _ = make_case(b, hh, ww, c, layers, 100 + i)
         variant = fi.kernel_variant(hh, ww, c)
         for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
             got = fi.fused_euler_dense(x, kernels, biases, h, matmul_dtype=dtype)
@@ -140,6 +165,54 @@ def phase_kernels():
                 raise AssertionError(f"kernel disagrees with its plain version in case {i}")
             if i == 0 and dtype == torch.float32:
                 slice_err = err
+    return slice_err
+
+
+def phase_kernels_bwd():
+    """B2 against its plain version (`reference_euler_dense_bwd`) for gx, gk
+    and gb.  The two sum in different orders, and the backward takes the
+    relu mask 1[z > 0] of a recomputed z: where |z| is below the fp32
+    difference of the two recomputes, a mask element flips and moves that
+    g_z element by h * g, and L layers carry it on.  So the judge is a
+    float64 run of the plain version (operands rounded to bf16 in bf16
+    mode): per output, ||B2 - f64|| <= 2 ||plain - f64|| + 1e-5 ||f64||,
+    i.e. B2 is as accurate as the plain fp32 version.  At the small shapes
+    (no flips at 3-4 layers) that bound is about 1e-5 norm-relative; the
+    direct B2 - plain difference is printed beside it.  Returns the max
+    |B2 - plain| over gx, gk and gb at the training path's shape, fp32."""
+    cases = [  # (batch, H, W, C, L, h)
+        (32, 32, 32, 16, 64, 0.125),  # the training path's shape: resident, C=16, 2 pixels a thread
+        (3, 8, 8, 8, 3, 0.125),       # resident, C=8, 1 pixel a thread
+        (3, 8, 8, 32, 3, 0.125),      # resident, C=32
+        (2, 48, 40, 4, 4, 0.125),     # resident, C=4, 4 pixels a thread
+        (2, 64, 64, 4, 3, 0.125),     # > 2048 pixels: staged, float4 dK groups
+        (3, 16, 16, 6, 3, 0.25),      # C not a multiple of 4: staged, scalar dK groups
+    ]
+    slice_err = 0.0
+    for i, (b, hh, ww, c, layers, h) in enumerate(cases):
+        x, kernels, biases, g = make_case(b, hh, ww, c, layers, 200 + i)
+        variant = fi.kernel_variant(hh, ww, c, backward=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = fi.fused_euler_dense_bwd(x, kernels, biases, g, h, dtype)
+            want = fi.reference_euler_dense_bwd(x, kernels, biases, g, h, dtype)
+            judge = fi.reference_euler_dense_bwd(
+                *[t.double() for t in (x, kernels, biases, g)], h, dtype)
+            torch.cuda.synchronize()
+            parts = []
+            for name, a, w, j in zip(("gx", "gk", "gb"), got, want, judge):
+                kernel_err, plain_err = norm_rel(a, j), norm_rel(w, j)
+                ok = kernel_err <= 2 * plain_err + 1e-5
+                parts.append(f"{name} {norm_rel(a, w):.2e} (f64: B2 {kernel_err:.2e}, "
+                             f"plain {plain_err:.2e}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"B2 is less accurate than its plain version: case {i}, {name}")
+            log(f"[kernels] B2 B={b} {hh}x{ww}x{c} L={layers} {variant} "
+                f"{str(dtype).split('.')[-1]}: norm-rel |B2-plain| " + "; ".join(parts))
+            if i == 0 and dtype == torch.float32:
+                slice_err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+                log(f"[kernels] B2 training shape fp32: max|B2-plain| {slice_err:.3e} "
+                    f"(max|plain| gx {float(want[0].abs().max()):.3e}, "
+                    f"gk {float(want[1].abs().max()):.3e}, gb {float(want[2].abs().max()):.3e})")
     return slice_err
 
 
@@ -190,6 +263,80 @@ def phase_serve():
     return launches, predict, requests
 
 
+def phase_train(smi):
+    """Train the headline model (random weights from seed 0) on the card
+    through the train step, and hold 2 steps at batch 8 against the CPU's
+    plain path from the same params and batches.  Returns the kernels'
+    launches during the phase, the card's train step and a batch of 32."""
+    config = cifar10_single_block_config(num_layers=64, num_filters=16, kernel_type="antisymmetric")
+    rng = np.random.default_rng(1)
+
+    def batch(n):
+        return (torch.from_numpy(rng.uniform(0, 255, (n, 32, 32, 3)).astype(np.float32)),
+                torch.from_numpy(rng.integers(0, 10, n)))
+
+    card = build_single_block_resnet(
+        config, generator=torch.Generator().manual_seed(0), device="cuda")
+    cpu = build_single_block_resnet(config, params=card.params(), device="cpu")
+    steps = {m: make_train_step(m, make_adam(m.parameters())) for m in (card, cpu)}
+    small = [batch(8) for _ in range(2)]
+    fi.fused_euler_dense.launches = fi.fused_euler_dense_bwd.launches = 0
+    for n, (images, labels) in enumerate(small, 1):
+        (m_card, norms_card), (m_cpu, norms_cpu) = [
+            steps[m](images.to(m_dev), labels.to(m_dev), LR)
+            for m, m_dev in ((card, "cuda"), (cpu, "cpu"))]
+        launches = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+        if launches != (n, n):
+            raise AssertionError(f"after {n} train steps B1, B2 launched {launches} times")
+        loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+        norms_err = float(((norms_card.cpu() - norms_cpu).abs() / norms_cpu.abs()).max())
+        same_correct = float(m_card["correct"]) == float(m_cpu["correct"])
+        ok = loss_err <= 1e-5 and norms_err <= TRAIN_GRAD_TOL and same_correct
+        log(f"[train] step {n} batch 8 card vs cpu: loss {float(m_card['loss']):.6f} vs "
+            f"{float(m_cpu['loss']):.6f} (rel {loss_err:.2e}, tol 1e-5), correct "
+            f"{float(m_card['correct']):g} vs {float(m_cpu['correct']):g}, 65 grad norms max rel "
+            f"{norms_err:.2e} (tol {TRAIN_GRAD_TOL:g}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the card's train step disagrees with the CPU's")
+        if n == 1:
+            grad_errs = {
+                name: norm_rel(a.grad.cpu(), b.grad)
+                for (name, a), (_, b) in zip(card.named_parameters(), cpu.named_parameters())
+            }
+            worst = max(grad_errs, key=grad_errs.get)
+            log(f"[train] step 1 gradients card vs cpu, norm-rel per leaf: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in grad_errs.items()) + f"; worst {worst} "
+                f"(tol {TRAIN_GRAD_TOL:g})")
+            if grad_errs[worst] > TRAIN_GRAD_TOL:
+                raise AssertionError("the card's gradients disagree with the CPU's")
+    param_err = max(norm_rel(a.detach().cpu(), b.detach())
+                    for a, b in zip(card.parameters(), cpu.parameters()))
+    log(f"[train] params after 2 Adam updates, card vs cpu: max norm-rel {param_err:.2e}")
+
+    images, labels = [t.cuda() for t in batch(32)]
+    losses = []
+    with tempfile.TemporaryDirectory() as tmp:
+        names = gradient_metric_names(config)
+        logger = CsvLogger(os.path.join(tmp, "gradient_history.csv"), names)
+        for _ in range(20):
+            metrics, norms = steps[card](images, labels, LR)
+            losses.append(float(metrics["loss"]))
+            logger.log(norms.tolist())
+        logger.close()
+        with open(os.path.join(tmp, "gradient_history.csv")) as f:
+            header, *rows = f.read().splitlines()
+    if header.split(" ") != names or len(names) != 65 or len(rows) != 20:
+        raise AssertionError("the grad-norm CSV lacks its 65-name header or its 20 rows")
+    launches = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+    if launches != (22, 22) or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"20 steps at batch 32: launches {launches}, losses {losses}")
+    log(f"[train] 20 steps at batch 32 on one batch: loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        f"CSV header of {len(names)} names, {len(rows)} rows")
+    log(f"[train] 64L x 16F antisymmetric model: 22 train steps, {launches[0]} launches of "
+        f"fused_euler_fwd, {launches[1]} of fused_euler_bwd ({smi})")
+    return launches, steps[card], (images, labels)
+
+
 def cuda_time_ms(fn, runs=25, warmup=3):
     """Median milliseconds of ``fn`` between two CUDA events."""
     for _ in range(warmup):
@@ -208,7 +355,7 @@ def cuda_time_ms(fn, runs=25, warmup=3):
 
 def phase_time_kernel():
     b, hh, ww, c, layers, h = 32, 32, 32, 16, 64, 0.125
-    x, kernels, biases = make_case(b, hh, ww, c, layers, 7)
+    x, kernels, biases, _ = make_case(b, hh, ww, c, layers, 7)
     for batch in (1, 7):
         ms = cuda_time_ms(lambda: fi.fused_euler_dense(x[:batch], kernels, biases, h))
         log(f"[time] fused_euler_fwd B={batch} {hh}x{ww}x{c} L={layers}: kernel {ms:.4f} ms")
@@ -227,6 +374,50 @@ def phase_time_kernel():
         f"{HBM_BYTES_PER_S / 1e12:g} TB/s = {byte_ms:.5f} ms; bound {bound_ms:.4f} ms "
         f"by {bound_by}; kernel at {bound_ms / kernel_ms:.1%} of it")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_time_bwd():
+    b, hh, ww, c, layers, h = 32, 32, 32, 16, 64, 0.125
+    x, kernels, biases, g = make_case(b, hh, ww, c, layers, 8)
+    kernel_ms = cuda_time_ms(lambda: fi.fused_euler_dense_bwd(x, kernels, biases, g, h))
+    plain_ms = cuda_time_ms(lambda: fi.reference_euler_dense_bwd(x, kernels, biases, g, h))
+    # The least work from x: forward recompute, dK and the state cotangent,
+    # each 2*L*B*H*W*9C^2 (B2 also recomputes z: four).  The least bytes:
+    # each input (x, g, kernels, biases) read once, each output (gx, gk, gb)
+    # written once.
+    flops = 3 * 2 * layers * b * hh * ww * 9 * c * c
+    nbytes = 4 * (3 * x.numel() + 2 * kernels.numel() + 2 * biases.numel())
+    trajectory_bytes = 4 * (2 * layers * x.numel() + b * kernels.numel() + b * biases.numel())
+    flop_ms = flops / FP32_CUDA_CORE_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_by = "operations" if flop_ms >= byte_ms else "bytes"
+    bound_ms = max(flop_ms, byte_ms)
+    log(f"[time] fused_euler_bwd B={b} {hh}x{ww}x{c} L={layers}: kernel {kernel_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms (median of 25, CUDA events)")
+    log(f"[time] bound: 3 x 2*L*B*H*W*9C^2 = {flops / 1e9:.3f} GFLOP / "
+        f"{FP32_CUDA_CORE_FLOPS / 1e12:g} TFLOP/s (H100 SXM fp32 CUDA cores) = {flop_ms:.4f} ms; "
+        f"{nbytes / 1e6:.3f} MB / {HBM_BYTES_PER_S / 1e12:g} TB/s = {byte_ms:.5f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by}; kernel at {bound_ms / kernel_ms:.1%} of it "
+        f"(its trajectory and partials add {trajectory_bytes / 1e6:.1f} MB = "
+        f"{trajectory_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms of traffic)")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_time_train(step, batch, runs=25):
+    """Train-step time at batch 32 on the host clock around a synchronized
+    step, median of ``runs``."""
+    images, labels = batch
+    times = []
+    for i in range(runs + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(images, labels, LR)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    log(f"[time] train step batch {len(images)}: {ms:.4f} ms median of {runs}, "
+        f"{1e3 / ms:.2f} steps/s, {len(images) * 1e3 / ms:.1f} images/s")
 
 
 def phase_time_requests(predict, requests, runs=25):
@@ -252,20 +443,24 @@ def main() -> int:
         return 1
     smi = phase_device()
     phase_build()
-    max_abs_err = phase_kernels()
-    launches, predict, requests = phase_serve()
-    timing = phase_time_kernel()
+    fwd_err = phase_kernels()
+    bwd_err = phase_kernels_bwd()
+    serve_launches, predict, requests = phase_serve()
+    (train_fwd, train_bwd), step, batch = phase_train(smi)
+    fwd_timing = phase_time_kernel()
+    bwd_timing = phase_time_bwd()
     phase_time_requests(predict, requests)
-    kernels = [{
-        "name": "fused_euler_fwd",
-        "route": "cuda",
-        "source": "differential_equations_resnet_tpu_torch/csrc/fused_euler_fwd.cu",
-        "replaces": "differential_equations_resnet_tpu/ops/pallas/fused_integrator.py:146",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        **timing,
-        "library_ms": None,
-    }]
+    phase_time_train(step, batch)
+    source = "differential_equations_resnet_tpu_torch/csrc/"
+    replaces = "differential_equations_resnet_tpu/ops/pallas/fused_integrator.py:"
+    kernels = [
+        {"name": "fused_euler_fwd", "route": "cuda", "source": source + "fused_euler_fwd.cu",
+         "replaces": replaces + "146", "launches": serve_launches + train_fwd,
+         "max_abs_err": fwd_err, **fwd_timing, "library_ms": None},
+        {"name": "fused_euler_bwd", "route": "cuda", "source": source + "fused_euler_bwd.cu",
+         "replaces": replaces + "216", "launches": train_bwd,
+         "max_abs_err": bwd_err, **bwd_timing, "library_ms": None},
+    ]
     log(f"[device] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,16 +17,24 @@ Devices.  Entry points run on CUDA unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU device they raise rather
 than quietly run on the CPU (`resolve_device`).  On CPU tensors every
 hand-written kernel's wrapper runs its plain PyTorch version; on CUDA tensors
-it launches the kernel or raises.  fp32 convolutions run with TF32 off, so
-fp32 means fp32 on the card as it does in the reference.
+it launches the kernel or raises.  fp32 convolutions run with TF32 off,
+their backward included, so fp32 means fp32 on the card as it does in the
+reference.
 
 Module map (each module names its JAX counterpart):
 
 - `ops.antisymmetric`          <- `ops/antisymmetric.py` (packed 3x3 layout)
-- `ops.conv`                   <- `ops/conv.py` (`conv2d_same`)
-- `ops.kernels.fused_integrator` <- `ops/pallas/fused_integrator.py` (forward)
-- `models.blocks`              <- `models/blocks.py`
-- `models.single_block_resnet` <- `models/single_block_resnet.py` (inference)
+- `ops.conv`                   <- `ops/conv.py` (`conv2d_same`,
+  `euler_relu_step`, `conv_relu_field`)
+- `ops.kernels.fused_integrator` <- `ops/pallas/fused_integrator.py` (forward
+  kernel B1, backward kernel B2, their autograd Function)
+- `models.blocks`              <- `models/blocks.py` (with `l2_kernel_penalty`)
+- `models.single_block_resnet` <- `models/single_block_resnet.py`
+- `train.train_step`           <- `train/train_step.py` (Adam, loss, train and
+  eval steps)
+- `train.telemetry`            <- `train/telemetry.py` (gradient mean norms,
+  `CsvLogger`)
+- `train.metrics`, `train.schedules` <- `train/metrics.py`, `train/schedules.py`
 - `utils.weight_utils`         <- the JAX <-> port parameter converter
 - `utils.serving`              <- `utils/serving.py`
 """

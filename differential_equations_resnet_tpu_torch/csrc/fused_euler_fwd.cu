@@ -37,46 +37,11 @@
 // with a halo exchange) is later work, as is a tiled variant for states
 // larger than one SM's shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "euler_common.cuh"
+
+using namespace deqres;
 
 namespace {
-
-constexpr int kMaxSmemBytes = 232448;  // per block, sm_90
-constexpr int kMaxThreads = 512;
-
-template <bool BF16>
-__device__ __forceinline__ float operand(float v) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
-// relu that keeps a NaN, as jnp.maximum(z, 0) and torch.relu do.
-__device__ __forceinline__ float relu(float z) { return z <= 0.f ? 0.f : z; }
-
-__device__ __forceinline__ float lane(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
-// Zero-padded state: padded pixel (r, q) at ((r * (W + 2)) + q) * S floats;
-// the image sits at r, q in [1, H] x [1, W]; border and channel padding are 0.
-__device__ void fill_state(const float* __restrict__ x, float* ypad, int H,
-                           int W, int C, int S) {
-  const int Wp = W + 2;
-  const int n = (H + 2) * Wp * S;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int pp = i / S, c = i - pp * S;
-    const int r = pp / Wp, q = pp - r * Wp;
-    float v = 0.f;
-    if (c < C && r >= 1 && r <= H && q >= 1 && q <= W) {
-      v = x[((r - 1) * W + (q - 1)) * C + c];
-    }
-    ypad[i] = v;
-  }
-}
 
 __device__ void write_state(const float* ypad, float* __restrict__ out, int H,
                             int W, int C, int S) {
@@ -108,7 +73,6 @@ __global__ void __launch_bounds__(kMaxThreads)
     euler_fwd_resident(const float* __restrict__ x, const float* __restrict__ K,
                        const float* __restrict__ bias, float* __restrict__ out,
                        int H, int W, int L, int S, float h) {
-  static_assert(C % 4 == 0, "float4 path");
   extern __shared__ float4 smem4[];
   float* ypad = reinterpret_cast<float*>(smem4);
   const int Wp = W + 2, HW = H * W;
@@ -121,13 +85,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   int corner[P];  // offset of the pixel's 3x3 window (tap 0, 0)
   bool own[P];
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const int p = threadIdx.x + k * blockDim.x;
-    own[k] = p < HW;
-    const int pc = own[k] ? p : 0;
-    corner[k] = ((pc / W) * Wp + pc % W) * S;
-  }
+  own_pixels<P>(HW, W, Wp, S, corner, own);
   __syncthreads();
 
   for (int l = 0; l < L; ++l) {
@@ -137,39 +95,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
       for (int co = 0; co < C; ++co) acc[k][co] = bs[co];
     }
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = ((tap / 3) * Wp + tap % 3) * S;
-      const float* kt = Ks + tap * C * C;
-#pragma unroll
-      for (int ci = 0; ci < C; ci += 4) {
-        float4 v[P];
-#pragma unroll
-        for (int k = 0; k < P; ++k) {
-          v[k] = *reinterpret_cast<const float4*>(ypad + corner[k] + toff + ci);
-          v[k].x = operand<BF16>(v[k].x);
-          v[k].y = operand<BF16>(v[k].y);
-          v[k].z = operand<BF16>(v[k].z);
-          v[k].w = operand<BF16>(v[k].w);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float* krow = kt + (ci + q) * C;
-#pragma unroll
-          for (int co = 0; co < C; co += 4) {
-            const float4 kv = *reinterpret_cast<const float4*>(krow + co);
-#pragma unroll
-            for (int k = 0; k < P; ++k) {
-              const float a = lane(v[k], q);
-              acc[k][co + 0] = fmaf(a, kv.x, acc[k][co + 0]);
-              acc[k][co + 1] = fmaf(a, kv.y, acc[k][co + 1]);
-              acc[k][co + 2] = fmaf(a, kv.z, acc[k][co + 2]);
-              acc[k][co + 3] = fmaf(a, kv.w, acc[k][co + 3]);
-            }
-          }
-        }
-      }
-    }
+    conv_accumulate<C, P, BF16>(ypad, corner, Wp, S, Ks, acc);
     __syncthreads();  // every thread has read layer l's state and kernel
 #pragma unroll
     for (int k = 0; k < P; ++k) {

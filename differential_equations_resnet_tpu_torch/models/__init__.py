@@ -1,4 +1,4 @@
-"""Model families of the port (the single-block ODE-ResNet, for inference)."""
+"""Model families of the port (the single-block ODE-ResNet)."""
 
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
     SingleBlockResNet,

@@ -5,7 +5,8 @@ NamedTuples of tensors in the JAX package's layouts (HWIO conv kernels,
 (d_in, d_out) dense kernels).  Initializers follow TF-1.12 Keras: `he_normal`
 is a truncated normal with stddev sqrt(2/fan_in), biases start at zero.  The
 BatchNorm parameter types are declared so that trees holding them can be
-read; batch norm itself waits for a later slice.
+read; batch norm itself waits for a later slice.  `l2_kernel_penalty` is the
+training objective's Keras-style L2 term.
 """
 
 from __future__ import annotations
@@ -15,7 +16,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from differential_equations_resnet_tpu_torch.ops.antisymmetric import he_truncated_normal
+from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
+    Antisym3x3Params,
+    he_truncated_normal,
+)
 
 
 class ConvParams(NamedTuple):
@@ -86,3 +90,29 @@ def apply_fc_activation(x: torch.Tensor, fc_activation: Optional[str]) -> torch.
     if fn is None:
         raise ValueError(f"Unsupported fc_activation {fc_activation!r}.")
     return fn(x)
+
+
+def l2_kernel_penalty(params, weight: float) -> torch.Tensor:
+    """Keras-style L2 kernel regularization, ``weight * sum(k**2)`` over
+    every kernel parameter: dense conv and fc kernels and the antisymmetric
+    layers' free leaves (a, b, c, d, cross).  Biases, batch-norm parameters
+    and the constant gamma centre are not regularized, as in the JAX
+    package's `l2_kernel_penalty`."""
+    leaves = []
+
+    def collect(p):
+        if isinstance(p, (ConvParams, DenseParams)):
+            leaves.append(p.kernel)
+        elif isinstance(p, Antisym3x3Params):
+            leaves.extend([p.a, p.b, p.c, p.d, p.cross])
+        elif isinstance(p, dict):
+            for v in p.values():
+                collect(v)
+        elif isinstance(p, (list, tuple)) and not hasattr(p, "_fields"):
+            for v in p:
+                collect(v)
+
+    collect(params)
+    if not leaves:
+        return torch.zeros(())
+    return weight * sum(torch.sum(torch.square(leaf.float())) for leaf in leaves)

@@ -1,16 +1,19 @@
-"""Single-block ODE-ResNets for inference, in PyTorch.
+"""Single-block ODE-ResNets, in PyTorch.
 
 Port of `differential_equations_resnet_tpu/models/single_block_resnet.py`
 (config, stage plans, init and the forward pass).  A residual block is one
 forward-Euler step of dY/dt = relu(K(t) Y + b), and a stage's run of
 identity blocks is the fused L-layer integrator `fused_euler_3x3`: the
-hand-written CUDA kernel on the card, its plain PyTorch version on the CPU.
+hand-written CUDA kernels on the card (B1 forward, B2 backward), their plain
+PyTorch versions on the CPU.  Gradients flow through every leaf, so the
+model trains (`train.train_step`); with no batch norm, train mode and eval
+mode compute the same forward.
 
-What this slice covers: Euler, antisymmetric 3x3 kernels, no batch norm,
-fp32, forward only.  The config accepts every key of the JAX package's
-``config.json``; features outside the slice raise `NotImplementedError`
-naming the ROADMAP item they wait on when the model is built.  Accepted and
-ignored, because they do not change the numbers of a forward pass:
+What the port covers so far: Euler, antisymmetric 3x3 kernels, no batch
+norm, fp32.  The config accepts every key of the JAX package's
+``config.json``; features outside it raise `NotImplementedError` naming the
+ROADMAP item they wait on when the model is built.  Accepted and ignored,
+because they do not change the numbers of a forward or backward pass:
 
 - ``use_pallas``: on the card the fused kernel is always the path;
 - ``s2d_block``, ``s2d_force``, ``s2d_max_rows``: space-to-depth is an exact
@@ -278,7 +281,7 @@ def apply_single_block_resnet(
         if plan.has_conv_block:
             x = _apply_conv_block(x, sp, plan.strides)
         if sp["blocks"] is not None:
-            # On CUDA a state the kernel declines raises NotImplementedError.
+            # On CUDA a state a kernel declines raises NotImplementedError.
             x = fused_euler_3x3(x, sp["blocks"], config.h, config.gamma)
     if config.include_top:
         x = dense(global_average_pool(x), params["head"])
@@ -303,15 +306,16 @@ def _named_leaves(tree, prefix=""):
             yield from _named_leaves(value, f"{prefix}__{i}" if prefix else str(i))
 
 
-def _map_leaves(fn, tree):
+def map_leaves(fn, tree):
+    """The parameter tree with ``fn`` applied to every tensor leaf."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*[_map_leaves(fn, v) for v in tree])
+        return type(tree)(*[map_leaves(fn, v) for v in tree])
     if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_leaves(fn, v) for v in tree)
+        return type(tree)(map_leaves(fn, v) for v in tree)
     return tree
 
 
@@ -343,7 +347,7 @@ class SingleBlockResNet(nn.Module):
         device = resolve_device(device)
         if params is None:
             params = init_single_block_resnet(config, generator)
-        self.tree = _map_leaves(
+        self.tree = map_leaves(
             lambda t: nn.Parameter(t.detach().to(device, torch.float32)), params
         )
         for name, leaf in _named_leaves(self.tree):

@@ -2,8 +2,8 @@
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout, keyed by
-a hash of the source and the flags, and loaded with `ctypes`.  Nothing is
-compiled when this module is imported.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, and
+loaded with `ctypes`.  Nothing is compiled when this module is imported.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"fused_euler_fwd": "fused_euler_fwd.cu"}
+SOURCES = {"fused_euler_fwd": "fused_euler_fwd.cu", "fused_euler_bwd": "fused_euler_bwd.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,7 +43,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(path.read_bytes() for path in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

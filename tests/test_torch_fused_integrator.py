@@ -1,8 +1,9 @@
-"""The port's fused Euler integrator against the JAX package's Pallas kernel
-(interpret mode on the CPU, as tests/test_pallas.py runs it) and its XLA
-reference.  On the CPU the port runs its plain PyTorch version; the kernel
-itself is held against that version on the card (the `cuda` test below and
-chip_smoke.py)."""
+"""The port's fused Euler integrator, forward and backward, against the JAX
+package's Pallas kernels (interpret mode on the CPU, as tests/test_pallas.py
+runs them) and its XLA reference.  On the CPU the port runs its plain PyTorch
+versions through the same autograd Function the card uses; the kernels
+themselves are held against those versions on the card (the `cuda` test
+below and chip_smoke.py)."""
 
 import numpy as np
 import jax
@@ -16,7 +17,7 @@ from differential_equations_resnet_tpu.ops.pallas import fused_integrator as jax
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import materialize_3x3_stacked
 from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
 
-from torch_parity import assert_close, euler_case, require_cuda
+from torch_parity import assert_close, euler_case, norm_rel, require_cuda
 
 
 def jax_dense(blocks, gamma=0.0):
@@ -82,6 +83,94 @@ def test_plain_path_stays_differentiable_on_cpu():
         assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
+def backward_case(case, h, seed, matmul_dtype=jnp.float32):
+    """(port grads, Pallas-interpret grads, XLA-reference grads) of
+    <y_L, w> for a random cotangent w, for (x, kernels, biases)."""
+    (x_j, blocks_j), (x_t, blocks_t) = case
+    kernels_j = jax_dense(blocks_j)
+    w = np.random.default_rng(seed).standard_normal(x_t.shape).astype(np.float32)
+    loss = lambda fn: (lambda x, k, b: jnp.vdot(fn(x, k, b), jnp.asarray(w)))
+    with pltpu.force_tpu_interpret_mode():
+        pallas = jax.grad(loss(lambda x, k, b: jax_fi.fused_euler_dense(
+            x, k, b, h, matmul_dtype)), argnums=(0, 1, 2))(x_j, kernels_j, blocks_j.bias)
+    xla = jax.grad(loss(lambda x, k, b: jax_fi.reference_euler_dense(x, k, b, h)),
+                   argnums=(0, 1, 2))(x_j, kernels_j, blocks_j.bias)
+    leaves = [x_t.clone().requires_grad_(),
+              materialize_3x3_stacked(blocks_t).detach().requires_grad_(),
+              blocks_t.bias.clone().requires_grad_()]
+    torch_dtype = torch.bfloat16 if matmul_dtype == jnp.bfloat16 else torch.float32
+    y = fi.fused_euler_dense(*leaves, h, matmul_dtype=torch_dtype)
+    got = torch.autograd.grad((y * torch.from_numpy(w)).sum(), leaves)
+    return got, pallas, xla
+
+
+@pytest.mark.parametrize("shape,h", [
+    (dict(batch=2, height=6, width=6, channels=4, layers=3), 0.2),
+    (dict(batch=3, height=5, width=7, channels=8, layers=4, bias_scale=0.5), 0.25),
+])
+def test_backward_matches_pallas_interpret_and_xla(shape, h):
+    """fp32: (gx, gk, gb) against jax.grad of the Pallas custom VJP (its
+    backward kernel runs: grid <= 64) and of the XLA scan, to 1e-5
+    (fp32 sums in a different order)."""
+    got, pallas, xla = backward_case(euler_case(**shape, seed=8), h, seed=9)
+    for g, p, r, name in zip(got, pallas, xla, ("x", "kernels", "biases")):
+        assert_close(g, p, atol=1e-5, rtol=1e-5)
+        assert_close(g, r, atol=1e-5, rtol=1e-5)
+
+
+def test_backward_bf16_operands_match_pallas_interpret():
+    """bf16 mode: the forward recompute and g_z * K^T take bf16 operands,
+    dK and db stay fp32; against the Pallas backward kernel in bf16 mode
+    (grid 1, so it runs, not the fp32 XLA fallback).  Both round the same
+    operands and sum in fp32, so they agree to fp32 reordering, 1e-5."""
+    case = euler_case(batch=2, height=4, width=4, channels=8, layers=3, seed=10)
+    got, pallas, _ = backward_case(case, 0.125, seed=11, matmul_dtype=jnp.bfloat16)
+    for g, p in zip(got, pallas):
+        assert_close(g, p, atol=1e-5, rtol=1e-5)
+    # And the bf16 rounding is visible: fp32 gradients differ from these.
+    fp32, _, _ = backward_case(case, 0.125, seed=11)
+    assert norm_rel(got[0], fp32[0].numpy()) > 1e-5
+
+
+def test_packed_fold_back_through_fused_euler_3x3():
+    """Gradients of the packed leaves (a, b, c, d, cross, bias) with gamma
+    != 0 against jax.grad of the Pallas fused_euler_3x3, at a tiny shape."""
+    (x_j, blocks_j), (x_t, blocks_t) = euler_case(batch=2, height=4, width=4,
+                                                  channels=4, layers=2, seed=12)
+    h, gamma = 0.25, 0.1
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(lambda b: jnp.sum(jax_fi.fused_euler_3x3(x_j, b, h, gamma) ** 2))(blocks_j)
+    leaves = type(blocks_t)(*[t.clone().requires_grad_() for t in blocks_t])
+    loss = torch.sum(fi.fused_euler_3x3(x_t, leaves, h, gamma) ** 2)
+    got = torch.autograd.grad(loss, list(leaves))
+    for g, w, name in zip(got, want, blocks_t._fields):
+        assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_plain_backward_gradcheck_float64():
+    """The plain backward is the exact adjoint of the plain forward: finite
+    differences in float64 (relu kinks are far from these inputs' z)."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 4, 3)))
+    kernels = torch.from_numpy(0.3 * rng.standard_normal((2, 3, 3, 3, 3)))
+    biases = torch.from_numpy(0.1 * rng.standard_normal((2, 3)))
+    leaves = [t.clone().requires_grad_() for t in (x, kernels, biases)]
+    assert torch.autograd.gradcheck(lambda a, k, b: fi.fused_euler_dense(a, k, b, 0.3), leaves)
+
+
+def test_function_saves_only_the_input_state():
+    """The graph keeps (x, kernels, biases), one state whatever the depth,
+    as the JAX custom VJP does."""
+    _, (x, blocks) = euler_case(batch=2, height=4, width=4, channels=4, layers=5, seed=14)
+    kernels = materialize_3x3_stacked(blocks).detach().requires_grad_()
+    y = fi.fused_euler_dense(x, kernels, blocks.bias, 0.1)
+    saved = y.grad_fn.saved_tensors
+    assert [tuple(t.shape) for t in saved] == [tuple(x.shape), tuple(kernels.shape),
+                                               tuple(blocks.bias.shape)]
+    with torch.no_grad():
+        assert fi.fused_euler_dense(x, kernels, blocks.bias, 0.1).grad_fn is None
+
+
 def test_eligibility_gate():
     _, (x, blocks) = euler_case()
     assert fi.fused_euler_eligible(x, blocks)
@@ -104,13 +193,49 @@ def test_eligibility_gate():
     assert not fi.fused_euler_eligible(zeros(1, 224, 224, 16), blocks)
 
 
+def test_backward_eligibility_gate():
+    _, (x, blocks) = euler_case()
+    zeros = lambda *shape: torch.zeros(shape)
+    assert fi.fused_euler_bwd_eligible(x, blocks)
+    assert not fi.fused_euler_bwd_eligible(x, blocks._replace(bias=None))
+    # The training shape fits two padded states and two kernels (166,464 B).
+    assert fi.bwd_smem_bytes(32, 32, 16) == 166_464
+    assert fi.fused_euler_bwd_eligible(zeros(32, 32, 32, 16), blocks)
+    # At 32x32 B2 takes C <= 21, B1 C <= 38.
+    assert fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 21), blocks)
+    assert not fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 22), blocks)
+    assert fi.fused_euler_eligible(zeros(1, 32, 32, 22), blocks)
+    assert not fi.fused_euler_bwd_eligible(zeros(1, 2, 2, 129), blocks)
+
+
 def test_declined_shape_raises_before_any_launch():
-    """The CUDA wrapper refuses what the kernel cannot take, with
-    NotImplementedError, before it builds or launches anything."""
+    """The CUDA wrappers refuse what a kernel cannot take, with
+    NotImplementedError, before they build or launch anything."""
     x = torch.zeros(1, 64, 64, 16)
     kernels, biases = torch.zeros(2, 3, 3, 16, 16), torch.zeros(2, 16)
     with pytest.raises(NotImplementedError, match="shared memory"):
         fi._launch(x, kernels, biases, 0.1, torch.float32)
+    x = torch.zeros(1, 32, 32, 22)
+    kernels, biases = torch.zeros(2, 3, 3, 22, 22), torch.zeros(2, 22)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        fi._launch_bwd(x, kernels, biases, x, 0.1, torch.float32)
+
+
+def test_function_declines_before_the_forward_launch(monkeypatch):
+    """A CUDA input that B1 takes and B2 declines raises in the Function's
+    forward when a gradient will be needed, before B1 is launched; under
+    no_grad the forward alone runs."""
+    launched = []
+    monkeypatch.setattr(fi, "_launch", lambda *args: launched.append(args) or args[0])
+    x = torch.zeros(1, 32, 32, 22)
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda", 0)))
+    kernels = torch.zeros(1, 3, 3, 22, 22, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="B2 declines"):
+        fi.FusedEulerDense.apply(x, kernels, torch.zeros(1, 22), 0.1, torch.float32)
+    assert not launched
+    with torch.no_grad():
+        fi.fused_euler_dense(x, kernels, torch.zeros(1, 22), 0.1)
+    assert len(launched) == 1
 
 
 def test_other_devices_are_refused():
@@ -131,9 +256,42 @@ def test_kernel_matches_plain_version_on_cuda():
             want = fi.reference_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert fi.fused_euler_dense.launches == before + 2
-    with pytest.raises(NotImplementedError, match="B2"):
-        fi.fused_euler_dense(x, kernels.requires_grad_(), bias, 0.125)
+    # Gradients now come from B2 and match the plain backward.
+    leaves = [t.clone().requires_grad_() for t in (x, kernels, bias)]
+    bwd_before = fi.fused_euler_dense_bwd.launches
+    got = torch.autograd.grad(torch.sin(fi.fused_euler_dense(*leaves, 0.125)).sum(), leaves)
+    assert fi.fused_euler_dense_bwd.launches == bwd_before + 1
+    g = torch.cos(fi.reference_euler_dense(x, kernels, bias, 0.125))
+    want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="B2 declines"):
+        fi.fused_euler_dense(torch.zeros(1, 32, 32, 22, device="cuda"),
+                             torch.zeros(1, 3, 3, 22, 22, device="cuda", requires_grad=True),
+                             torch.zeros(1, 22, device="cuda"), 0.125)
     with pytest.raises(NotImplementedError):
         fi.fused_euler_dense(torch.zeros(1, 64, 64, 16, device="cuda"),
                              torch.zeros(1, 3, 3, 16, 16, device="cuda"),
                              torch.zeros(1, 16, device="cuda"), 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 8, 8, 8, 3), (3, 16, 16, 6, 3)])  # resident, staged
+def test_backward_kernel_matches_plain_version_on_cuda(shape):
+    """B2 against `reference_euler_dense_bwd` on the card, both modes, at a
+    depth where no relu mask flips (chip_smoke.py holds the 64-layer
+    training shape against a float64 judge)."""
+    require_cuda()
+    batch, height, width, channels, layers = shape
+    _, (x, blocks) = euler_case(batch=batch, height=height, width=width,
+                                channels=channels, layers=layers, seed=15)
+    g = torch.from_numpy(np.random.default_rng(16).standard_normal(x.shape).astype(np.float32))
+    x, g = x.cuda(), g.cuda()
+    kernels, bias = materialize_3x3_stacked(blocks).cuda(), blocks.bias.cuda()
+    before = fi.fused_euler_dense_bwd.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        got = fi.fused_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
+        want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert fi.fused_euler_dense_bwd.launches == before + 2

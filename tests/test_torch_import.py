@@ -41,6 +41,8 @@ def test_fresh_import_loads_no_jax():
         capture_output=True, text=True, check=True, timeout=300,
     )
     assert len(modules) >= 12
+    assert {f"{port.__name__}.train.{name}"
+            for name in ("metrics", "schedules", "telemetry", "train_step")} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 

@@ -32,31 +32,10 @@ from differential_equations_resnet_tpu_torch.utils.weight_utils import (
 )
 
 from golden.make_golden import fixture_config
-from torch_parity import JAX_CLASSES, to_numpy
+from torch_parity import JAX_CLASSES, jax_params_with_biases, port_model
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 TOL = dict(rtol=5e-5, atol=5e-5)  # tests/test_golden_fixture.py's bound
-
-
-def jax_params_with_biases(jax_model, seed):
-    """JAX init, then every bias made nonzero with NumPy (init leaves them 0)."""
-    params, state = jax_model.init(jax.random.key(seed))
-    rng = np.random.default_rng(seed)
-    params = jax.tree_util.tree_map_with_path(
-        lambda path, leaf: (
-            leaf + 0.05 * rng.standard_normal(leaf.shape).astype(np.float32)
-            if "bias" in jax.tree_util.keystr(path) else leaf
-        ),
-        params,
-    )
-    return params, state
-
-
-def port_model(config, jax_params):
-    port_config = config_from_json(_config_to_json(config))
-    return build_single_block_resnet(
-        port_config, params=params_from_jax(to_numpy(jax_params)), device="cpu"
-    )
 
 
 def check_model(config, seed, batch=2):

@@ -12,7 +12,11 @@ import torch
 
 from differential_equations_resnet_tpu.models import blocks as jax_blocks
 from differential_equations_resnet_tpu.ops import antisymmetric as jax_antisym
+from differential_equations_resnet_tpu.utils.serving import _config_to_json
+from differential_equations_resnet_tpu_torch.models import build_single_block_resnet
 from differential_equations_resnet_tpu_torch.ops import antisymmetric as torch_antisym
+from differential_equations_resnet_tpu_torch.utils.serving import config_from_json
+from differential_equations_resnet_tpu_torch.utils.weight_utils import params_from_jax
 
 # The JAX package's parameter classes, by name, for `params_to_jax`.
 JAX_CLASSES = {
@@ -54,6 +58,35 @@ def euler_case(batch=4, height=8, width=8, channels=8, layers=3, seed=0, bias_sc
     x = rng.standard_normal((batch, height, width, channels)).astype(np.float32)
     blocks_jax, blocks_torch = both_packed(packed_leaves(rng, channels, layers, bias_scale))
     return (jnp.asarray(x), blocks_jax), (torch.from_numpy(x), blocks_torch)
+
+
+def jax_params_with_biases(jax_model, seed):
+    """JAX init, then every bias made nonzero with NumPy (init leaves them 0)."""
+    params, state = jax_model.init(jax.random.key(seed))
+    rng = np.random.default_rng(seed)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, leaf: (
+            leaf + 0.05 * rng.standard_normal(leaf.shape).astype(np.float32)
+            if "bias" in jax.tree_util.keystr(path) else leaf
+        ),
+        params,
+    )
+    return params, state
+
+
+def port_model(config, jax_params):
+    """The port's model of a JAX config, on the CPU, holding ``jax_params``."""
+    port_config = config_from_json(_config_to_json(config))
+    return build_single_block_resnet(
+        port_config, params=params_from_jax(to_numpy(jax_params)), device="cpu"
+    )
+
+
+def norm_rel(got, want) -> float:
+    """||got - want|| / ||want||."""
+    got = np.asarray(got.detach() if isinstance(got, torch.Tensor) else got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
 def assert_close(got, want, atol, rtol=0.0):
