@@ -15,7 +15,8 @@ whatever the depth.
 versions (`reference_euler_dense`, `reference_euler_dense_bwd`); on CUDA
 tensors it launches the kernels of ``csrc/fused_euler_fwd.cu`` (B1) and
 ``csrc/fused_euler_bwd.cu`` (B2) or raises: there is no fallback.  Each kernel
-keeps one image's zero-padded state in one thread block's shared memory, so
+runs an image as a thread-block cluster of n blocks, each holding a band of
+rows of the zero-padded state in shared memory (`band_plan` chooses n), so
 its gate is the card's shared memory, not the TPU's VMEM
 (`fused_euler_eligible`, `fused_euler_bwd_eligible`).  Where a gradient will
 be needed, a shape that B2 declines raises before B1 is launched.
@@ -28,6 +29,7 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     Antisym3x3Params,
@@ -45,26 +47,104 @@ SMEM_LIMIT_BYTES = 232_448
 # The JAX gate's own limits, kept: C <= 128 and H*W <= 64*64.
 MAX_CHANNELS = 128
 MAX_PIXELS = 64 * 64
+# Streaming multiprocessors of an H100 SXM: the band plan's default.
+SM_COUNT = 132
+# Bands (thread-block cluster blocks) an image: the plan fills SMs with up to
+# 8, the portable cluster size; shapes whose band does not fit one block's
+# shared memory otherwise may take up to 16 (sm_90's non-portable size).
+PLAN_BANDS = 8
+MAX_BANDS = 16
 
 _MATMUL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def state_smem_bytes(height: int, width: int, channels: int) -> int:
-    """Shared memory of one B1 block: the zero-padded fp32 state, one layer's
-    (9C, C) kernel and its bias."""
-    return 4 * ((height + 2) * (width + 2) * channels + 9 * channels * channels + channels)
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def bwd_smem_bytes(height: int, width: int, channels: int) -> int:
-    """Shared memory of one B2 block: the zero-padded y_l and g_z, one
-    layer's kernel and its rotated transpose, and its bias."""
-    return 4 * (2 * (height + 2) * (width + 2) * channels
-                + 2 * 9 * channels * channels + channels)
+def _col_off(column: int, padded_channels: int) -> int:
+    """Floats from the start of a padded row to padded column ``column``:
+    each group of four columns is followed by four floats of padding."""
+    return column * padded_channels + (column // 4) * 4
+
+
+def _band_geometry(height: int, width: int, channels: int, bands: int):
+    """(Cp, floats of one padded band buffer, tallest band's rows, mask
+    words a pixel) of the kernels' banded shared-memory layout, as
+    ``csrc/euler_common.cuh::make_band`` computes them."""
+    cp = _ceil(channels, 4) * 4
+    base = _col_off(4 * _ceil(width, 4) + 2, cp)
+    row = base + (8 - base % 32) % 32
+    rows = _ceil(height, bands)
+    return cp, (rows + 2) * row, rows, _ceil(cp, 32)
+
+
+def _fitting(floats_with_kernel_buffers) -> int:
+    """Bytes of the first of (two kernel buffers, one) whose floats fit one
+    block's shared memory, else those of one."""
+    for buffers in (2, 1):
+        need = 4 * floats_with_kernel_buffers(buffers)
+        if need <= SMEM_LIMIT_BYTES:
+            return need
+    return need
+
+
+def state_smem_bytes(height: int, width: int, channels: int, bands: int = 1) -> int:
+    """Shared memory of one B1 block of an image in ``bands`` bands: the
+    band's zero-padded fp32 state twice (double buffered, halo rows
+    included) and one or two layers' (9Cp, Cp) kernel and bias, two where
+    they fit (the next layer's loads while this one computes)."""
+    cp, band, _, _ = _band_geometry(height, width, channels, bands)
+    return _fitting(lambda buffers: 2 * band + buffers * (9 * cp * cp + cp))
+
+
+def bwd_smem_bytes(height: int, width: int, channels: int, bands: int = 1) -> int:
+    """Shared memory of one B2 block: the larger of its forward phase (B1's
+    block and the band's relu-mask words of two layers) and its reverse
+    sweep (y_l, g_z twice, g of the band's pixels, one or two layers' K^T,
+    one layer's mask words)."""
+    cp, band, rows, words = _band_geometry(height, width, channels, bands)
+    mask = rows * width * words
+    return _fitting(lambda buffers: max(
+        2 * band + buffers * (9 * cp * cp + cp) + 2 * mask,
+        3 * band + rows * width * cp + buffers * 9 * cp * cp + mask))
+
+
+@functools.lru_cache(maxsize=1024)
+def min_bands(height: int, width: int, channels: int, smem_bytes=state_smem_bytes):
+    """The fewest bands (a power of two <= min(16, H)) whose block fits one
+    block's shared memory, or None where no band count does."""
+    bands = 1
+    while bands <= min(MAX_BANDS, height):
+        if smem_bytes(height, width, channels, bands) <= SMEM_LIMIT_BYTES:
+            return bands
+        bands *= 2
+    return None
+
+
+def band_plan(batch: int, height: int, fewest: int = 1, sms: int = SM_COUNT):
+    """Rows of each band of an image: ((start, stop), ...), one band per
+    block of the image's thread-block cluster.
+
+    The band count n is the largest power of two <= min(8, H) with
+    ``batch * n <= 2 * sms`` (two blocks a streaming multiprocessor: 8 at
+    batch 1-33 on 132 SMs, 4 at batch 34-66), and at least ``fewest`` (the
+    fewest bands whose block fits in shared memory).  On an H100 at
+    32x32x16 both kernels ran fastest in 8 bands at batch 1, 8 and 32
+    (PERF.md): clusters of 4 cannot all get SMs of their own, since a
+    cluster must sit in one GPC, and smaller bands shorten each layer.
+    Band r holds rows [r*H//n, (r+1)*H//n): every row once, heights
+    differing by at most one."""
+    bands = 1
+    while 2 * bands <= min(PLAN_BANDS, height) and batch * 2 * bands <= 2 * sms:
+        bands *= 2
+    bands = max(bands, fewest)
+    return tuple((r * height // bands, (r + 1) * height // bands) for r in range(bands))
 
 
 def _declined(x: torch.Tensor, smem_bytes=state_smem_bytes) -> str:
-    """Why a kernel whose block needs ``smem_bytes(H, W, C)`` of shared
-    memory cannot take ``x``, or "" where it can."""
+    """Why a kernel whose block of an image in n bands needs ``smem_bytes(H,
+    W, C, n)`` of shared memory cannot take ``x``, or "" where it can."""
     if x.dim() != 4:
         return f"x must be 4-D NHWC, got shape {tuple(x.shape)}"
     if x.dtype != torch.float32:
@@ -76,12 +156,12 @@ def _declined(x: torch.Tensor, smem_bytes=state_smem_bytes) -> str:
         return f"C={channels} > {MAX_CHANNELS}"
     if height * width > MAX_PIXELS:
         return f"H*W={height * width} > {MAX_PIXELS}"
-    need = smem_bytes(height, width, channels)
-    if need > SMEM_LIMIT_BYTES:
+    if min_bands(height, width, channels, smem_bytes) is None:
+        bands = min(MAX_BANDS, height)
         return (
-            f"one block needs {need} bytes of shared memory for a "
-            f"{height}x{width}x{channels} image, over the {SMEM_LIMIT_BYTES} "
-            "one block may use"
+            f"even in {bands} bands one block needs "
+            f"{smem_bytes(height, width, channels, bands)} bytes of shared memory for a "
+            f"{height}x{width}x{channels} image, over the {SMEM_LIMIT_BYTES} one block may use"
         )
     return ""
 
@@ -89,12 +169,16 @@ def _declined(x: torch.Tensor, smem_bytes=state_smem_bytes) -> str:
 def fused_euler_eligible(x: torch.Tensor, blocks) -> bool:
     """Whether the forward kernel B1 takes this (shape, dtype, params)
     combination: a 4-D fp32 contiguous NHWC input, `Antisym3x3Params` with a
-    bias, C <= 128, H*W <= 4096, and ``(H+2)(W+2)C*4 + 9C^2*4 + C*4 <=
-    232,448`` bytes (one block's shared memory on sm_90).
+    bias, C <= 128, H*W <= 4096, and some band count n (a power of two <=
+    min(16, H)) whose block fits one block's shared memory on sm_90
+    (`state_smem_bytes(H, W, C, n) <= 232,448`).
 
-    At 32x32 this admits C <= 38.  Unlike the JAX gate it declines
-    64x64x16, whose padded state alone is 279 KB; a spatially tiled variant
-    with a halo exchange is later work."""
+    At 32x32 this admits C <= 64 (the one-block-per-image kernel took C <=
+    38), and it admits 64x64x16 (in 4 bands), as the JAX gate does.  Of the
+    shapes that kernel took, it declines only images of a few rows with
+    wide rows or C >= 53 (at most 18 rows within 64x64): a band holds two
+    states where that kernel updated one in place, and rows cannot be split
+    below one a band."""
     if not isinstance(blocks, Antisym3x3Params) or blocks.bias is None:
         return False
     return not _declined(x)
@@ -102,11 +186,24 @@ def fused_euler_eligible(x: torch.Tensor, blocks) -> bool:
 
 def fused_euler_bwd_eligible(x: torch.Tensor, blocks) -> bool:
     """Whether the backward kernel B2 takes this combination: B1's gate with
-    ``2(H+2)(W+2)C*4 + 2*9C^2*4 + C*4 <= 232,448`` bytes (two padded states
-    and two kernels a block).  At 32x32 this admits C <= 21."""
+    `bwd_smem_bytes(H, W, C, n) <= 232,448` for some band count n.  At 32x32
+    this admits C <= 56 (the one-block-per-image kernel took C <= 21), and
+    it admits 64x64x16 (in 8 bands).  Of the shapes that kernel took, it
+    declines only images of a few rows with wide rows or C >= 41."""
     if not isinstance(blocks, Antisym3x3Params) or blocks.bias is None:
         return False
     return not _declined(x, bwd_smem_bytes)
+
+
+def kernel_bands(x_shape, backward: bool = False, sms: int = SM_COUNT):
+    """Bands an image of a batch of shape (B, H, W, C) runs in, on B1 (or on
+    B2 with ``backward=True``): `band_plan`'s count with the fewest bands
+    that fit.  None where the kernel declines the shape."""
+    batch, height, width, channels = x_shape
+    fewest = min_bands(height, width, channels, bwd_smem_bytes if backward else state_smem_bytes)
+    if fewest is None:
+        return None
+    return len(band_plan(batch, height, fewest, sms))
 
 
 def _preactivation(y, kernel, bias, matmul_dtype):
@@ -143,8 +240,8 @@ def reference_euler_dense_bwd(
     """The plain version of B2: (gx, gk, gb), the cotangents of x, kernels
     and biases for the cotangent g of y_L.  It recomputes the trajectory with
     `conv2d_same`, then walks the layers in reverse with the relu-mask
-    formulas of `ops.conv.euler_relu_step`'s backward, recomputing z as B2
-    does.  In bf16 mode the forward recompute and the transposed convolution
+    formulas of `ops.conv.euler_relu_step`'s backward, recomputing z (B2
+    keeps the relu mask of its forward recompute as bits instead).  In bf16 mode the forward recompute and the transposed convolution
     take bf16 operands; dK and db stay fp32, as in the Pallas kernel."""
     num_layers = kernels.shape[0]
     trajectory = [x]
@@ -165,13 +262,15 @@ _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (argtypes, restype) of every C function of each kernel library.
 _SIGNATURES = {
     "fused_euler_fwd": {
-        "deqres_euler_fwd": ([_PTR] * 4 + [_I32] * 5 + [_F32, _I32, _PTR], _I32),
-        "deqres_euler_fwd_variant": ([_I32] * 3, _I32),
+        "deqres_euler_fwd": ([_PTR] * 4 + [_I32] * 6 + [_F32, _I32, _PTR], _I32),
+        "deqres_euler_fwd_smem": ([_I32] * 4, ctypes.c_longlong),
+        "deqres_euler_fwd_max_clusters": ([_I32] * 5, _I32),
         "deqres_cuda_error_string": ([_I32], ctypes.c_char_p),
     },
     "fused_euler_bwd": {
-        "deqres_euler_bwd": ([_PTR] * 9 + [_I32] * 5 + [_F32, _I32, _PTR], _I32),
-        "deqres_euler_bwd_variant": ([_I32] * 3, _I32),
+        "deqres_euler_bwd": ([_PTR] * 10 + [_I32] * 6 + [_F32, _I32, _PTR], _I32),
+        "deqres_euler_bwd_smem": ([_I32] * 4, ctypes.c_longlong),
+        "deqres_euler_bwd_max_clusters": ([_I32] * 5, _I32),
         "deqres_cuda_error_string": ([_I32], ctypes.c_char_p),
     },
 }
@@ -188,22 +287,44 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def kernel_variant(height: int, width: int, channels: int, backward: bool = False) -> str:
-    """Which variant of B1 (or of B2 with ``backward=True``) a shape runs:
-    "resident" (per-pixel sums in registers) or "staged" (any C)."""
-    lib = _library("fused_euler_bwd" if backward else "fused_euler_fwd")
-    variant = lib.deqres_euler_bwd_variant if backward else lib.deqres_euler_fwd_variant
-    code = variant(height, width, channels)
-    if code < 0:
-        raise NotImplementedError(f"no kernel variant for {height}x{width}x{channels}")
-    return "resident" if code == 1 else "staged"
+def _kernel(backward: bool):
+    return ("fused_euler_bwd", "bwd") if backward else ("fused_euler_fwd", "fwd")
+
+
+def library_smem_bytes(height: int, width: int, channels: int, bands: int,
+                       backward: bool = False) -> int:
+    """The shared memory the built library asks for a block of this shape
+    (-1 where it does not fit): what `state_smem_bytes` / `bwd_smem_bytes`
+    compute, from the C side.  Builds the library."""
+    name, short = _kernel(backward)
+    return getattr(_library(name), f"deqres_euler_{short}_smem")(height, width, channels, bands)
+
+
+def max_active_clusters(height: int, width: int, channels: int, bands: int,
+                        backward: bool = False, bf16: bool = False) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of B1 (or B2) on the current
+    device for clusters of ``bands`` blocks at this shape: how many images
+    run at once."""
+    name, short = _kernel(backward)
+    lib = _library(name)
+    count = getattr(lib, f"deqres_euler_{short}_max_clusters")(
+        height, width, channels, bands, int(bf16))
+    if count < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for {bands} bands of "
+                           f"{height}x{width}x{channels}: {count}")
+    return count
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check_operands(x, kernels, biases, matmul_dtype, reason, which):
     if reason:
         raise NotImplementedError(
             f"{which} on CUDA declines this input: {reason}. A spatially tiled "
-            "kernel for such shapes is later work (ROADMAP B1)."
+            "kernel for such shapes is later work (ROADMAP B4)."
         )
     channels, num_layers = x.shape[-1], kernels.shape[0]
     if tuple(kernels.shape) != (num_layers, 3, 3, channels, channels):
@@ -217,6 +338,25 @@ def _check_operands(x, kernels, biases, matmul_dtype, reason, which):
         raise ValueError(f"matmul_dtype must be float32 or bfloat16, got {matmul_dtype}")
 
 
+def _kernel_operands(kernels, biases, padded, matmul_dtype):
+    """(L, 3, 3, C, C) kernels and (L, C) biases as the kernels copy them into
+    shared memory: zero-padded from C to Cp channels, the kernels' operands
+    rounded as ``matmul_dtype`` says, contiguous and 16-byte aligned.  At C =
+    Cp in fp32 the inputs themselves, where aligned."""
+    channels = kernels.shape[-1]
+    kernels = round_operand(kernels, matmul_dtype)
+    if padded != channels:
+        kernels = F.pad(kernels, (0, padded - channels, 0, padded - channels))
+        biases = F.pad(biases, (0, padded - channels))
+    return [_aligned(t.contiguous()) for t in (kernels, biases)]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it in its own storage where cp.async's 16-byte copies
+    would start off a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _raise_on_error(lib, err, which):
     if err != 0:
         raise RuntimeError(
@@ -225,18 +365,22 @@ def _raise_on_error(lib, err, which):
         )
 
 
-def _launch(x, kernels, biases, h, matmul_dtype) -> torch.Tensor:
+def _launch(x, kernels, biases, h, matmul_dtype, bands=None) -> torch.Tensor:
+    """B1 on CUDA tensors; ``bands`` overrides the band plan (for
+    measurements)."""
     _check_operands(x, kernels, biases, matmul_dtype, _declined(x), "fused_euler_dense")
     batch, height, width, channels = x.shape
-    kernels = kernels.contiguous()
-    biases = biases.contiguous()
+    if bands is None:
+        bands = kernel_bands(x.shape, sms=_sm_count(x.device.index or 0))
+    padded = _band_geometry(height, width, channels, bands)[0]
+    kernels, biases = _kernel_operands(kernels, biases, padded, matmul_dtype)
     out = torch.empty_like(x)
     lib = _library("fused_euler_fwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.deqres_euler_fwd(
             x.data_ptr(), kernels.data_ptr(), biases.data_ptr(), out.data_ptr(),
-            batch, height, width, channels, kernels.shape[0], float(h),
+            batch, height, width, channels, kernels.shape[0], bands, float(h),
             int(matmul_dtype == torch.bfloat16), stream,
         )
     _raise_on_error(lib, err, "fused_euler_fwd")
@@ -244,7 +388,9 @@ def _launch(x, kernels, biases, h, matmul_dtype) -> torch.Tensor:
     return out
 
 
-def _launch_bwd(x, kernels, biases, g, h, matmul_dtype):
+def _launch_bwd(x, kernels, biases, g, h, matmul_dtype, bands=None):
+    """B2 on CUDA tensors; ``bands`` overrides the band plan (for
+    measurements)."""
     _check_operands(x, kernels, biases, matmul_dtype, _declined(x, bwd_smem_bytes),
                     "fused_euler_dense_bwd")
     batch, height, width, channels = x.shape
@@ -254,28 +400,34 @@ def _launch_bwd(x, kernels, biases, g, h, matmul_dtype):
     if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
         raise ValueError(f"g must be float32 {tuple(x.shape)} on {x.device}, got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    if bands is None:
+        bands = kernel_bands(x.shape, backward=True, sms=_sm_count(x.device.index or 0))
+    padded, _, _, words = _band_geometry(height, width, channels, bands)
     g = g.contiguous()
-    kernels = kernels.contiguous()
     # Conv-transpose kernel: rot180 in (dh, dw), swap (c_in, c_out).
-    kernels_t = kernels.flip(1, 2).transpose(3, 4).contiguous()
-    biases = biases.contiguous()
+    kernels_t, _ = _kernel_operands(kernels.flip(1, 2).transpose(3, 4), biases, padded,
+                                    matmul_dtype)
+    kernels, biases = _kernel_operands(kernels, biases, padded, matmul_dtype)
     gx = torch.empty_like(x)
-    gk = x.new_empty((batch, num_layers, 9, channels, channels))
-    gb = x.new_empty((batch, num_layers, channels))
-    trajectory = x.new_empty((num_layers, *x.shape))
+    gk = x.new_empty((batch * bands, num_layers, 9, channels, channels))
+    gb = x.new_empty((batch * bands, num_layers, channels))
+    trajectory = x.new_empty((num_layers, batch, height, width, padded))
+    mask = torch.empty((num_layers, batch, height, width, words), dtype=torch.int32,
+                       device=x.device)
     lib = _library("fused_euler_bwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.deqres_euler_bwd(
-            x.data_ptr(), kernels.data_ptr(), kernels_t.data_ptr(), biases.data_ptr(),
+            x.data_ptr(), kernels.data_ptr(), biases.data_ptr(), kernels_t.data_ptr(),
             g.data_ptr(), gx.data_ptr(), gk.data_ptr(), gb.data_ptr(),
-            trajectory.data_ptr(), batch, height, width, channels, num_layers, float(h),
-            int(matmul_dtype == torch.bfloat16), stream,
+            trajectory.data_ptr(), mask.data_ptr(), batch, height, width, channels,
+            num_layers, bands, float(h), int(matmul_dtype == torch.bfloat16), stream,
         )
     _raise_on_error(lib, err, "fused_euler_bwd")
     fused_euler_dense_bwd.launches += 1
-    # Per-image partials summed here, where the JAX wrapper sums its tiles'.
-    return gx, gk.sum(dim=0).reshape(kernels.shape), gb.sum(dim=0)
+    # Per-band partials summed here, in a fixed order, where the JAX wrapper
+    # sums its tiles'.
+    return gx, gk.sum(dim=0).reshape(num_layers, 3, 3, channels, channels), gb.sum(dim=0)
 
 
 def _device_type(x: torch.Tensor) -> str:

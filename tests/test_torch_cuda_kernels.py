@@ -1,0 +1,166 @@
+"""The hand-written kernels B1 (`csrc/fused_euler_fwd.cu`) and B2
+(`csrc/fused_euler_bwd.cu`) against their plain PyTorch versions on the card.
+
+Every test here needs a CUDA device and skips itself without one.  The file
+imports neither JAX nor the JAX package (nor the test helpers that do), so it
+runs on a machine with the card and no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Inputs are made with NumPy from a seed.  The band-edge cases cover what the
+banded kernels split: batch 1 and 7, a height the band count does not divide,
+fewer rows than the plan's usual count, one band an image, and 64x64x16,
+which needs bands to fit at all.  chip_smoke.py holds both kernels at the
+main path's 64-layer shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
+    Antisym3x3Params,
+    materialize_3x3_stacked,
+    num_cross_pairs,
+)
+from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
+
+pytestmark = pytest.mark.cuda
+
+TOL = 1e-4  # rtol = atol: fp32 sums in another order than cuDNN's
+
+
+@pytest.fixture
+def card():
+    """Skip unless a CUDA device is present (decided when the test runs);
+    TF32 off for the plain versions' convolutions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py checks the kernels on the card)")
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        yield
+
+
+def case(batch, height, width, channels, layers, seed):
+    """x, dense kernels (from packed antisymmetric params), biases and a
+    cotangent g, made with NumPy from ``seed``, on the card."""
+    rng = np.random.default_rng(seed)
+    std = np.sqrt(2.0 / (9 * channels))
+    draw = lambda *shape: (std * rng.standard_normal((layers, *shape))).astype(np.float32)
+    leaves = [draw(channels) for _ in range(4)] + [draw(3, 3, num_cross_pairs(channels))]
+    bias = (0.05 * rng.standard_normal((layers, channels))).astype(np.float32)
+    blocks = Antisym3x3Params(*[torch.from_numpy(v) for v in (*leaves, bias)])
+    x = rng.standard_normal((batch, height, width, channels)).astype(np.float32)
+    g = rng.standard_normal((batch, height, width, channels)).astype(np.float32)
+    kernels = materialize_3x3_stacked(blocks)
+    return [t.cuda() for t in (torch.from_numpy(x), kernels, blocks.bias, torch.from_numpy(g))]
+
+
+def test_kernel_matches_plain_version_on_cuda(card):
+    x, kernels, bias, _ = case(3, 8, 8, 8, 3, seed=7)
+    before = fi.fused_euler_dense.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        got = fi.fused_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
+        want = fi.reference_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    assert fi.fused_euler_dense.launches == before + 2
+    # Gradients come from B2 and match the plain backward.
+    leaves = [t.clone().requires_grad_() for t in (x, kernels, bias)]
+    bwd_before = fi.fused_euler_dense_bwd.launches
+    got = torch.autograd.grad(torch.sin(fi.fused_euler_dense(*leaves, 0.125)).sum(), leaves)
+    assert fi.fused_euler_dense_bwd.launches == bwd_before + 1
+    g = torch.cos(fi.reference_euler_dense(x, kernels, bias, 0.125))
+    want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+    # B1 takes 32x32x60, B2 does not: raises before B1 launches.
+    with pytest.raises(NotImplementedError, match="B2 declines"):
+        fi.fused_euler_dense(torch.zeros(1, 32, 32, 60, device="cuda"),
+                             torch.zeros(1, 3, 3, 60, 60, device="cuda", requires_grad=True),
+                             torch.zeros(1, 60, device="cuda"), 0.125)
+    with pytest.raises(NotImplementedError):
+        fi.fused_euler_dense(torch.zeros(1, 1, 1, 100, device="cuda"),
+                             torch.zeros(1, 3, 3, 100, 100, device="cuda"),
+                             torch.zeros(1, 100, device="cuda"), 0.125)
+
+
+@pytest.mark.parametrize("shape", [(3, 8, 8, 8, 3), (3, 16, 16, 6, 3)])  # C = 8, C = 6
+def test_backward_kernel_matches_plain_version_on_cuda(card, shape):
+    """B2 against `reference_euler_dense_bwd` on the card, both modes, at a
+    depth where no relu mask flips (chip_smoke.py holds the 64-layer
+    training shape against a float64 judge)."""
+    x, kernels, bias, g = case(*shape, seed=15)
+    before = fi.fused_euler_dense_bwd.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        got = fi.fused_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
+        want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+    assert fi.fused_euler_dense_bwd.launches == before + 2
+
+
+BAND_EDGES = {  # (batch, H, W, C, L): what the band plan makes of it
+    "batch 1, 8 bands": (1, 32, 32, 16, 3),
+    "batch 7, 8 bands": (7, 32, 32, 16, 3),
+    "H=13 in 8 bands of 1-2 rows": (2, 13, 9, 8, 3),
+    "H=3 in 2 bands": (1, 3, 5, 4, 3),
+    "1 band (batch 70)": (70, 8, 8, 8, 2),
+    "64x64x16 (needs 4+ bands)": (1, 64, 64, 16, 2),
+    "C=22 at 32x32 (B2 declined it before bands)": (2, 32, 32, 22, 2),
+    "C=56: one kernel buffer, B2 in 16 bands": (1, 32, 32, 56, 3),
+}
+
+
+def norm_rel(got, want):
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+@pytest.mark.parametrize("shape", BAND_EDGES.values(), ids=BAND_EDGES.keys())
+def test_band_edges_on_cuda(card, shape):
+    """Both kernels against their plain versions where the bands are
+    uneven, short, single or many.  B1 directly, fp32 and bf16 operands.  B2
+    by a float64 run of the plain version, as chip_smoke.py judges it: where
+    |z| is below the difference of two fp32 recomputes (or, in bf16 mode, a
+    last-bit difference moves a state element across a bf16 rounding
+    boundary), a relu-mask element flips and moves one g_z element by h * g,
+    so B2 must be as close to float64 as the plain version is (2x its
+    distance + 1e-5)."""
+    batch, height, width, channels, layers = shape
+    # Seed 19 leaves no |z| within 2e-6 of 0 (float64) in any case, so no
+    # relu-mask element sits where an fp32 recompute could flip it.
+    x, kernels, bias, g = case(*shape, seed=19)
+    for backward in (False, True):
+        bands = fi.kernel_bands(x.shape, backward=backward)
+        assert bands == len(fi.band_plan(batch, height, fi.min_bands(
+            height, width, channels, fi.bwd_smem_bytes if backward else fi.state_smem_bytes)))
+        assert fi.max_active_clusters(height, width, channels, bands, backward) >= 1
+    for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 1e-2)):
+        got = fi.fused_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
+        want = fi.reference_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        got = fi.fused_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
+        want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
+        judge = fi.reference_euler_dense_bwd(*[t.double() for t in (x, kernels, bias, g)],
+                                             0.125, dtype)
+        for name, a, w, j in zip(("gx", "gk", "gb"), got, want, judge):
+            assert norm_rel(a, j) <= 2 * norm_rel(w, j) + 1e-5, (dtype, name)
+
+
+@pytest.mark.parametrize("shape", [(32, 32, 16), (13, 9, 8), (64, 64, 16), (3, 5, 6), (1, 1, 76)])
+def test_library_shared_memory_matches_the_gate(card, shape):
+    """The C side asks for the shared memory the Python gate counts, at every
+    band count, and refuses exactly what the gate refuses."""
+    height, width, channels = shape
+    for backward, formula in ((False, fi.state_smem_bytes), (True, fi.bwd_smem_bytes)):
+        for bands in range(1, min(fi.MAX_BANDS, height) + 1):
+            want = formula(height, width, channels, bands)
+            got = fi.library_smem_bytes(height, width, channels, bands, backward)
+            assert got == (want if want <= fi.SMEM_LIMIT_BYTES else -1), (backward, bands)
+
+
+def test_weight_gradients_are_deterministic_on_cuda(card):
+    """No float atomics: dK and db are bit-identical across two calls."""
+    x, kernels, bias, g = case(8, 32, 32, 16, 4, seed=19)
+    first = fi.fused_euler_dense_bwd(x, kernels, bias, g, 0.125)
+    second = fi.fused_euler_dense_bwd(x, kernels, bias, g, 0.125)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

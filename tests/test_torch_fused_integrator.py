@@ -2,8 +2,8 @@
 package's Pallas kernels (interpret mode on the CPU, as tests/test_pallas.py
 runs them) and its XLA reference.  On the CPU the port runs its plain PyTorch
 versions through the same autograd Function the card uses; the kernels
-themselves are held against those versions on the card (the `cuda` test
-below and chip_smoke.py)."""
+themselves are held against those versions on the card
+(tests/test_torch_cuda_kernels.py and chip_smoke.py)."""
 
 import numpy as np
 import jax
@@ -17,7 +17,7 @@ from differential_equations_resnet_tpu.ops.pallas import fused_integrator as jax
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import materialize_3x3_stacked
 from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
 
-from torch_parity import assert_close, euler_case, norm_rel, require_cuda
+from torch_parity import assert_close, euler_case, norm_rel
 
 
 def jax_dense(blocks, gamma=0.0):
@@ -180,13 +180,17 @@ def test_eligibility_gate():
     assert not fi.fused_euler_eligible(x, blocks._replace(bias=None))
     assert not fi.fused_euler_eligible(x, (blocks.a, blocks.bias))
     zeros = lambda *shape: torch.zeros(shape)
-    # The serving shape, and the widest C one block's shared memory holds at 32x32.
+    # The serving shape, and the widest C a band's shared memory holds at
+    # 32x32 (in 16 bands); one block per image held C <= 38.
     assert fi.fused_euler_eligible(zeros(32, 32, 32, 16), blocks)
     assert fi.fused_euler_eligible(zeros(1, 32, 32, 38), blocks)
-    assert not fi.fused_euler_eligible(zeros(1, 32, 32, 39), blocks)
-    # The JAX gate takes 64x64x16; its padded state (279 KB) does not fit here.
+    assert fi.fused_euler_eligible(zeros(1, 32, 32, 64), blocks)
+    assert not fi.fused_euler_eligible(zeros(1, 32, 32, 65), blocks)
+    # The JAX gate takes 64x64x16: its padded state (279 KB) does not fit one
+    # block, but a band of 16 rows does.
     assert fi.state_smem_bytes(64, 64, 16) > fi.SMEM_LIMIT_BYTES
-    assert not fi.fused_euler_eligible(zeros(1, 64, 64, 16), blocks)
+    assert fi.min_bands(64, 64, 16) == 4
+    assert fi.fused_euler_eligible(zeros(1, 64, 64, 16), blocks)
     assert fi.fused_euler_eligible(zeros(1, 64, 64, 8), blocks)
     assert not fi.fused_euler_eligible(zeros(1, 65, 64, 4), blocks)  # H*W > 4096
     assert not fi.fused_euler_eligible(zeros(1, 2, 2, 129), blocks)  # C > 128
@@ -198,25 +202,30 @@ def test_backward_eligibility_gate():
     zeros = lambda *shape: torch.zeros(shape)
     assert fi.fused_euler_bwd_eligible(x, blocks)
     assert not fi.fused_euler_bwd_eligible(x, blocks._replace(bias=None))
-    # The training shape fits two padded states and two kernels (166,464 B).
-    assert fi.bwd_smem_bytes(32, 32, 16) == 166_464
+    # The training shape in its 4 bands: 105,920 B a block (one block per
+    # image needed 166,464 B); a whole image no longer fits one block.
+    assert fi.bwd_smem_bytes(32, 32, 16, 4) == 105_920
+    assert fi.bwd_smem_bytes(32, 32, 16) > fi.SMEM_LIMIT_BYTES
     assert fi.fused_euler_bwd_eligible(zeros(32, 32, 32, 16), blocks)
-    # At 32x32 B2 takes C <= 21, B1 C <= 38.
+    # At 32x32 B2 now takes C <= 56 (it took C <= 21), B1 C <= 64.
     assert fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 21), blocks)
-    assert not fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 22), blocks)
-    assert fi.fused_euler_eligible(zeros(1, 32, 32, 22), blocks)
+    assert fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 22), blocks)
+    assert fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 56), blocks)
+    assert not fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 57), blocks)
+    assert fi.fused_euler_eligible(zeros(1, 32, 32, 57), blocks)
+    assert fi.fused_euler_bwd_eligible(zeros(1, 64, 64, 16), blocks)
     assert not fi.fused_euler_bwd_eligible(zeros(1, 2, 2, 129), blocks)
 
 
 def test_declined_shape_raises_before_any_launch():
     """The CUDA wrappers refuse what a kernel cannot take, with
     NotImplementedError, before they build or launch anything."""
-    x = torch.zeros(1, 64, 64, 16)
-    kernels, biases = torch.zeros(2, 3, 3, 16, 16), torch.zeros(2, 16)
+    x = torch.zeros(1, 1, 1, 100)  # one layer's kernel alone is 360 KB
+    kernels, biases = torch.zeros(2, 3, 3, 100, 100), torch.zeros(2, 100)
     with pytest.raises(NotImplementedError, match="shared memory"):
         fi._launch(x, kernels, biases, 0.1, torch.float32)
-    x = torch.zeros(1, 32, 32, 22)
-    kernels, biases = torch.zeros(2, 3, 3, 22, 22), torch.zeros(2, 22)
+    x = torch.zeros(1, 32, 32, 60)
+    kernels, biases = torch.zeros(2, 3, 3, 60, 60), torch.zeros(2, 60)
     with pytest.raises(NotImplementedError, match="shared memory"):
         fi._launch_bwd(x, kernels, biases, x, 0.1, torch.float32)
 
@@ -227,14 +236,14 @@ def test_function_declines_before_the_forward_launch(monkeypatch):
     no_grad the forward alone runs."""
     launched = []
     monkeypatch.setattr(fi, "_launch", lambda *args: launched.append(args) or args[0])
-    x = torch.zeros(1, 32, 32, 22)
+    x = torch.zeros(1, 32, 32, 60)
     monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda", 0)))
-    kernels = torch.zeros(1, 3, 3, 22, 22, requires_grad=True)
+    kernels = torch.zeros(1, 3, 3, 60, 60, requires_grad=True)
     with pytest.raises(NotImplementedError, match="B2 declines"):
-        fi.FusedEulerDense.apply(x, kernels, torch.zeros(1, 22), 0.1, torch.float32)
+        fi.FusedEulerDense.apply(x, kernels, torch.zeros(1, 60), 0.1, torch.float32)
     assert not launched
     with torch.no_grad():
-        fi.fused_euler_dense(x, kernels, torch.zeros(1, 22), 0.1)
+        fi.fused_euler_dense(x, kernels, torch.zeros(1, 60), 0.1)
     assert len(launched) == 1
 
 
@@ -242,56 +251,3 @@ def test_other_devices_are_refused():
     x = torch.zeros(1, 4, 4, 4, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fi.fused_euler_dense(x, x.new_zeros(1, 3, 3, 4, 4), x.new_zeros(1, 4), 0.1)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_version_on_cuda():
-    require_cuda()
-    _, (x, blocks) = euler_case(batch=3, height=8, width=8, channels=8, layers=3, seed=7)
-    x, kernels, bias = x.cuda(), materialize_3x3_stacked(blocks).cuda(), blocks.bias.cuda()
-    before = fi.fused_euler_dense.launches
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        for dtype in (torch.float32, torch.bfloat16):
-            got = fi.fused_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
-            want = fi.reference_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
-            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    assert fi.fused_euler_dense.launches == before + 2
-    # Gradients now come from B2 and match the plain backward.
-    leaves = [t.clone().requires_grad_() for t in (x, kernels, bias)]
-    bwd_before = fi.fused_euler_dense_bwd.launches
-    got = torch.autograd.grad(torch.sin(fi.fused_euler_dense(*leaves, 0.125)).sum(), leaves)
-    assert fi.fused_euler_dense_bwd.launches == bwd_before + 1
-    g = torch.cos(fi.reference_euler_dense(x, kernels, bias, 0.125))
-    want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="B2 declines"):
-        fi.fused_euler_dense(torch.zeros(1, 32, 32, 22, device="cuda"),
-                             torch.zeros(1, 3, 3, 22, 22, device="cuda", requires_grad=True),
-                             torch.zeros(1, 22, device="cuda"), 0.125)
-    with pytest.raises(NotImplementedError):
-        fi.fused_euler_dense(torch.zeros(1, 64, 64, 16, device="cuda"),
-                             torch.zeros(1, 3, 3, 16, 16, device="cuda"),
-                             torch.zeros(1, 16, device="cuda"), 0.125)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 8, 8, 8, 3), (3, 16, 16, 6, 3)])  # resident, staged
-def test_backward_kernel_matches_plain_version_on_cuda(shape):
-    """B2 against `reference_euler_dense_bwd` on the card, both modes, at a
-    depth where no relu mask flips (chip_smoke.py holds the 64-layer
-    training shape against a float64 judge)."""
-    require_cuda()
-    batch, height, width, channels, layers = shape
-    _, (x, blocks) = euler_case(batch=batch, height=height, width=width,
-                                channels=channels, layers=layers, seed=15)
-    g = torch.from_numpy(np.random.default_rng(16).standard_normal(x.shape).astype(np.float32))
-    x, g = x.cuda(), g.cuda()
-    kernels, bias = materialize_3x3_stacked(blocks).cuda(), blocks.bias.cuda()
-    before = fi.fused_euler_dense_bwd.launches
-    for dtype in (torch.float32, torch.bfloat16):
-        got = fi.fused_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
-        want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
-    assert fi.fused_euler_dense_bwd.launches == before + 2
