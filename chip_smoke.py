@@ -35,10 +35,25 @@ Phases, each of which raises on failure (exit code != 0):
    batch 32;
 8. profile: one window of train steps at batch 32 under torch.profiler, its
    ten device operations that took the most time and the device's idle
-   share.
+   share;
+9. harness: the training harness at the same width and depth on synthetic
+   CIFAR-10 of the real size (50,000 + 10,000 uint8 images): a streaming
+   epoch of 200 replayed steps through `Training` (CSV and summary rows, the
+   loss falls) and a full validation pass; 8 steps replayed from one CUDA
+   graph against 8 eager steps; a device-resident epoch of 1562 replayed
+   steps with augmentation, whose B1 and B2 launches the profiler counts
+   (one each a step, as the launch counters do), timed again unprofiled
+   beside the same epoch run with the eager step (seconds, steps/s, model
+   TFLOP/s, MFU, and the idle share of a profiled window of each epoch), and
+   its device evaluation against the streaming one; a checkpoint round trip
+   (bit for bit); and the command line (train, then evaluate, predict and
+   analyze) in subprocesses.
 
-The last two lines are a JSON summary of the kernels and the device line.
-The script imports nothing of JAX and nothing of the JAX package.
+A kernel's launches are those on the card: its wrapper counts each launch
+outside a CUDA-graph capture, and each replay of a graph counts the
+launches the graph holds.  The last two lines are a JSON summary of the
+kernels and the device line.  The script imports nothing of JAX and nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -65,11 +80,22 @@ from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
 )
 from differential_equations_resnet_tpu_torch.ops.kernels import _build
 from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
+from differential_equations_resnet_tpu_torch.data import synthetic_cifar10
+from differential_equations_resnet_tpu_torch.data.jit_augment import standard_cifar_augment
 from differential_equations_resnet_tpu_torch.train import (
+    Checkpointer,
     CsvLogger,
+    Training,
     gradient_metric_names,
     make_adam,
+    make_multi_step,
     make_train_step,
+)
+from differential_equations_resnet_tpu_torch.train.train_step import WARMUP_CALLS, pack_row
+from differential_equations_resnet_tpu_torch.utils.flops import (
+    PEAK_FLOPS,
+    mfu,
+    single_block_train_flops,
 )
 from differential_equations_resnet_tpu_torch.utils.serving import export_model, load_exported
 
@@ -505,32 +531,31 @@ def phase_time_train(step, batch, runs=25):
     ms = statistics.median(times) * 1e3
     log(f"[time] train step batch {len(images)}: {ms:.4f} ms median of {runs}, "
         f"{1e3 / ms:.2f} steps/s, {len(images) * 1e3 / ms:.1f} images/s")
+    return ms
 
 
-def phase_profile(step, batch, steps=10):
-    """torch.profiler over ``steps`` synchronized train steps at batch 32:
-    the ten device operations with the most device time, and the device's
-    idle share of the window (1 - the union of device-op intervals over the
-    sum of the steps' host ranges, each ending in a synchronize)."""
+def profile_window(run, steps, label="train_step"):
+    """torch.profiler (CPU and CUDA) over ``steps`` synchronized calls of
+    ``run``: (host ms a step, device-busy ms a step, device operations a
+    step, idle share, the device operations' averages).  The idle share is
+    1 - the union of the device operations' intervals over the sum of the
+    calls' host ranges, each ending in a synchronize."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    images, labels = batch
-    for _ in range(3):
-        step(images, labels, LR)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            with record_function("train_step"):
-                step(images, labels, LR)
+            with record_function(label):
+                run()
                 torch.cuda.synchronize()
+
     def annotation(e):  # record_function ranges, which Kineto also puts on the device timeline
-        return (getattr(e, "name", None) or e.key) == "train_step" or getattr(
+        return (getattr(e, "name", None) or e.key) == label or getattr(
             e, "is_user_annotation", False)
 
     events = prof.events()
     windows = [(e.time_range.start, e.time_range.end) for e in events
-               if e.name == "train_step" and e.device_type == DeviceType.CPU]
+               if e.name == label and e.device_type == DeviceType.CPU]
     device = sorted((e.time_range.start, e.time_range.end) for e in events
                     if e.device_type == DeviceType.CUDA and not annotation(e))
     busy, reach = 0.0, float("-inf")
@@ -541,19 +566,33 @@ def phase_profile(step, batch, steps=10):
     window = sum(end - start for start, end in windows)
     kernels = [a for a in prof.key_averages()
                if a.device_type == DeviceType.CUDA and not annotation(a)]
+    return window / 1e3, busy / 1e3, len(device), 1 - busy / window, kernels
 
-    def device_us(avg):
-        return getattr(avg, "self_device_time_total", None) or getattr(avg, "self_cuda_time_total", 0)
 
+def device_us(avg):
+    return getattr(avg, "self_device_time_total", None) or getattr(avg, "self_cuda_time_total", 0)
+
+
+def phase_profile(step, batch, steps=10):
+    """torch.profiler over ``steps`` synchronized train steps at batch 32:
+    the ten device operations with the most device time, and the device's
+    idle share of the window (1 - the union of device-op intervals over the
+    sum of the steps' host ranges, each ending in a synchronize)."""
+    images, labels = batch
+    for _ in range(3):
+        step(images, labels, LR)
+    torch.cuda.synchronize()
+    window, busy, ops, idle, kernels = profile_window(lambda: step(images, labels, LR), steps)
     total = sum(device_us(a) for a in kernels)
     log(f"[profile] {steps} train steps at batch {len(images)} (profiler on): host window "
-        f"{window / steps / 1e3:.4f} ms a step, device busy {busy / steps / 1e3:.4f} ms a step "
-        f"({len(device) / steps:.1f} device operations a step), idle share {1 - busy / window:.1%}")
+        f"{window / steps:.4f} ms a step, device busy {busy / steps:.4f} ms a step "
+        f"({ops / steps:.1f} device operations a step), idle share {idle:.1%}")
     if total == 0:
         log("[profile] the profiler recorded no device time on this machine")
     for avg in sorted(kernels, key=device_us, reverse=True)[:10]:
         log(f"[profile]   {device_us(avg) / steps / 1e3:8.4f} ms a step "
             f"({device_us(avg) / total:6.1%}), {avg.count / steps:5.1f} a step: {avg.key[:110]}")
+    return idle
 
 
 def phase_time_requests(predict, requests, runs=25):
@@ -570,6 +609,348 @@ def phase_time_requests(predict, requests, runs=25):
         ms = statistics.median(times) * 1e3
         log(f"[time] request batch {len(images)}: {ms:.4f} ms median of {runs}, "
             f"{len(images) / ms * 1e3:.1f} images/s")
+
+
+HARNESS_BATCH = 32
+STREAM_STEPS = 200
+GRAPH_K = 8
+WINDOW_STEPS = 60  # steps of an epoch in the profiled idle-share windows
+
+
+def headline_model(seed=0):
+    config = cifar10_single_block_config(num_layers=64, num_filters=16, kernel_type="antisymmetric")
+    return build_single_block_resnet(config, generator=torch.Generator().manual_seed(seed),
+                                     device="cuda")
+
+
+def logged_summary_steps(log_dir):
+    """The steps of the scalars a `SummaryWriter` wrote: its JSONL file, or
+    TensorBoard's event files where the tensorboard package is installed."""
+    jsonl = os.path.join(log_dir, "scalars.jsonl")
+    if os.path.isfile(jsonl):
+        with open(jsonl) as f:
+            return sorted({json.loads(line)["step"] for line in f})
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    events = EventAccumulator(log_dir)
+    events.Reload()
+    return sorted({e.step for tag in events.Tags()["scalars"] for e in events.Scalars(tag)})
+
+
+def rate_figures(label, seconds, steps, smi):
+    """Seconds, steps/s, model TFLOP/s and MFU against the fp32 peak of a
+    run of ``steps`` train steps at batch 32."""
+    config = cifar10_single_block_config(num_layers=64, num_filters=16)
+    flops_step = single_block_train_flops(config, HARNESS_BATCH)
+    rate = steps / seconds
+    log(f"[harness] {label}: {seconds:.4f} s for {steps} steps, {rate:.2f} steps/s, "
+        f"{flops_step * rate / 1e12:.4f} model TFLOP/s ({flops_step / 1e9:.3f} GFLOP a step), "
+        f"MFU {mfu(flops_step, rate):.2%} of the {PEAK_FLOPS['h100_sxm_fp32'] / 1e12:g} TFLOP/s "
+        f"fp32 peak ({smi})")
+    return rate
+
+
+def epoch_window(label, run_epoch, steps, epochs=2):
+    """The idle share and device operations a step over ``epochs`` profiled
+    epochs of ``steps`` steps (``run_epoch(steps)``)."""
+    window, busy, ops, idle, _ = profile_window(lambda: run_epoch(steps), epochs, label)
+    n = epochs * steps
+    log(f"[harness] profiled window of {label}, {epochs} epochs of {steps} steps: host "
+        f"{window / n:.4f} ms a step, device busy {busy / n:.4f} ms a step ({ops / n:.1f} device "
+        f"operations a step), idle share {idle:.1%}")
+    return idle
+
+
+def eager_device_epoch(step, features, labels, generator, steps, augment):
+    """`make_device_epoch`'s epoch with the eager step in place of the
+    replayed one: the same shuffle, gather, cast, augmentation and
+    telemetry rows on the card.  Returns the rows."""
+    perm = torch.randperm(len(features), generator=generator, device=features.device)
+    rows = None
+    for i in range(steps):
+        idx = perm[i * HARNESS_BATCH:(i + 1) * HARNESS_BATCH]
+        x = augment(generator, features.index_select(0, idx).to(torch.float32))
+        row = pack_row(*step(x, labels.index_select(0, idx), LR))
+        if rows is None:
+            rows = row.new_empty((steps, row.numel()))
+        rows[i].copy_(row)
+    return rows
+
+
+def kernel_counts(kernels):
+    """(B1 launches, B2 launches, B1 device ms, B2 device ms) among a
+    profiler's device-operation averages, by kernel name."""
+    counts = {"euler_fwd<": [0, 0.0], "euler_bwd<": [0, 0.0]}
+    for avg in kernels:
+        for name, c in counts.items():
+            if name in avg.key:
+                c[0] += avg.count
+                c[1] += device_us(avg) / 1e3
+    (n1, t1), (n2, t2) = counts["euler_fwd<"], counts["euler_bwd<"]
+    return n1, n2, t1, t2
+
+
+def phase_harness(smi):
+    """The harness at full width and depth (64L x 16F, batch 32) on
+    synthetic CIFAR-10 of the real size (50,000 + 10,000 uint8 images):
+
+    1. streaming: `Training.train` of 200 replayed steps (CSV and summary
+       rows at summaries_frequency, the loss falls), then a full 'val' pass
+       of 313 replayed batches;
+    2. graph against eager: K = 8 steps replayed through `make_multi_step`
+       against 8 eager steps from the same state and batches;
+    3. device-resident epoch: 1562 steps with `standard_cifar_augment` as
+       CUDA-graph replays, once under the profiler (one B1 and one B2 a
+       step, as the counters say) and once timed, beside the same epoch
+       with the eager step; the idle share of a profiled window of each;
+       the device eval against the streaming eval;
+    4. checkpoint round trip: save, load into a new trainer (bit for bit),
+       and one more step on each;
+    5. the CLI in subprocesses: train (device data), then evaluate, predict
+       and analyze together.
+
+    Returns the B1 and B2 launches on the card in this process's phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    train_x, train_y, val_x, val_y, _ = synthetic_cifar10(50000, 10000, seed=0)
+    log(f"[harness] synthetic_cifar10(50000, 10000, seed=0): {train_x.nbytes + val_x.nbytes} bytes "
+        f"of uint8 images, made in {time.perf_counter() - t0:.1f} s")
+    data = dict(train_features=train_x, train_labels=train_y, val_features=val_x,
+                val_labels=val_y, batch_size=HARNESS_BATCH)
+    names = gradient_metric_names(cifar10_single_block_config(num_layers=64, num_filters=16))
+    fi.fused_euler_dense.launches = fi.fused_euler_dense_bwd.launches = 0
+    def counts():
+        return fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. The streaming path, replayed steps.
+        stream = Training(headline_model(), csv_logger_dir=os.path.join(tmp, "csv"),
+                          csv_logger_name="stream", summaries_dir=os.path.join(tmp, "sum"),
+                          summaries_name="stream", **data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream.train(epochs=1, steps_per_epoch=STREAM_STEPS, learning_rate_schedule=lambda s: LR,
+                     eval_frequency=None, summaries_frequency=10, verbose=False)
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+        stream_counts = counts()
+        t0 = time.perf_counter()
+        stream_eval = stream.evaluate("val")
+        eval_s = time.perf_counter() - t0
+        eval_b1 = counts()[0] - stream_counts[0]
+        stream.close()
+        (csv_name,) = [f for f in os.listdir(os.path.join(tmp, "csv")) if f.endswith("_training.csv")]
+        with open(os.path.join(tmp, "csv", csv_name)) as f:
+            header, *rows = f.read().splitlines()
+        rows = [[float(v) for v in r.split(" ")] for r in rows]
+        steps_logged = [int(r[0]) for r in rows]
+        summary_steps = logged_summary_steps(os.path.join(tmp, "sum", "stream", "train"))
+        first, last = rows[0][1], rows[-1][1]
+        val_batches = -(-len(val_x) // HARNESS_BATCH)
+        ok = (header.split(" ") == ["global_step", "mean_loss", "accuracy"] + names
+              and steps_logged == list(range(10, STREAM_STEPS + 1, 10))
+              and summary_steps == steps_logged
+              and all(np.isfinite(r[1]) for r in rows) and last < first
+              and stream_counts == (WARMUP_CALLS + STREAM_STEPS,) * 2
+              and eval_b1 == 2 * WARMUP_CALLS + val_batches
+              and stream.eval_metrics._count == len(val_x) and np.isfinite(stream_eval["mean_loss"]))
+        log(f"[harness] streaming: {STREAM_STEPS} replayed steps in {stream_s:.4f} s, capture "
+            f"included ({STREAM_STEPS / stream_s:.2f} steps/s, host staging included; B1 and B2 "
+            f"launches {stream_counts}: {WARMUP_CALLS} warm-up + one replay a step); CSV of "
+            f"{len(header.split(' '))} columns, rows at steps {steps_logged[0]}..{steps_logged[-1]} "
+            f"every 10, summaries at the same steps; running mean loss {first:.4f} -> {last:.4f}; "
+            f"val pass of {val_batches} replayed batches ({int(stream.eval_metrics._count)} images, "
+            f"{eval_b1} B1 launches: two graphs, batch 32 and the last batch of 16) in {eval_s:.4f} s: "
+            f"loss {stream_eval['mean_loss']:.6f} accuracy {stream_eval['accuracy']:.4f}: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the streaming epoch's CSV, summaries, loss or evaluation is wrong")
+
+        # 2. K replayed steps against K eager steps.
+        graph_model, eager_model = headline_model(), headline_model()
+        optimizers = [make_adam(m.parameters()) for m in (graph_model, eager_model)]
+        idx = np.arange(GRAPH_K * HARNESS_BATCH).reshape(GRAPH_K, HARNESS_BATCH)
+        images = torch.from_numpy(train_x[idx]).cuda()
+        labels = torch.from_numpy(train_y[idx]).cuda()
+        lrs = [LR * (1 + 0.1 * i) for i in range(GRAPH_K)]
+        t0 = time.perf_counter()
+        metrics, norms = make_multi_step(graph_model, optimizers[0])(images, labels, lrs)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        eager = make_train_step(eager_model, optimizers[1])
+        want = [eager(images[i], labels[i], lrs[i]) for i in range(GRAPH_K)]
+        loss_err = max(abs(float(metrics["loss"][i]) - float(m["loss"])) / abs(float(m["loss"]))
+                       for i, (m, _) in enumerate(want))
+        norm_err = max(norm_rel(norms[i], n) for i, (_, n) in enumerate(want))
+        param_err = max(norm_rel(p.detach(), q.detach())
+                        for p, q in zip(graph_model.parameters(), eager_model.parameters()))
+        ok = max(loss_err, norm_err, param_err) <= TRAIN_GRAD_TOL
+        log(f"[harness] graph against eager: {GRAPH_K} replayed steps (capture, {WARMUP_CALLS} warm-up "
+            f"calls and the replays in {capture_s:.3f} s) against {GRAPH_K} eager steps: loss rows "
+            f"max rel {loss_err:.2e}, grad-norm rows max norm-rel {norm_err:.2e}, parameters max "
+            f"norm-rel {param_err:.2e} (tol {TRAIN_GRAD_TOL:g}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the replayed steps disagree with the eager steps")
+
+        # 3. The device-resident epoch, as CUDA-graph replays.
+        steps = len(train_x) // HARNESS_BATCH
+        trainer = Training(graph_model, optimizer=optimizers[0],
+                           jit_augment=standard_cifar_augment(),
+                           csv_logger_dir=os.path.join(tmp, "csv_dev"), csv_logger_name="dev", **data)
+        host_before = counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.train(epochs=1, steps_per_epoch=steps, learning_rate_schedule=lambda s: LR,
+                          device_data=True, eval_frequency=None, verbose=False)
+            torch.cuda.synchronize()
+        n1, n2, t1, t2 = kernel_counts(prof.key_averages())
+        counted = tuple(a - b for a, b in zip(counts(), host_before))
+        ok = (n1, n2) == counted == (WARMUP_CALLS + steps,) * 2
+        log(f"[harness] device-resident epoch under the profiler: {steps} steps, B1 {n1} and B2 {n2} "
+            f"launches on the card = {WARMUP_CALLS} warm-up calls + one replay a step (the launch "
+            f"counters: {counted[0]} and {counted[1]}); inside the epoch B1 {t1 / max(n1, 1):.4f} ms "
+            f"and B2 {t2 / max(n2, 1):.4f} ms a launch ({smi}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the device-resident epoch of {steps} steps launched B1 {n1} and "
+                                 f"B2 {n2} times on the card, counted {counted}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = trainer.train(epochs=1, steps_per_epoch=steps, learning_rate_schedule=lambda s: LR,
+                                device_data=True, eval_frequency=None, verbose=False)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        device_eval = trainer.evaluate("val", device_data=True)
+        device_eval_s = time.perf_counter() - t0
+        streaming_eval = trainer.evaluate("val")
+        loss_rel = abs(device_eval["mean_loss"] - streaming_eval["mean_loss"]) / abs(
+            streaming_eval["mean_loss"])
+        acc_err = abs(device_eval["accuracy"] - streaming_eval["accuracy"])
+        ok = (loss_rel <= 1e-5 and acc_err <= 1e-3 and np.isfinite(history["train"][-1]["mean_loss"]))
+        log(f"[harness] device eval ({val_batches} replayed batches, ragged last "
+            f"masked, {device_eval_s:.4f} s) against the streaming eval on the same parameters: loss "
+            f"{device_eval['mean_loss']:.6f} vs {streaming_eval['mean_loss']:.6f} (rel {loss_rel:.2e}, "
+            f"tol 1e-5), accuracy {device_eval['accuracy']:.4f} vs {streaming_eval['accuracy']:.4f} "
+            f"(tol 1e-3); epoch loss {history['train'][-1]['mean_loss']:.4f} accuracy "
+            f"{history['train'][-1]['accuracy']:.4f}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the device eval disagrees with the streaming eval")
+
+        # The same epoch with the eager step, from the eager twin's state.
+        features, targets = trainer._device_data("train")
+        generator = torch.Generator(device="cuda")
+        augment = standard_cifar_augment()
+
+        def eager_epoch(n):
+            return eager_device_epoch(eager, features, targets, generator, n, augment)
+
+        eager_epoch(WINDOW_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager_rows = eager_epoch(steps)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        if not torch.isfinite(eager_rows).all():
+            raise AssertionError("the eager epoch's telemetry rows are not finite")
+        graph_rate = rate_figures("device-resident epoch, CUDA-graph replays (unprofiled)",
+                                  epoch_s, steps, smi)
+        eager_rate = rate_figures("device-resident epoch, eager steps (unprofiled)",
+                                  eager_s, steps, smi)
+        graph_idle = epoch_window(
+            "device-resident epochs, replayed steps",
+            lambda n: trainer.train(epochs=1, steps_per_epoch=n, learning_rate_schedule=lambda s: LR,
+                                    device_data=True, eval_frequency=None, verbose=False),
+            WINDOW_STEPS)
+        eager_idle = epoch_window("device-resident epochs, eager steps", eager_epoch, WINDOW_STEPS)
+        log(f"[harness] graph against eager, measured epochs of {steps} steps: {epoch_s:.4f} vs "
+            f"{eager_s:.4f} s, {graph_rate / eager_rate:.3f}x the steps/s; idle {graph_idle:.1%} vs "
+            f"{eager_idle:.1%} ({smi})")
+
+        # 4. Checkpoint round trip.
+        path = trainer.save(os.path.join(tmp, "ckpt"))
+        restored = Training(headline_model(seed=7), **data)
+        restored.load_variables(path)
+        same_params = all(torch.equal(p, q) for p, q in
+                          zip(restored.model.parameters(), trainer.model.parameters()))
+        slots = [(restored.optimizer.state[p], trainer.optimizer.state[q]) for p, q in
+                 zip(restored.model.parameters(), trainer.model.parameters())]
+        same_slots = all(torch.equal(a[k], b[k]) for a, b in slots for k in ("step", "exp_avg", "exp_avg_sq"))
+        x, y = images[0], labels[0]
+        # Each row is its graph's own output: copied before the next call.
+        row_a = restored._train_step(x, y, LR).clone()
+        row_b = trainer._train_step(x, y, LR).clone()
+        step_err = max(abs(float(row_a[0]) - float(row_b[0])) / abs(float(row_b[0])),
+                       norm_rel(row_a[3:], row_b[3:]),
+                       max(norm_rel(p.detach(), q.detach()) for p, q in
+                           zip(restored.model.parameters(), trainer.model.parameters())))
+        ok = same_params and same_slots and restored.global_step == trainer.global_step and \
+            step_err <= TRAIN_GRAD_TOL
+        log(f"[harness] checkpoint at step {trainer.global_step}: parameters bit for bit {same_params}, "
+            f"Adam slots bit for bit {same_slots}; the next step max rel {step_err:.2e} "
+            f"(tol {TRAIN_GRAD_TOL:g}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the checkpoint round trip lost state")
+        phase_counts = counts()
+
+        # 5. The CLI as a user runs it.
+        phase_cli(tmp)
+    return phase_counts
+
+
+def run_cli(*args):
+    """``python -m differential_equations_resnet_tpu_torch.cli <args>`` from
+    the checkout: a started process."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    return subprocess.Popen([sys.executable, "-m", "differential_equations_resnet_tpu_torch.cli",
+                             *args], cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish(proc, name, timeout=300):
+    """Wait for a CLI process; its last line of output as JSON, or raise."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {name} exited with {proc.returncode}:\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_cli(tmp):
+    model = ["--num-layers", "64", "--num-filters", "16"]
+    sizes = ["--synthetic-train-size", "5000", "--synthetic-val-size", "1000"]
+    save_dir, csv_dir = os.path.join(tmp, "cli_ckpt"), os.path.join(tmp, "cli_csv")
+    t0 = time.perf_counter()
+    trained = finish(run_cli("train", *model, "--epochs", "1", "--steps-per-epoch", "100", *sizes,
+                             "--device-data", "--save-dir", save_dir, "--csv-dir", csv_dir), "train")
+    train_s = time.perf_counter() - t0
+    checkpoint = os.path.join(save_dir, Checkpointer(save_dir).latest())
+    (csv_name,) = [f for f in os.listdir(csv_dir) if f.endswith("_training.csv")]
+    np.save(os.path.join(tmp, "x.npy"),
+            np.random.default_rng(0).uniform(0, 255, (40, 32, 32, 3)).astype(np.float32))
+    t0 = time.perf_counter()
+    procs = {
+        "evaluate": run_cli("evaluate", *model, *sizes, "--checkpoint", checkpoint),
+        "predict": run_cli("predict", os.path.join(tmp, "x.npy"), *model, "--checkpoint", checkpoint),
+        "analyze": run_cli("analyze", os.path.join(csv_dir, csv_name)),
+    }
+    out = {name: finish(proc, name) for name, proc in procs.items()}
+    rest_s = time.perf_counter() - t0
+    ok = (np.isfinite(trained["best"]["loss"]) and np.isfinite(out["evaluate"]["mean_loss"])
+          and out["predict"]["num_images"] == 40
+          and np.isfinite(out["analyze"]["gradient_norm_relative_deviation"]))
+    log(f"[harness] cli train (64L x 16F, 100 device-resident steps on 5000 images, then 32 eval "
+        f"batches) {train_s:.1f} s: {json.dumps(trained)}")
+    log(f"[harness] cli evaluate, predict and analyze together {rest_s:.1f} s: "
+        + "; ".join(f"{k} {json.dumps(v)}" for k, v in out.items()) + f": {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a CLI subcommand printed a bad result")
+
 
 
 def main() -> int:
@@ -589,14 +970,17 @@ def main() -> int:
     phase_time_requests(predict, requests)
     phase_time_train(step, batch)
     phase_profile(step, batch)
+    harness_fwd, harness_bwd = phase_harness(smi)
     source = "differential_equations_resnet_tpu_torch/csrc/"
     replaces = "differential_equations_resnet_tpu/ops/pallas/fused_integrator.py:"
     kernels = [
         {"name": "fused_euler_fwd", "route": "cuda", "source": source + "fused_euler_fwd.cu",
-         "replaces": replaces + "146", "launches": serve_launches + train_fwd,
+         "replaces": replaces + "146",
+         "launches": serve_launches + train_fwd + harness_fwd,
          "max_abs_err": fwd_err, **fwd_timing, "library_ms": None},
         {"name": "fused_euler_bwd", "route": "cuda", "source": source + "fused_euler_bwd.cu",
-         "replaces": replaces + "216", "launches": train_bwd,
+         "replaces": replaces + "216",
+         "launches": train_bwd + harness_bwd,
          "max_abs_err": bwd_err, **bwd_timing, "library_ms": None},
     ]
     log(f"[device] {smi}")

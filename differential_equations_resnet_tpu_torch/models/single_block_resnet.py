@@ -25,8 +25,10 @@ because they do not change the numbers of a forward or backward pass:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -260,6 +262,23 @@ def _apply_conv_block(x: torch.Tensor, sp: dict, strides) -> torch.Tensor:
     return torch.relu(main) + shortcut
 
 
+def _input_constant(value, device: torch.device) -> torch.Tensor:
+    """A config's subtract_mean / divide_by_stddev (a scalar or per-channel
+    values) as an fp32 tensor on ``device``, made once per (values,
+    device): a host-to-device copy on every forward cannot be captured in
+    a CUDA graph.  It stays a device tensor, not a Python scalar, because
+    CUDA divides by a Python scalar as a multiplication by its reciprocal,
+    which can move the last bit."""
+    values = np.asarray(value, dtype=np.float32)
+    return _device_constant(tuple(values.ravel().tolist()), values.shape, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_constant(values: Tuple[float, ...], shape, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):  # usable by autograd whoever asked first
+        return torch.tensor(values, dtype=torch.float32, device=device).reshape(shape)
+
+
 def apply_single_block_resnet(
     params: dict,
     x: torch.Tensor,
@@ -270,9 +289,9 @@ def apply_single_block_resnet(
     fc_activation (softmax)."""
     x = x.to(torch.float32)
     if config.subtract_mean is not None:
-        x = x - torch.as_tensor(config.subtract_mean, dtype=x.dtype, device=x.device)
+        x = x - _input_constant(config.subtract_mean, x.device)
     if config.divide_by_stddev is not None:
-        x = x / torch.as_tensor(config.divide_by_stddev, dtype=x.dtype, device=x.device)
+        x = x / _input_constant(config.divide_by_stddev, x.device)
     stem = params["stem"]
     x = torch.relu(conv2d_same(x, stem.kernel, strides=tuple(config.strides[0]), bias=stem.bias))
     for plan, sp in zip(stage_plans(config), params["stages"]):

@@ -130,8 +130,15 @@ def _diag_blocks(a, b, c, d, gamma: float, axis: int) -> torch.Tensor:
     )
 
 
-def _index(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(arr, dtype=torch.long, device=device)
+@functools.lru_cache(maxsize=None)
+def _cross_index_tensors(channels: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`cross_pair_indices` as long tensors on ``device``, made once per
+    (channels, device): a host-to-device copy on every materialization
+    cannot be captured in a CUDA graph.  Never written to; made outside
+    inference mode, so that autograd may use them whoever asked first."""
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(arr, dtype=torch.long, device=device)
+                     for arr in cross_pair_indices(channels))
 
 
 def materialize_3x3(params: Antisym3x3Params, gamma: float = 0.0) -> torch.Tensor:
@@ -141,9 +148,8 @@ def materialize_3x3(params: Antisym3x3Params, gamma: float = 0.0) -> torch.Tenso
     kernel = a.new_zeros((3, 3, channels, channels))
     idx = torch.arange(channels, device=a.device)
     kernel[:, :, idx, idx] = _diag_blocks(a, params.b, params.c, params.d, gamma, 0)
-    c_in, c_out = cross_pair_indices(channels)
-    if c_in.size:
-        ci, co = _index(c_in, a.device), _index(c_out, a.device)
+    if channels > 1:
+        ci, co = _cross_index_tensors(channels, a.device)
         kernel[:, :, ci, co] = params.cross
         kernel[:, :, co, ci] = -params.cross.flip(0, 1)
     return kernel
@@ -161,9 +167,8 @@ def materialize_3x3_stacked(
     kernel[:, :, :, idx, idx] = _diag_blocks(
         a, params.b, params.c, params.d, gamma, 1
     )
-    c_in, c_out = cross_pair_indices(channels)
-    if c_in.size:
-        ci, co = _index(c_in, a.device), _index(c_out, a.device)
+    if channels > 1:
+        ci, co = _cross_index_tensors(channels, a.device)
         kernel[:, :, :, ci, co] = params.cross
         kernel[:, :, :, co, ci] = -params.cross.flip(1, 2)
     return kernel
@@ -177,8 +182,7 @@ def pack_3x3(
     channels = kernel.shape[-1]
     idx = torch.arange(channels, device=kernel.device)
     diag = kernel[:, :, idx, idx]  # (3, 3, C)
-    c_in, c_out = cross_pair_indices(channels)
-    ci, co = _index(c_in, kernel.device), _index(c_out, kernel.device)
+    ci, co = _cross_index_tensors(channels, kernel.device)
     return Antisym3x3Params(
         a=diag[0, 0],
         b=diag[0, 1],

@@ -20,6 +20,11 @@ rows of the zero-padded state in shared memory (`band_plan` chooses n), so
 its gate is the card's shared memory, not the TPU's VMEM
 (`fused_euler_eligible`, `fused_euler_bwd_eligible`).  Where a gradient will
 be needed, a shape that B2 declines raises before B1 is launched.
+
+Each wrapper counts its kernel's launches on the card in ``launches``.
+Under a CUDA-graph capture the kernel is recorded into the graph, not
+launched: the wrapper counts it in ``captured`` instead, and each replay of
+the graph adds the launches it holds (`count_replay`).
 """
 
 from __future__ import annotations
@@ -365,6 +370,15 @@ def _raise_on_error(lib, err, which):
         )
 
 
+def _count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel, or one recorded into the CUDA
+    graph being captured on the current stream."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def _launch(x, kernels, biases, h, matmul_dtype, bands=None) -> torch.Tensor:
     """B1 on CUDA tensors; ``bands`` overrides the band plan (for
     measurements)."""
@@ -384,7 +398,7 @@ def _launch(x, kernels, biases, h, matmul_dtype, bands=None) -> torch.Tensor:
             int(matmul_dtype == torch.bfloat16), stream,
         )
     _raise_on_error(lib, err, "fused_euler_fwd")
-    fused_euler_dense.launches += 1
+    _count_launch(fused_euler_dense)
     return out
 
 
@@ -424,7 +438,7 @@ def _launch_bwd(x, kernels, biases, g, h, matmul_dtype, bands=None):
             num_layers, bands, float(h), int(matmul_dtype == torch.bfloat16), stream,
         )
     _raise_on_error(lib, err, "fused_euler_bwd")
-    fused_euler_dense_bwd.launches += 1
+    _count_launch(fused_euler_dense_bwd)
     # Per-band partials summed here, in a fixed order, where the JAX wrapper
     # sums its tiles'.
     return gx, gk.sum(dim=0).reshape(num_layers, 3, 3, channels, channels), gb.sum(dim=0)
@@ -458,7 +472,7 @@ def fused_euler_dense_bwd(
     return _launch_bwd(x, kernels, biases, g, h, matmul_dtype)
 
 
-fused_euler_dense_bwd.launches = 0
+fused_euler_dense_bwd.launches = fused_euler_dense_bwd.captured = 0
 
 
 class FusedEulerDense(torch.autograd.Function):
@@ -505,7 +519,23 @@ def fused_euler_dense(
     return _forward(x, kernels, biases, h, matmul_dtype)
 
 
-fused_euler_dense.launches = 0
+fused_euler_dense.launches = fused_euler_dense.captured = 0
+
+# The wrappers that count their launches, in the order of `captured_launches`.
+COUNTED_WRAPPERS = (fused_euler_dense, fused_euler_dense_bwd)
+
+
+def captured_launches() -> Tuple[int, ...]:
+    """Each counted wrapper's launches recorded into captured graphs so far."""
+    return tuple(w.captured for w in COUNTED_WRAPPERS)
+
+
+def count_replay(in_graph: Tuple[int, ...]) -> None:
+    """Count one replay of a graph that holds ``in_graph`` launches of each
+    counted wrapper's kernel (the difference of `captured_launches` across
+    its capture)."""
+    for wrapper, n in zip(COUNTED_WRAPPERS, in_graph):
+        wrapper.launches += n
 
 
 def fused_euler_3x3(

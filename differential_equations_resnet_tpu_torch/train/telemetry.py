@@ -8,15 +8,17 @@ structure is explicit in the parameter tree, so the norms of a stacked
 
 Names match the reference CSV columns: ``conv1_kernel_gradient_mean_norm``,
 then ``res{stage}_{block}_branch2_kernel_gradient_mean_norm`` per residual
-layer.  The bottleneck family waits for ROADMAP A12; the TensorBoard-style
-`SummaryWriter` and the moment summaries wait for the harness (A7).
+layer.  The bottleneck family waits for ROADMAP A12.  `SummaryWriter` and the
+moment and mean-norm summaries are the reference's tf.summary scalars.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
@@ -102,3 +104,75 @@ class CsvLogger:
 
     def close(self) -> None:
         self._fp.close()
+
+
+def add_moments_summary(writer: "SummaryWriter", name: str, value, step: int) -> None:
+    """Log mean / stddev / max / min of a tensor (reference
+    `training/tf_variable_summaries.py:3-22`)."""
+    arr = _numpy(value)
+    writer.scalar(f"{name}/mean", float(arr.mean()), step)
+    writer.scalar(f"{name}/stddev", float(arr.std()), step)
+    writer.scalar(f"{name}/max", float(arr.max()), step)
+    writer.scalar(f"{name}/min", float(arr.min()), step)
+
+
+def add_mean_norm_summary(
+    writer: "SummaryWriter", name: str, value, step: int, order: int = 2
+) -> None:
+    """Log ||v||_order / size(v) (reference
+    `training/tf_variable_summaries.py:24-38`)."""
+    arr = _numpy(value).reshape(-1)
+    writer.scalar(f"{name}/mean_norm", float(np.linalg.norm(arr, ord=order) / arr.size), step)
+
+
+def _numpy(value) -> np.ndarray:
+    """A tensor (any device) or array-like as a NumPy array, reduced on the
+    host as the JAX package reduces it."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+class SummaryWriter:
+    """Scalar summary writer: TensorBoard (through
+    `torch.utils.tensorboard`) where the ``tensorboard`` package is
+    installed, else one JSON object a line in ``<log_dir>/scalars.jsonl``,
+    byte for byte as the JAX package's writer."""
+
+    def __init__(self, log_dir: str, use_tensorboard: Optional[bool] = None):
+        self.log_dir = log_dir
+        os.makedirs(log_dir, exist_ok=True)
+        self._tb = None
+        self._jsonl = None
+        if use_tensorboard is None or use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter as TBWriter
+            except ImportError:
+                if use_tensorboard:
+                    raise
+            else:
+                self._tb = TBWriter(log_dir=log_dir)
+        if self._tb is None:
+            self._jsonl = open(os.path.join(log_dir, "scalars.jsonl"), "a", buffering=1)
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        if self._tb is not None:
+            self._tb.add_scalar(tag, float(value), int(step))
+        else:
+            self._jsonl.write(
+                json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n"
+            )
+
+    def scalars(self, values: dict, step: int) -> None:
+        for tag, value in values.items():
+            self.scalar(tag, value, step)
+
+    def flush(self) -> None:
+        if self._tb is not None:
+            self._tb.flush()
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
+        if self._jsonl is not None:
+            self._jsonl.close()

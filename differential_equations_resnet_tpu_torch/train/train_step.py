@@ -1,24 +1,40 @@
-"""The training step: forward, cross-entropy from logits, backward, Adam, the
-batch metrics and the per-layer gradient mean norms.
+"""The training step and its loops: forward, cross-entropy from logits,
+backward, Adam, the batch metrics and the per-layer gradient mean norms;
+the K-step, device-resident epoch, evaluation and prediction loops.
 
-Port of `differential_equations_resnet_tpu/train/train_step.py`
-(`make_adam`, the loss, `make_train_step`, `make_eval_step`).  The JAX
-package jits a pure function of a `TrainState`; here the parameters live in
+Port of `differential_equations_resnet_tpu/train/train_step.py`.  The JAX
+package jits pure functions of a `TrainState`; here the parameters live in
 the model (an `nn.Module`) and the Adam slots in the optimizer, and a step
 updates both in place.  On the card the identity stack's forward and
 backward are the hand-written kernels B1 and B2 (one launch each a step);
 nothing is synchronized with the host inside a step: the metrics and the
 grad-norm row come back as device tensors.
 
-Left for later: the device mesh (ROADMAP A15), the multi-step and
-device-resident epoch loops (A9), and the harness with checkpoints (A7).
+The loops (`make_multi_step`, `make_device_epoch`, `make_multi_eval_step`,
+`make_device_eval`, `make_predict_step`) keep the JAX signatures.  On CUDA
+each captures one train step (or one eval or predict batch) once in a
+`torch.cuda.CUDAGraph` over static input buffers, and replays it: a step
+then costs a copy of its batch into the static buffers, one
+``graph.replay()`` and a copy of its telemetry row into a device buffer of
+rows, which the caller reads once.  The learning rate is the optimizer's
+0-d device tensor (`make_adam` builds Adam with ``capturable=True`` on
+CUDA), set before each replay.  A capture that fails raises; there is no
+eager fallback.  On the CPU the same functions run the step eagerly in a
+loop.  The kernels' launch counters count the replays' launches, not the
+capture (`fused_integrator.count_replay`).
+
+A graph holds the addresses of the parameters, the gradients and the
+optimizer's state tensors at capture: after ``optimizer.load_state_dict``
+(which replaces the state tensors) build the loop again.  ``mesh`` (data
+parallelism, ROADMAP A15) raises `NotImplementedError`; ``donate`` and
+``unroll`` are accepted and mean nothing here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,18 +42,63 @@ from torch import nn
 
 from differential_equations_resnet_tpu_torch.models.blocks import l2_kernel_penalty
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import map_leaves
+from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator
 from differential_equations_resnet_tpu_torch.train.telemetry import gradient_mean_norms
 
 Metrics = Dict[str, torch.Tensor]
+# Warm-up calls on a side stream before a capture (PyTorch's recipe for
+# capturing a whole network): lazy initialisation happens outside the graph.
+WARMUP_CALLS = 3
+
+
+def _no_mesh(mesh, name: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{name}(mesh=...): data parallelism over a device mesh waits for its "
+            "port (ROADMAP A15)."
+        )
+
+
+def init_adam_state(optimizer: torch.optim.Adam) -> None:
+    """Create every parameter's Adam state now, as zeros, as optax's
+    ``init`` does and as `torch.optim.Adam` would at its first step: the
+    checkpoint structure is then the same before and after the first step,
+    and a CUDA graph can capture the state's addresses."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if state:
+                continue
+            on_device = group["capturable"] or group["fused"]
+            state["step"] = (torch.zeros((), dtype=torch.float32, device=p.device) if on_device
+                             else torch.tensor(0.0, dtype=torch.float32))
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            if group["amsgrad"]:
+                state["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
 def make_adam(
     params: Iterable[torch.Tensor], learning_rate: float = 1e-3, epsilon: float = 1e-7
 ) -> torch.optim.Adam:
     """Adam with the reference's hyperparameters (tf.train.AdamOptimizer(lr,
-    epsilon=1e-07)).  torch.optim.Adam's update is optax's, lr * m_hat /
-    (sqrt(v_hat) + eps); the train step sets the learning rate every step."""
-    return torch.optim.Adam(params, lr=learning_rate, eps=epsilon)
+    epsilon=1e-07)), its state created at once (`init_adam_state`).
+    torch.optim.Adam's update is optax's, lr * m_hat / (sqrt(v_hat) + eps).
+
+    For parameters on CUDA it is ``capturable=True`` with the learning rate
+    as a 0-d device tensor, so that a CUDA graph can capture a step and the
+    rate can change between replays; the eager step uses the same
+    optimizer.  On the CPU, where PyTorch refuses ``capturable``, the rate is
+    a float.  The train step sets the rate every step."""
+    params = list(params)
+    if params and params[0].is_cuda:
+        optimizer = torch.optim.Adam(
+            params, lr=torch.tensor(learning_rate, dtype=torch.float32, device=params[0].device),
+            eps=epsilon, capturable=True)
+    else:
+        optimizer = torch.optim.Adam(params, lr=learning_rate, eps=epsilon)
+    init_adam_state(optimizer)
+    return optimizer
 
 
 @dataclasses.dataclass
@@ -69,9 +130,13 @@ def cross_entropy_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> tor
     return per_example_cross_entropy(logits, labels).mean()
 
 
-def _correct(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _hits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     target = labels.argmax(dim=-1) if labels.dim() > 1 else labels.long()
-    return (logits.argmax(dim=-1) == target).sum().float()
+    return (logits.argmax(dim=-1) == target).float()
+
+
+def _correct(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return _hits(logits, labels).sum()
 
 
 def build_loss_fn(model: nn.Module) -> Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
@@ -90,32 +155,27 @@ def build_loss_fn(model: nn.Module) -> Callable[[torch.Tensor, torch.Tensor], Tu
     return loss_fn
 
 
-def make_train_step(
-    model: nn.Module,
-    optimizer: torch.optim.Optimizer,
-    with_gradient_metrics: bool = True,
-    accum_steps: int = 1,
-) -> Callable[[torch.Tensor, torch.Tensor, float], Tuple[Metrics, torch.Tensor]]:
-    """``step(images, labels, lr) -> (metrics, grad_norms)``: one update of
-    ``model`` by ``optimizer`` at learning rate ``lr``.
+def _set_lr(optimizer: torch.optim.Optimizer, lr) -> None:
+    """The learning rate of every group: written into the group's device
+    tensor where it is one (no host-to-device copy), else set as a float."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            if isinstance(lr, torch.Tensor):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)
 
-    metrics = {"loss", "correct", "count"} (device scalars); grad_norms has
-    shape (1 + num_layers,), ordered as `gradient_metric_names` (empty with
-    ``with_gradient_metrics=False``).
 
-    ``accum_steps=k > 1`` splits the batch into k equal microbatches, runs
-    forward and backward on each and applies one update with the averaged
-    gradient: the monolithic step's update (the L2 penalty averages back to
-    one application) at one microbatch's activation memory.  A batch that k
-    does not divide is trained monolithically, with a warning.  The loss is
-    the mean of the microbatch losses, correct their sum."""
+def _build_update(model, optimizer, with_gradient_metrics: bool, accum_steps: int):
+    """``update(images, labels) -> (metrics, grad_norms)``: one optimizer
+    step at the rate the optimizer holds.  This is what a graph captures."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}.")
     loss_fn = build_loss_fn(model)
 
-    def step(images: torch.Tensor, labels: torch.Tensor, lr: float):
-        for group in optimizer.param_groups:
-            group["lr"] = lr
+    def update(images: torch.Tensor, labels: torch.Tensor):
         optimizer.zero_grad(set_to_none=True)
         n = images.shape[0]
         k = accum_steps
@@ -123,7 +183,7 @@ def make_train_step(
             warnings.warn(
                 f"batch of {n} is not divisible by accum_steps={k}; training it "
                 "monolithically (full-batch activation memory for this batch).",
-                stacklevel=2,
+                stacklevel=3,
             )
             k = 1
         losses, correct = [], 0.0
@@ -141,17 +201,257 @@ def make_train_step(
         metrics = {
             "loss": torch.stack(losses).mean(),
             "correct": correct,
-            "count": torch.tensor(float(n), device=images.device),
+            # On the device without a host tensor: capturable.
+            "count": images.new_full((), n, dtype=torch.float32),
         }
         return metrics, grad_norms
+
+    return update
+
+
+def make_train_step(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    with_gradient_metrics: bool = True,
+    accum_steps: int = 1,
+    *,
+    mesh=None,
+) -> Callable[[torch.Tensor, torch.Tensor, float], Tuple[Metrics, torch.Tensor]]:
+    """``step(images, labels, lr) -> (metrics, grad_norms)``: one eager
+    update of ``model`` by ``optimizer`` at learning rate ``lr``.
+
+    metrics = {"loss", "correct", "count"} (device scalars); grad_norms has
+    shape (1 + num_layers,), ordered as `gradient_metric_names` (empty with
+    ``with_gradient_metrics=False``).
+
+    ``accum_steps=k > 1`` splits the batch into k equal microbatches, runs
+    forward and backward on each and applies one update with the averaged
+    gradient: the monolithic step's update (the L2 penalty averages back to
+    one application) at one microbatch's activation memory.  A batch that k
+    does not divide is trained monolithically, with a warning.  The loss is
+    the mean of the microbatch losses, correct their sum."""
+    _no_mesh(mesh, "make_train_step")
+    update = _build_update(model, optimizer, with_gradient_metrics, accum_steps)
+
+    def step(images: torch.Tensor, labels: torch.Tensor, lr):
+        _set_lr(optimizer, lr)
+        return update(images, labels)
 
     return step
 
 
-def make_eval_step(model: nn.Module) -> Callable[[torch.Tensor, torch.Tensor], Metrics]:
+def pack_row(metrics: Metrics, grad_norms: torch.Tensor) -> torch.Tensor:
+    """One telemetry row on the device: [loss, correct, count, *grad_norms]."""
+    scalars = [metrics[k].reshape(1) for k in ("loss", "correct", "count")]
+    return torch.cat(scalars + [grad_norms.reshape(-1)])
+
+
+def unpack_rows(rows: torch.Tensor) -> Tuple[Metrics, torch.Tensor]:
+    """(K, 3 + W) rows -> (metrics {each (K,)}, grad_norms (K, W))."""
+    return {"loss": rows[:, 0], "correct": rows[:, 1], "count": rows[:, 2]}, rows[:, 3:]
+
+
+def _graph_tensors(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """Every parameter and optimizer-state tensor: what a warm-up changes and
+    the capture must leave as it found."""
+    tensors = []
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            tensors.append(p.data)
+            state = optimizer.state.get(p)
+            if not state:
+                raise ValueError(
+                    "CUDA graph capture needs the optimizer's state to exist before the "
+                    "capture (make_adam creates it; see init_adam_state)."
+                )
+            tensors.extend(v for v in state.values() if isinstance(v, torch.Tensor))
+    return tensors
+
+
+def _lr_tensors(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    tensors = [group["lr"] for group in optimizer.param_groups]
+    if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors) or not all(
+            group.get("capturable") for group in optimizer.param_groups):
+        raise ValueError(
+            "a CUDA graph of the train step needs an optimizer with capturable=True and a "
+            "learning rate held in a device tensor (make_adam builds one)."
+        )
+    return tensors
+
+
+def _capture(what: str, fn, inputs, keep: Sequence[torch.Tensor] = ()):
+    """Capture ``fn(*inputs)`` (static device tensors, already filled) in a
+    CUDA graph after `WARMUP_CALLS` calls on a side stream; every tensor of
+    ``keep`` is given back its value from before the warm-up, in place.
+    Returns (graph, outputs, the kernel launches the graph holds, as
+    `fused_integrator.captured_launches` counts them).  Raises, naming
+    ``what``, if the capture fails: there is no eager fallback."""
+    saved = [t.clone() for t in keep]
+    side = torch.cuda.Stream(device=inputs[0].device)
+    side.wait_stream(torch.cuda.current_stream(inputs[0].device))
+    try:
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_CALLS):
+                fn(*inputs)
+        torch.cuda.current_stream(inputs[0].device).wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(keep, saved):
+                t.copy_(s)
+        graph = torch.cuda.CUDAGraph()
+        before = fused_integrator.captured_launches()
+        with torch.cuda.graph(graph):
+            outputs = fn(*inputs)
+        in_graph = tuple(a - b for a, b in zip(fused_integrator.captured_launches(), before))
+    except RuntimeError as e:
+        raise RuntimeError(f"CUDA graph capture of the {what} failed: {e}") from e
+    return graph, outputs, in_graph
+
+
+class _Replayed:
+    """``fn`` over CUDA tensors, captured once per input shapes and dtypes
+    (`_capture`) and replayed over static copies of the inputs.  The output
+    is the graph's own: the next call overwrites it.  ``keep()`` names the
+    state the warm-up must leave as it found it.  Each replay counts the
+    kernel launches its graph holds (`fused_integrator.count_replay`)."""
+
+    def __init__(self, what: str, fn, keep=tuple):
+        self.what, self.fn, self.keep = what, fn, keep
+        self.graphs = {}
+
+    def __call__(self, *inputs: torch.Tensor):
+        key = tuple((tuple(t.shape), t.dtype) for t in inputs)
+        if key not in self.graphs:
+            static = [t.clone() for t in inputs]
+            self.graphs[key] = (static, *_capture(self.what, self.fn, static, self.keep()))
+        static, graph, outputs, in_graph = self.graphs[key]
+        for s, t in zip(static, inputs):
+            s.copy_(t)
+        graph.replay()
+        fused_integrator.count_replay(in_graph)
+        return outputs
+
+
+class _StepRunner:
+    """One train step ``(images, labels, lr) -> telemetry row``: the eager
+    step on the CPU, a replayed graph on CUDA (whose row the next call
+    overwrites: copy it first)."""
+
+    def __init__(self, model, optimizer, with_gradient_metrics, accum_steps):
+        self.optimizer = optimizer
+        update = _build_update(model, optimizer, with_gradient_metrics, accum_steps)
+        self.row = lambda images, labels: pack_row(*update(images, labels))
+        self.replayed = _Replayed("train step", self.row, lambda: _graph_tensors(optimizer))
+
+    def __call__(self, images: torch.Tensor, labels: torch.Tensor, lr) -> torch.Tensor:
+        if not images.is_cuda:
+            _set_lr(self.optimizer, lr)
+            return self.row(images, labels)
+        _lr_tensors(self.optimizer)  # raises unless the rate is a device tensor
+        _set_lr(self.optimizer, lr)
+        return self.replayed(images.to(torch.float32), labels)
+
+
+def make_multi_step(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    mesh=None,
+    with_gradient_metrics: bool = True,
+    donate: bool = True,
+    unroll: int = 1,
+    accum_steps: int = 1,
+):
+    """K train steps over pre-staged batches:
+
+        multi(images (K,B,H,W,C), labels (K,B), lrs (K,))
+            -> (metrics {each (K,)}, grad_norms (K, 1+L))
+
+    with per-step telemetry stacked on the device.  On CUDA each step is a
+    replay of one captured step (see the module docstring): the K steps
+    cost K replays and no host synchronization.  ``accum_steps``: each
+    batch is itself microbatched (see `make_train_step`)."""
+    _no_mesh(mesh, "make_multi_step")
+    runner = _StepRunner(model, optimizer, with_gradient_metrics, accum_steps)
+
+    def multi(images: torch.Tensor, labels: torch.Tensor, lrs):
+        lrs = torch.as_tensor(lrs, dtype=torch.float32).to(images.device)
+        rows = None
+        for i in range(images.shape[0]):
+            row = runner(images[i], labels[i], lrs[i])
+            if rows is None:
+                rows = row.new_empty((images.shape[0], row.numel()))
+            rows[i].copy_(row)
+        return unpack_rows(rows)
+
+    return multi
+
+
+def make_device_epoch(
+    model: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    batch_size: int,
+    mesh=None,
+    with_gradient_metrics: bool = True,
+    augment=None,
+    donate: bool = True,
+    accum_steps: int = 1,
+):
+    """A device-resident epoch:
+
+        epoch(features (N,H,W,C), labels (N,), generator, lrs (steps,))
+            -> (metrics {each (steps,)}, grad_norms (steps, 1+L))
+
+    The dataset lives on the device (uint8 recommended: 4x fewer bytes) and
+    never comes back to the host.  ``torch.randperm(N, generator=...)`` on
+    the features' device draws the epoch's order without replacement; step
+    i gathers ``perm[i*B:(i+1)*B]``, casts to fp32, applies ``augment(
+    generator, images)`` (`data.jit_augment`) and trains.  So ``steps *
+    batch_size <= N`` must hold.  ``generator`` lives on the features'
+    device and drives the shuffle and then each step's augmentation, in
+    that order.  On CUDA every step is a replay of one captured step; the
+    gather and the augmentation run eagerly between replays (a few small
+    kernels)."""
+    if batch_size % accum_steps:
+        raise ValueError(
+            f"accum_steps ({accum_steps}) must divide batch_size "
+            f"({batch_size}): the device-resident epoch gathers exact "
+            "batch_size batches, so a non-dividing accum_steps would fall "
+            "back to the monolithic step on every batch."
+        )
+    _no_mesh(mesh, "make_device_epoch")
+    runner = _StepRunner(model, optimizer, with_gradient_metrics, accum_steps)
+
+    def epoch(features: torch.Tensor, labels: torch.Tensor, generator: torch.Generator, lrs):
+        steps = len(lrs)
+        n = features.shape[0]
+        if steps * batch_size > n:
+            raise ValueError(
+                f"Device-resident epochs draw batches without replacement: "
+                f"steps * batch_size ({steps} * {batch_size}) exceeds the "
+                f"{n} examples in the device-resident dataset."
+            )
+        lrs = torch.as_tensor(lrs, dtype=torch.float32).to(features.device)
+        perm = torch.randperm(n, generator=generator, device=features.device)
+        rows = None
+        for i in range(steps):
+            idx = perm[i * batch_size:(i + 1) * batch_size]
+            x = features.index_select(0, idx).to(torch.float32)
+            y = labels.index_select(0, idx)
+            if augment is not None:
+                x = augment(generator, x)
+            row = runner(x, y, lrs[i])
+            if rows is None:
+                rows = row.new_empty((steps, row.numel()))
+            rows[i].copy_(row)
+        return unpack_rows(rows)
+
+    return epoch
+
+
+def make_eval_step(model: nn.Module, *, mesh=None) -> Callable[[torch.Tensor, torch.Tensor], Metrics]:
     """``(images, labels) -> metrics``: plain cross-entropy (never the L2
     penalty, as the reference's evaluation), the correct count and the
-    count."""
+    count.  Eager."""
+    _no_mesh(mesh, "make_eval_step")
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> Metrics:
         with torch.no_grad():
@@ -159,7 +459,97 @@ def make_eval_step(model: nn.Module) -> Callable[[torch.Tensor, torch.Tensor], M
             return {
                 "loss": cross_entropy_from_logits(logits, labels),
                 "correct": _correct(logits, labels),
-                "count": torch.tensor(float(images.shape[0]), device=images.device),
+                "count": images.new_full((), images.shape[0], dtype=torch.float32),
             }
 
     return step
+
+
+def _eval_row(model):
+    """``row(images, labels, valid) -> [loss, correct, count]`` of one eval
+    batch, ``valid`` (B,) masking padding: the loss is the mean over the
+    valid examples.  Eager on the CPU, a replayed graph on CUDA (its row
+    then the graph's own)."""
+
+    def row(images, labels, valid):
+        with torch.no_grad():
+            logits = model(images, return_logits=True)
+            count = valid.sum()
+            loss = (per_example_cross_entropy(logits, labels) * valid).sum() / count.clamp(min=1.0)
+            correct = (_hits(logits, labels) * valid).sum()
+            return torch.stack([loss, correct, count])
+
+    replayed = _Replayed("eval batch", row)
+    return lambda images, labels, valid: (replayed if images.is_cuda else row)(
+        images.to(torch.float32), labels, valid)
+
+
+def make_multi_eval_step(model: nn.Module, mesh=None, unroll: int = 1):
+    """K-batch evaluation: ``(images (K,B,...), labels (K,B)) -> metrics
+    {each (K,)}``, each batch a replay of one captured eval batch on
+    CUDA.  Loss is plain cross-entropy."""
+    _no_mesh(mesh, "make_multi_eval_step")
+    runner = _eval_row(model)
+
+    def multi(images: torch.Tensor, labels: torch.Tensor) -> Metrics:
+        k, batch = images.shape[:2]
+        valid = torch.ones(batch, dtype=torch.float32, device=images.device)
+        rows = images.new_empty((k, 3), dtype=torch.float32)
+        for i in range(k):
+            rows[i].copy_(runner(images[i], labels[i], valid))
+        return {"loss": rows[:, 0], "correct": rows[:, 1], "count": rows[:, 2]}
+
+    return multi
+
+
+def make_device_eval(model: nn.Module, batch_size: int, mesh=None):
+    """A full pass over a device-resident dataset:
+
+        eval_all(features (N,H,W,C), labels (N,))
+            -> metrics {"loss", "correct", "count": each (steps,)}
+
+    steps = ceil(N / batch_size); the ragged last batch is zero-padded and
+    masked, its loss the mean over its valid examples, so the metrics equal
+    feeding per-batch results to `StreamingMetrics`.  Every batch is a
+    replay of one captured eval batch on CUDA."""
+    _no_mesh(mesh, "make_device_eval")
+    runner = _eval_row(model)
+
+    def eval_all(features: torch.Tensor, labels: torch.Tensor) -> Metrics:
+        n = features.shape[0]
+        steps = -(-n // batch_size)
+        device = features.device
+        rows = torch.empty((steps, 3), dtype=torch.float32, device=device)
+        full = torch.ones(batch_size, dtype=torch.float32, device=device)
+        for i in range(steps):
+            start = i * batch_size
+            x, y = features[start:start + batch_size], labels[start:start + batch_size]
+            valid = full
+            if len(x) < batch_size:
+                pad = batch_size - len(x)
+                x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+                y = torch.cat([y, y.new_zeros((pad,) + tuple(y.shape[1:]))])
+                valid = (torch.arange(batch_size, device=device) < n - start).float()
+            rows[i].copy_(runner(x, y, valid))
+        return {"loss": rows[:, 0], "correct": rows[:, 1], "count": rows[:, 2]}
+
+    return eval_all
+
+
+def make_predict_step(model: nn.Module, mesh=None):
+    """``predict(images) -> model output`` (softmax probabilities, the
+    reference predictor's output), a new tensor on the images' device.  On
+    CUDA a replay of one captured forward per batch shape."""
+    _no_mesh(mesh, "make_predict_step")
+
+    def forward(images):
+        with torch.no_grad():
+            return model(images)
+
+    replayed = _Replayed("predict batch", forward)
+
+    def predict(images: torch.Tensor) -> torch.Tensor:
+        images = images.to(torch.float32)
+        return replayed(images).clone() if images.is_cuda else forward(images)
+
+    return predict

@@ -1,0 +1,73 @@
+"""Analytic FLOP accounting for model TFLOP/s and MFU.
+
+Port of `differential_equations_resnet_tpu/utils/flops.py`.  It counts MODEL
+FLOPs, the nominal dense-conv arithmetic (2 * rows * k*k*Cin*Cout a
+convolution), not what an implementation executes.  MFU = model FLOPs /
+wall time / the card's peak.
+
+The peaks are an NVIDIA H100 SXM's (NVIDIA's data sheet, dense, at its 700 W
+limit).  The port trains in fp32 on the CUDA cores, so `mfu` defaults to the
+fp32 peak outside the tensor cores.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from differential_equations_resnet_tpu_torch.models.single_block_resnet import stage_plans
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def single_block_forward_flops(config: Any, batch_size: int) -> int:
+    """Nominal forward-pass FLOPs of a single-block ODE-ResNet, walking the
+    model's own stage plan.  Elementwise work (bias, relu, residual add,
+    pooling, normalization) is left out: it is O(rows*C) against the convs'
+    O(rows*k^2*C^2)."""
+    height, width, c_in = config.image_shape
+    k = config.kernel_size
+    sh, sw = config.strides[0]
+    height, width = _ceil_div(height, sh), _ceil_div(width, sw)
+    channels = config.filters_per_block[0]
+    flops = 2 * batch_size * height * width * k * k * c_in * channels
+
+    field_evals = {"euler": 1, "midpoint": 2, "rk4": 4}[config.integrator]
+    for plan in stage_plans(config):
+        if plan.pool:
+            height, width = height // 2, width // 2
+        if plan.has_conv_block:
+            psh, psw = plan.strides
+            height, width = _ceil_div(height, psh), _ceil_div(width, psw)
+            rows = batch_size * height * width
+            # The main kxk conv and the 1x1 shortcut.
+            flops += 2 * rows * (k * k + 1) * plan.in_channels * plan.filters
+            channels = plan.filters
+        rows = batch_size * height * width
+        flops += plan.num_identity * field_evals * 2 * rows * k * k * channels * channels
+    if config.include_top:
+        flops += 2 * batch_size * channels * config.num_classes
+    return int(flops)
+
+
+def single_block_train_flops(config: Any, batch_size: int) -> int:
+    """Nominal train-step FLOPs: forward and backward, the backward about
+    twice the forward (one cotangent conv and one filter-gradient
+    contraction a kernel)."""
+    return 3 * single_block_forward_flops(config, batch_size)
+
+
+# Peak rates of one NVIDIA H100 SXM (data sheet, dense, 700 W), in FLOP/s.
+PEAK_FLOPS = {
+    "h100_sxm_fp32": 67e12,     # CUDA cores, no tensor cores
+    "h100_sxm_tf32": 495e12,
+    "h100_sxm_bf16": 989e12,
+    "h100_sxm_fp8": 1979e12,
+}
+
+
+def mfu(flops_per_step: float, steps_per_sec: float,
+        peak: float = PEAK_FLOPS["h100_sxm_fp32"]) -> float:
+    """Model-FLOPs utilization: achieved model FLOP/s over the peak."""
+    return flops_per_step * steps_per_sec / peak

@@ -27,6 +27,7 @@ from differential_equations_resnet_tpu_torch.models.blocks import (
     ConvParams,
     DenseParams,
 )
+from differential_equations_resnet_tpu_torch.models.single_block_resnet import _named_leaves
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     Antisym3x3DenseParams,
     Antisym3x3Params,
@@ -82,6 +83,27 @@ def params_from_jax(tree) -> Any:
         lambda a: torch.from_numpy(np.array(a, dtype=np.float32)),
         lambda cls, values: cls(*values),
     )
+
+
+def adam_state_from_jax(adam_state, optimizer: torch.optim.Optimizer) -> dict:
+    """optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``; NumPy
+    leaves, ``mu``/``nu`` in the JAX parameter tree's layout) as a state_dict
+    for ``optimizer``, a torch Adam over a port model's ``parameters()`` of
+    the same tree, for ``optimizer.load_state_dict``.  optax's count of
+    updates is torch's ``step``: both take the bias corrections at it.  The
+    hyperparameters stay the optimizer's own; ``load_state_dict`` moves the
+    step to the card for a capturable Adam."""
+    # In the order the model registers its parameters.
+    mu = [t for _, t in _named_leaves(params_from_jax(adam_state.mu))]
+    nu = [t for _, t in _named_leaves(params_from_jax(adam_state.nu))]
+    target = optimizer.state_dict()
+    indices = [i for group in target["param_groups"] for i in group["params"]]
+    if not len(mu) == len(nu) == len(indices):
+        raise ValueError(f"the Adam state has {len(mu)} leaves, the optimizer {len(indices)} parameters")
+    step = float(np.asarray(adam_state.count))
+    state = {i: {"step": torch.tensor(step, dtype=torch.float32), "exp_avg": m, "exp_avg_sq": v}
+             for i, m, v in zip(indices, mu, nu)}
+    return {"state": state, "param_groups": target["param_groups"]}
 
 
 def params_to_jax(tree, classes: Optional[Mapping[str, type]] = None) -> Any:

@@ -1,0 +1,94 @@
+"""The port's command line on the CPU (``--device cpu``): train, analyze,
+evaluate and predict as a user runs them, and the flags the port cannot run
+yet."""
+
+import glob
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from differential_equations_resnet_tpu_torch import cli
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the suite runs a worker a core, and small CPU
+    convolutions slow down many times over when the workers' threads
+    oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+MODEL = ["--num-layers", "2", "--num-filters", "4", "--device", "cpu"]
+
+
+def run(capsys, *argv):
+    assert cli.main(list(argv)) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("mode", [[], ["--device-data"], ["--scan-steps", "2"]])
+def test_train_analyze_evaluate_predict(tmp_path, capsys, mode):
+    csv_dir, save_dir = str(tmp_path / "csv"), str(tmp_path / "ckpt")
+    out = run(capsys, "train", *MODEL, "--epochs", "2", "--steps-per-epoch", "4",
+              "--synthetic-train-size", "128", "--synthetic-val-size", "40",
+              "--summaries-frequency", "2", "--csv-dir", csv_dir, "--save-dir", save_dir, *mode)
+    assert np.isfinite(out["best"]["loss"]) and 0 <= out["best"]["accuracy"] <= 1
+    (train_csv,) = glob.glob(os.path.join(csv_dir, "single_block_antisymmetric_2-layers_4-filters_*_training.csv"))
+    (eval_csv,) = glob.glob(os.path.join(csv_dir, "*_evaluation.csv"))
+    report = run(capsys, "analyze", train_csv, "--evaluation-csv", eval_csv)
+    assert set(report) == {"gradient_norm_relative_deviation", "gradient_norm_standard_deviation",
+                           "gradient_norm_last_first_ratio", "best_val_accuracy",
+                           "best_val_mean_loss"}
+    assert report["best_val_accuracy"] == out["best"]["accuracy"]
+    checkpoint = os.path.join(save_dir, sorted(os.listdir(save_dir))[-1].removesuffix(".meta.json"))
+    metrics = run(capsys, "evaluate", *MODEL, "--checkpoint", checkpoint,
+                  "--synthetic-train-size", "128", "--synthetic-val-size", "40",
+                  *[f for f in mode if f == "--device-data"])
+    assert metrics["accuracy"] == out["best"]["accuracy"]
+    np.testing.assert_allclose(metrics["mean_loss"], out["best"]["loss"], rtol=1e-5)
+    images = np.random.default_rng(0).uniform(0, 255, (5, 32, 32, 3)).astype(np.float32)
+    np.save(tmp_path / "x.npy", images)
+    pred = run(capsys, "predict", str(tmp_path / "x.npy"), *MODEL, "--checkpoint", checkpoint,
+               "--batch-size", "4", "--output", str(tmp_path / "p.npy"))
+    assert pred["num_images"] == 5 and len(pred["predictions"]) == 5
+    probs = np.load(tmp_path / "p.npy")
+    assert probs.shape == (5, 10)
+    np.testing.assert_allclose(probs.sum(-1), 1.0, rtol=1e-5)
+
+
+def test_resume_continues_from_the_latest_checkpoint(tmp_path, capsys):
+    common = [*MODEL, "--epochs", "1", "--steps-per-epoch", "2", "--synthetic-train-size", "64",
+              "--synthetic-val-size", "16", "--csv-dir", str(tmp_path / "csv"),
+              "--save-dir", str(tmp_path / "ckpt")]
+    run(capsys, "train", *common)
+    out = run(capsys, "train", *common, "--resume")
+    assert np.isfinite(out["best"]["loss"])
+    assert "step-00000004" in sorted(os.listdir(tmp_path / "ckpt"))[-1]
+    with pytest.raises(SystemExit):
+        cli.main(["train", *MODEL, "--resume", "--synthetic-train-size", "8",
+                  "--synthetic-val-size", "8"])
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--model", "resnet50"], "A12"),
+    (["--bf16"], "bfloat16"),
+    (["--int8-forward"], "int8"),
+    (["--integrator", "rk4"], "rk4"),
+    (["--kernel-type", "regular"], "regular"),
+])
+def test_flags_the_port_cannot_run_raise(tmp_path, flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        cli.main(["evaluate", *MODEL, *flags, "--synthetic-val-size", "8"])
+
+
+def test_predict_takes_npy_only_and_other_subcommands_are_not_registered(tmp_path):
+    with pytest.raises(NotImplementedError, match="A8"):
+        cli.main(["predict", str(tmp_path), *MODEL])
+    with pytest.raises(SystemExit):
+        cli.main(["benchmark"])

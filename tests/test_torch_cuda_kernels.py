@@ -164,3 +164,61 @@ def test_weight_gradients_are_deterministic_on_cuda(card):
     second = fi.fused_euler_dense_bwd(x, kernels, bias, g, 0.125)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_graph_replayed_train_step_equals_the_eager_step(card):
+    """A train step captured once in a CUDA graph and replayed
+    (`make_multi_step`) against the eager step (`make_train_step`) on a twin
+    model with the same capturable Adam, 3 steps of a 2-layer model: loss,
+    correct, grad norms and parameters agree (cuDNN's weight gradient sums
+    in no fixed order, so not bit for bit).  The kernels' counters count
+    the warm-up calls and the replays' launches; the capture is counted
+    apart, in ``captured``."""
+    from differential_equations_resnet_tpu_torch.models import (
+        build_single_block_resnet,
+        cifar10_single_block_config,
+    )
+    from differential_equations_resnet_tpu_torch.train import (
+        make_adam,
+        make_device_eval,
+        make_eval_step,
+        make_multi_step,
+        make_predict_step,
+        make_train_step,
+    )
+    from differential_equations_resnet_tpu_torch.train.train_step import WARMUP_CALLS
+
+    config = cifar10_single_block_config(num_layers=2, num_filters=8)
+    models = [build_single_block_resnet(config, generator=torch.Generator().manual_seed(0),
+                                        device="cuda") for _ in range(2)]
+    optimizers = [make_adam(m.parameters()) for m in models]
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.uniform(0, 255, (3, 8, 32, 32, 3)).astype(np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 10, (3, 8))).cuda()
+    lrs = [1e-3, 2e-3, 5e-4]
+    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+    captured_before = fi.captured_launches()
+    metrics, norms = make_multi_step(models[0], optimizers[0])(images, labels, lrs)
+    torch.cuda.synchronize()
+    counted = (fi.fused_euler_dense.launches - before[0], fi.fused_euler_dense_bwd.launches - before[1])
+    assert counted == (WARMUP_CALLS + 3, WARMUP_CALLS + 3)
+    assert [a - b for a, b in zip(fi.captured_launches(), captured_before)] == [1, 1]
+    eager = make_train_step(models[1], optimizers[1])
+    for i in range(3):
+        m, n = eager(images[i], labels[i], lrs[i])
+        torch.testing.assert_close(metrics["loss"][i], m["loss"], rtol=1e-5, atol=0)
+        assert float(metrics["correct"][i]) == float(m["correct"])
+        torch.testing.assert_close(norms[i], n, rtol=1e-4, atol=0)
+    for p, q in zip(*[m.parameters() for m in models]):
+        torch.testing.assert_close(p, q, rtol=0, atol=1e-5)
+    # Eval and predict graphs against the eager forward.
+    x, y = images[0], labels[0]
+    want = make_eval_step(models[0])(x, y)
+    got = make_device_eval(models[0], 8)(x[:7], y[:7])
+    assert float(got["count"][0]) == 7
+    assert torch.isfinite(got["loss"]).all()
+    full = make_device_eval(models[0], 8)(x, y)
+    torch.testing.assert_close(full["loss"][0], want["loss"], rtol=1e-5, atol=0)
+    with torch.no_grad():
+        probs = models[0](x)
+    torch.testing.assert_close(make_predict_step(models[0])(x), probs, rtol=1e-5, atol=1e-6)
