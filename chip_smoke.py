@@ -47,7 +47,17 @@ Phases, each of which raises on failure (exit code != 0):
    TFLOP/s, MFU, and the idle share of a profiled window of each epoch), and
    its device evaluation against the streaming one; a checkpoint round trip
    (bit for bit); and the command line (train, then evaluate, predict and
-   analyze) in subprocesses.
+   analyze) in subprocesses;
+10. kernel types: at 64 layers, regular 16F and 8F and centrosymmetric k = 3
+   through B1/B2 and centrosymmetric k = 5, midpoint and RK4 on the
+   per-layer route, each against the CPU with its launches and route
+   asserted; widths within the JAX gate's reach that the kernels decline
+   (64 filters in training, 72 in a forward) raise before any launch; the
+   per-layer steps timed; a captured remat midpoint step against an eager
+   one; B1 and B2 timed at 8 filters;
+11. epochs: device-resident epochs of the regular 64L x 16F and 8F models;
+12. subcommands: reproduce --synthetic, deep-stability, train then export
+   --checkpoint then load_exported, benchmark and sweep, in subprocesses.
 
 A kernel's launches are those on the card: its wrapper counts each launch
 outside a CUDA-graph capture, and each replay of a graph counts the
@@ -73,6 +83,8 @@ from differential_equations_resnet_tpu_torch.models import (
     build_single_block_resnet,
     cifar10_single_block_config,
 )
+from differential_equations_resnet_tpu_torch.models.blocks import init_conv
+from differential_equations_resnet_tpu_torch.models import single_block_resnet as sbr
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     Antisym3x3Params,
     init_antisym_3x3,
@@ -91,7 +103,7 @@ from differential_equations_resnet_tpu_torch.train import (
     make_multi_step,
     make_train_step,
 )
-from differential_equations_resnet_tpu_torch.train.train_step import WARMUP_CALLS, pack_row
+from differential_equations_resnet_tpu_torch.train.train_step import TrainState, WARMUP_CALLS, pack_row
 from differential_equations_resnet_tpu_torch.utils.flops import (
     PEAK_FLOPS,
     mfu,
@@ -177,14 +189,20 @@ def phase_plan():
                 f"({blocks} blocks resident at once)")
 
 
-def make_case(batch, height, width, channels, layers, seed):
-    """Random input, packed antisymmetric kernels materialized to dense,
-    nonzero biases and a random cotangent of the output, from a seed, on
-    the card."""
+def make_case(batch, height, width, channels, layers, seed, unstructured=False):
+    """Random input, packed antisymmetric kernels materialized to dense (or,
+    with ``unstructured``, He-initialised dense kernels with no structure,
+    as the regular kernel type has), nonzero biases and a random cotangent
+    of the output, from a seed, on the card."""
     gen = torch.Generator().manual_seed(seed)
-    blocks = [init_antisym_3x3(gen, channels) for _ in range(layers)]
-    stacked = Antisym3x3Params(*[torch.stack(leaf) for leaf in zip(*blocks)])
-    kernels = materialize_3x3_stacked(stacked)
+    if unstructured:
+        kernels = init_conv(gen, (3, 3), channels, layers * channels).kernel
+        kernels = kernels.reshape(3, 3, channels, layers, channels).permute(3, 0, 1, 2, 4)
+        kernels = kernels.contiguous()
+    else:
+        blocks = [init_antisym_3x3(gen, channels) for _ in range(layers)]
+        stacked = Antisym3x3Params(*[torch.stack(leaf) for leaf in zip(*blocks)])
+        kernels = materialize_3x3_stacked(stacked)
     biases = 0.05 * torch.randn(layers, channels, generator=gen)
     x = torch.randn(batch, height, width, channels, generator=gen)
     g = torch.randn(batch, height, width, channels, generator=gen)
@@ -222,11 +240,14 @@ def phase_kernels():
         (70, 8, 8, 8, 3, 0.125),      # one band an image
         (1, 64, 64, 16, 4, 0.125),    # 64x64x16: at least 4 bands to fit
         (1, 32, 32, 56, 3, 0.125),    # C = 56: one kernel buffer, loaded after the barrier
+        # Unstructured (regular) kernels at the main path's shapes, 16 and 8 filters.
+        (32, 32, 32, 16, 64, 0.125, "regular"),
+        (32, 32, 32, 8, 64, 0.125, "regular"),
     ]
     slice_err = 0.0
-    for i, (b, hh, ww, c, layers, h) in enumerate(cases):
-        x, kernels, biases, _ = make_case(b, hh, ww, c, layers, 100 + i)
-        plan = describe_bands(x.shape)[1]
+    for i, (b, hh, ww, c, layers, h, *kind) in enumerate(cases):
+        x, kernels, biases, _ = make_case(b, hh, ww, c, layers, 100 + i, unstructured=bool(kind))
+        plan = describe_bands(x.shape)[1] + (f", {kind[0]} kernels" if kind else "")
         for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
             got = fi.fused_euler_dense(x, kernels, biases, h, matmul_dtype=dtype)
             want = fi.reference_euler_dense(x, kernels, biases, h, matmul_dtype=dtype)
@@ -270,11 +291,14 @@ def phase_kernels_bwd():
         (1, 64, 64, 16, 4, 0.125),    # 64x64x16: at least 8 bands to fit
         (2, 32, 32, 22, 3, 0.125),    # C = 22: declined by one block per image
         (1, 32, 32, 56, 3, 0.125),    # C = 56: one K^T buffer, 16 bands (non-portable cluster)
+        # Unstructured (regular) kernels at the training path's shapes, 16 and 8 filters.
+        (32, 32, 32, 16, 64, 0.125, "regular"),
+        (32, 32, 32, 8, 64, 0.125, "regular"),
     ]
     slice_err = 0.0
-    for i, (b, hh, ww, c, layers, h) in enumerate(cases):
-        x, kernels, biases, g = make_case(b, hh, ww, c, layers, 200 + i)
-        plan = describe_bands(x.shape, backward=True)[1]
+    for i, (b, hh, ww, c, layers, h, *kind) in enumerate(cases):
+        x, kernels, biases, g = make_case(b, hh, ww, c, layers, 200 + i, unstructured=bool(kind))
+        plan = describe_bands(x.shape, backward=True)[1] + (f", {kind[0]} kernels" if kind else "")
         for dtype in (torch.float32, torch.bfloat16):
             got = fi.fused_euler_dense_bwd(x, kernels, biases, g, h, dtype)
             want = fi.reference_euler_dense_bwd(x, kernels, biases, g, h, dtype)
@@ -445,6 +469,24 @@ def cuda_time_ms(fn, runs=25, repeats=5, warmup=3):
     return statistics.median(times)
 
 
+def kernel_bounds(b, hh, ww, c, layers, backward=False):
+    """The least time B1 (or B2) could take at this shape: FLOPs over the
+    fp32 CUDA-core rate against the bytes that each input read once and each
+    output written once move over HBM.  B1: 2*L*B*H*W*9C^2 FLOPs, x, K and b
+    in, y out.  B2: the forward recompute, dK and the state cotangent, each
+    2*L*B*H*W*9C^2 (it reads the relu mask of its recompute instead of
+    recomputing z); x, g, K and b in, gx, gK and gb out."""
+    passes = 3 if backward else 1
+    flops = passes * 2 * layers * b * hh * ww * 9 * c * c
+    state, kernels, biases = b * hh * ww * c, layers * 9 * c * c, layers * c
+    nbytes = 4 * ((3 * state + 2 * kernels + 2 * biases) if backward
+                  else (2 * state + kernels + biases))
+    flop_ms, byte_ms = flops / FP32_CUDA_CORE_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(flops=flops, nbytes=nbytes, flop_ms=flop_ms, byte_ms=byte_ms,
+                bound_ms=max(flop_ms, byte_ms),
+                bound_by="operations" if flop_ms >= byte_ms else "bytes")
+
+
 def phase_time_kernel():
     b, hh, ww, c, layers, h = 32, 32, 32, 16, 64, 0.125
     x, kernels, biases, _ = make_case(b, hh, ww, c, layers, 7)
@@ -460,12 +502,8 @@ def phase_time_kernel():
         log(f"[time] fused_euler_fwd B={batch} in {bands} bands (not the plan): kernel {ms:.4f} ms")
     kernel_ms = cuda_time_ms(lambda: fi.fused_euler_dense(x, kernels, biases, h))
     plain_ms = cuda_time_ms(lambda: fi.reference_euler_dense(x, kernels, biases, h))
-    flops = 2 * layers * b * hh * ww * 9 * c * c
-    nbytes = 4 * (2 * x.numel() + kernels.numel() + biases.numel())
-    flop_ms = flops / FP32_CUDA_CORE_FLOPS * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_by = "operations" if flop_ms >= byte_ms else "bytes"
-    bound_ms = max(flop_ms, byte_ms)
+    bound = kernel_bounds(b, hh, ww, c, layers)
+    flops, nbytes, flop_ms, byte_ms, bound_ms, bound_by = bound.values()
     log(f"[time] fused_euler_fwd B={b} {hh}x{ww}x{c} L={layers} ({describe_bands(x.shape)[1]}): "
         f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, 25 calls back to back, median of 5)")
     log(f"[time] bound: {flops / 1e9:.3f} GFLOP / {FP32_CUDA_CORE_FLOPS / 1e12:g} TFLOP/s "
@@ -488,20 +526,12 @@ def phase_time_bwd():
     log(f"[time] fused_euler_bwd B={b} in 4 bands (not the plan): kernel {ms4:.4f} ms")
     kernel_ms = cuda_time_ms(lambda: fi.fused_euler_dense_bwd(x, kernels, biases, g, h))
     plain_ms = cuda_time_ms(lambda: fi.reference_euler_dense_bwd(x, kernels, biases, g, h))
-    # The least work from x: forward recompute, dK and the state cotangent,
-    # each 2*L*B*H*W*9C^2 (B2 reads the relu mask of its recompute instead
-    # of recomputing z).  The least bytes: each input (x, g, kernels, biases)
-    # read once, each output (gx, gk, gb) written once.
-    flops = 3 * 2 * layers * b * hh * ww * 9 * c * c
-    nbytes = 4 * (3 * x.numel() + 2 * kernels.numel() + 2 * biases.numel())
+    bound = kernel_bounds(b, hh, ww, c, layers, backward=True)
+    flops, nbytes, flop_ms, byte_ms, bound_ms, bound_by = bound.values()
     bands = fi.kernel_bands(x.shape, backward=True)
     scratch_bytes = (4 * 2 * layers * x.numel()                    # trajectory out and in
                      + 2 * 4 * layers * x[..., 0].numel()           # mask words out and in
                      + 4 * b * bands * (kernels.numel() + biases.numel()))  # partials
-    flop_ms = flops / FP32_CUDA_CORE_FLOPS * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_by = "operations" if flop_ms >= byte_ms else "bytes"
-    bound_ms = max(flop_ms, byte_ms)
     log(f"[time] fused_euler_bwd B={b} {hh}x{ww}x{c} L={layers} "
         f"({describe_bands(x.shape, backward=True)[1]}): kernel {kernel_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms (CUDA events, 25 calls back to back, median of 5)")
@@ -514,6 +544,26 @@ def phase_time_bwd():
     log(f"[time] fused_euler_bwd B=32: {kernel_ms:.4f} ms against the target of <= 2.5 ms: "
         f"{'met' if kernel_ms <= 2.5 else 'NOT met'}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_time_narrow(smi):
+    """B1 and B2 at 8 filters (the regular 64L x 8F run's identity stack,
+    unstructured kernels, batch 32) beside their plain versions and their
+    bounds."""
+    b, hh, ww, c, layers, h = 32, 32, 32, 8, 64, 0.125
+    x, kernels, biases, g = make_case(b, hh, ww, c, layers, 9, unstructured=True)
+    for name, backward, run, plain in (
+            ("fused_euler_fwd", False, lambda: fi.fused_euler_dense(x, kernels, biases, h),
+             lambda: fi.reference_euler_dense(x, kernels, biases, h)),
+            ("fused_euler_bwd", True, lambda: fi.fused_euler_dense_bwd(x, kernels, biases, g, h),
+             lambda: fi.reference_euler_dense_bwd(x, kernels, biases, g, h))):
+        kernel_ms, plain_ms = cuda_time_ms(run), cuda_time_ms(plain)
+        bound = kernel_bounds(b, hh, ww, c, layers, backward)
+        flops, bound_ms, bound_by = bound["flops"], bound["bound_ms"], bound["bound_by"]
+        log(f"[time] {name} B={b} {hh}x{ww}x{c} L={layers} regular kernels "
+            f"({describe_bands(x.shape, backward)[1]}): kernel {kernel_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; bound {flops / 1e9:.3f} GFLOP / 67 TFLOP/s = {bound_ms:.4f} ms by "
+            f"{bound_by}; kernel at {bound_ms / kernel_ms:.1%} of it ({smi})")
 
 
 def phase_time_train(step, batch, runs=25):
@@ -637,10 +687,11 @@ def logged_summary_steps(log_dir):
     return sorted({e.step for tag in events.Tags()["scalars"] for e in events.Scalars(tag)})
 
 
-def rate_figures(label, seconds, steps, smi):
+def rate_figures(label, seconds, steps, smi, config=None):
     """Seconds, steps/s, model TFLOP/s and MFU against the fp32 peak of a
-    run of ``steps`` train steps at batch 32."""
-    config = cifar10_single_block_config(num_layers=64, num_filters=16)
+    run of ``steps`` train steps at batch 32 (of the headline model unless
+    ``config`` says otherwise)."""
+    config = config or cifar10_single_block_config(num_layers=64, num_filters=16)
     flops_step = single_block_train_flops(config, HARNESS_BATCH)
     rate = steps / seconds
     log(f"[harness] {label}: {seconds:.4f} s for {steps} steps, {rate:.2f} steps/s, "
@@ -690,7 +741,7 @@ def kernel_counts(kernels):
     return n1, n2, t1, t2
 
 
-def phase_harness(smi):
+def phase_harness(smi, arrays):
     """The harness at full width and depth (64L x 16F, batch 32) on
     synthetic CIFAR-10 of the real size (50,000 + 10,000 uint8 images):
 
@@ -712,16 +763,12 @@ def phase_harness(smi):
     Returns the B1 and B2 launches on the card in this process's phase."""
     from torch.profiler import ProfilerActivity, profile
 
-    t0 = time.perf_counter()
-    train_x, train_y, val_x, val_y, _ = synthetic_cifar10(50000, 10000, seed=0)
-    log(f"[harness] synthetic_cifar10(50000, 10000, seed=0): {train_x.nbytes + val_x.nbytes} bytes "
-        f"of uint8 images, made in {time.perf_counter() - t0:.1f} s")
+    train_x, train_y, val_x, val_y = arrays
     data = dict(train_features=train_x, train_labels=train_y, val_features=val_x,
                 val_labels=val_y, batch_size=HARNESS_BATCH)
     names = gradient_metric_names(cifar10_single_block_config(num_layers=64, num_filters=16))
     fi.fused_euler_dense.launches = fi.fused_euler_dense_bwd.launches = 0
-    def counts():
-        return fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches
+    counts = launch_counts
 
     with tempfile.TemporaryDirectory() as tmp:
         # 1. The streaming path, replayed steps.
@@ -952,6 +999,364 @@ def phase_cli(tmp):
         raise AssertionError("a CLI subcommand printed a bad result")
 
 
+# The reference's comparison at full width and depth (64 layers): the stacks
+# that run on B1/B2 besides the antisymmetric one, and those that take the
+# per-layer route on cuDNN.
+FUSED_CONFIGS = (  # (kernel type, filters, kernel size)
+    ("regular", 16, 3),
+    ("regular", 8, 3),
+    ("centrosymmetric", 16, 3),
+)
+PER_LAYER_CONFIGS = (  # (kernel type, filters, kernel size, integrator)
+    ("centrosymmetric", 16, 5, "euler"),
+    ("antisymmetric", 16, 3, "midpoint"),
+    ("antisymmetric", 16, 3, "rk4"),
+)
+TIMED_STEPS = 50
+
+
+def model_config(kernel_type, filters, kernel_size=3, integrator="euler", remat=False):
+    return cifar10_single_block_config(num_layers=64, num_filters=filters, kernel_type=kernel_type,
+                                       kernel_size=kernel_size, integrator=integrator, remat=remat)
+
+
+def describe(config):
+    return (f"{config.kernel_type} k={config.kernel_size} {config.integrator} 64L x "
+            f"{config.filters_per_block[0]}F" + (" remat" if config.remat else ""))
+
+
+def launch_counts():
+    return fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches
+
+
+def reset_counts():
+    """Every kernel's launch count and every route's count set to 0."""
+    fi.fused_euler_dense.launches = fi.fused_euler_dense_bwd.launches = 0
+    sbr.route_counts.update(fused=0, per_layer=0)
+
+
+def cifar_batch(rng, n):
+    return (torch.from_numpy(rng.uniform(0, 255, (n, 32, 32, 3)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 10, n)))
+
+
+def against_cpu(config, smi, steps=2, batch=8):
+    """The model of ``config`` (random weights from seed 0) on the card
+    against its twin on the CPU's plain path, from the same parameters and
+    batches: the logits of one batch, then ``steps`` train steps at batch 8
+    (loss, correct count, grad-norm row, parameters after Adam).  Asserts the
+    route and its launches: a fused stack launches B1 once a forward and B2
+    once a step, a per-layer stack neither.  Returns the card's model and
+    the launches (B1, B2) of the run."""
+    card = build_single_block_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda")
+    # The route a train step takes, from the shapes alone.
+    route = sbr.identity_route(config, torch.zeros(batch, 32, 32, config.filters_per_block[0]),
+                               sbr._dense_blocks(card.params()["stages"][0]["blocks"], config))
+    cpu = build_single_block_resnet(config, params=card.params(), device="cpu")
+    train = {m: make_train_step(m, make_adam(m.parameters())) for m in (card, cpu)}
+    rng = np.random.default_rng(2)
+    images, _ = cifar_batch(rng, batch)
+    reset_counts()
+    with torch.no_grad():
+        got = card(images.cuda(), return_logits=True).cpu()
+        want = cpu(images, return_logits=True)
+    err, ok = max_violation(got, want, FP32_TOL)
+    log(f"[types] {describe(config)}: route {route}; logits at batch {batch} max|card-cpu| "
+        f"{err:.3e} (max|cpu| {float(want.abs().max()):.3e}), tol rtol=atol={FP32_TOL:g}: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{describe(config)}: the card's logits disagree with the CPU's")
+    for n in range(1, steps + 1):
+        images, labels = cifar_batch(rng, batch)
+        (m_card, norms_card), (m_cpu, norms_cpu) = [
+            train[m](images.to(dev), labels.to(dev), LR) for m, dev in ((card, "cuda"), (cpu, "cpu"))]
+        loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+        norms_err = float(((norms_card.cpu() - norms_cpu).abs() / norms_cpu.abs()).max())
+        same_correct = float(m_card["correct"]) == float(m_cpu["correct"])
+        ok = loss_err <= 1e-5 and norms_err <= TRAIN_GRAD_TOL and same_correct
+        log(f"[types] {describe(config)} step {n} batch {batch} card vs cpu: loss rel {loss_err:.2e} "
+            f"(tol 1e-5), correct {float(m_card['correct']):g} vs {float(m_cpu['correct']):g}, "
+            f"{norms_card.numel()} grad norms max rel {norms_err:.2e} (tol {TRAIN_GRAD_TOL:g}): "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{describe(config)}: the card's train step disagrees with the CPU's")
+    param_err = max(norm_rel(a.detach().cpu(), b.detach())
+                    for a, b in zip(card.parameters(), cpu.parameters()))
+    launches, routes = launch_counts(), dict(sbr.route_counts)
+    want_launches = (1 + steps, steps) if route == "fused" else (0, 0)
+    ok = (param_err <= TRAIN_GRAD_TOL and launches == want_launches
+          and routes == {"fused": 0, "per_layer": 0, route: 2 * (1 + steps)})  # card and CPU twin
+    log(f"[types] {describe(config)}: params after {steps} Adam updates max norm-rel {param_err:.2e}; "
+        f"a forward and {steps} steps launched B1 {launches[0]} and B2 {launches[1]} times "
+        f"(want {want_launches}), routes {routes} ({smi}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{describe(config)}: launches {launches}, routes {routes}")
+    return card, launches
+
+
+def replayed_steps_ms(model, steps=TIMED_STEPS, batch=HARNESS_BATCH):
+    """Milliseconds a train step of ``model`` takes as replays of one
+    captured step at ``batch`` (host clock around ``steps`` replays that end
+    in a synchronize; the capture before it)."""
+    multi = make_multi_step(model, make_adam(model.parameters()))
+    images, labels = [t.cuda() for t in cifar_batch(np.random.default_rng(3), batch)]
+
+    def run(n):
+        metrics, _ = multi(images.expand(n, *images.shape), labels.expand(n, *labels.shape), [LR] * n)
+        return metrics
+
+    run(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = run(steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    if not torch.isfinite(metrics["loss"]).all():
+        raise AssertionError("replayed steps gave a non-finite loss")
+    return ms
+
+
+def raises_b6(run):
+    """The NotImplementedError naming ROADMAP B6 that ``run()`` raises, or
+    AssertionError where it raises none."""
+    try:
+        run()
+    except NotImplementedError as e:
+        if "ROADMAP B6" in str(e):
+            return str(e)
+        raise
+    raise AssertionError("a stack the kernels decline ran on the card")
+
+
+def declined_widths(smi, batch=8):
+    """Euler 3x3 stacks at 64 layers within the JAX kernel gate's reach
+    (C <= 128) that the kernels decline on the card: at 64 filters B1 takes
+    the forward (one launch, against the CPU) and a train step raises before
+    any launch, since B2 takes C <= 56 at 32x32; at 72 filters the forward
+    raises too (B1 takes C <= 64).  Neither runs on the per-layer route.
+    Returns the B1 launches (1)."""
+    rng = np.random.default_rng(7)
+    images, labels = cifar_batch(rng, batch)
+    config = model_config("antisymmetric", 64)
+    card = build_single_block_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda")
+    cpu = build_single_block_resnet(config, params=card.params(), device="cpu")
+    reset_counts()
+    with torch.no_grad():
+        got = card(images.cuda(), return_logits=True).cpu()
+        want = cpu(images, return_logits=True)
+    err, ok = max_violation(got, want, FP32_TOL)
+    forward_launches = launch_counts()
+    train_error = raises_b6(lambda: make_train_step(card, make_adam(card.parameters()))(
+        images.cuda(), labels.cuda(), LR))
+    wide = model_config("regular", 72)
+    wide_card = build_single_block_resnet(wide, generator=torch.Generator().manual_seed(0), device="cuda")
+    with torch.no_grad():
+        wide_error = raises_b6(lambda: wide_card(images.cuda()))
+    launches, routes = launch_counts(), dict(sbr.route_counts)
+    ok = ok and forward_launches == launches == (1, 0) and routes == {"fused": 2, "per_layer": 0}
+    log(f"[types] {describe(config)}: logits at batch {batch} on B1 max|card-cpu| {err:.3e} "
+        f"(tol rtol=atol={FP32_TOL:g}); a train step raised before any launch: {train_error}")
+    log(f"[types] {describe(wide)}: the forward raised before any launch: {wide_error}")
+    log(f"[types] declined widths: B1/B2 launches {launches} (want (1, 0)), routes {routes} "
+        f"(want 2 fused: card and CPU forwards at 64F, none per-layer) ({smi}): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"declined widths: logits err {err}, launches {launches}, routes {routes}")
+    return launches[0]
+
+
+def phase_kernel_types(smi):
+    """Regular and centrosymmetric 3x3 stacks through B1/B2 at 64 layers
+    (16 and 8 filters), and the stacks on the per-layer route
+    (centrosymmetric k = 5, midpoint, RK4), each against the CPU; widths the
+    kernels decline raising on the card; the per-layer stacks' replayed
+    steps at batch 32 timed; a captured remat midpoint step against an
+    eager one.  Returns the B1 and B2 launches of the fused configurations'
+    runs."""
+    total = [0, 0]
+    for kernel_type, filters, k in FUSED_CONFIGS:
+        _, launches = against_cpu(model_config(kernel_type, filters, k), smi)
+        total = [a + b for a, b in zip(total, launches)]
+    total[0] += declined_widths(smi)
+    for kernel_type, filters, k, integrator in PER_LAYER_CONFIGS:
+        config = model_config(kernel_type, filters, k, integrator)
+        card, _ = against_cpu(config, smi)
+        reset_counts()
+        ms = replayed_steps_ms(card)
+        flops_step = single_block_train_flops(config, HARNESS_BATCH)
+        rate = 1e3 / ms
+        launches = launch_counts()
+        log(f"[types] {describe(config)}: {TIMED_STEPS} replayed steps at batch {HARNESS_BATCH}: "
+            f"{ms:.4f} ms a step, {rate:.2f} steps/s, {flops_step * rate / 1e12:.4f} model TFLOP/s "
+            f"({flops_step / 1e9:.3f} GFLOP a step), MFU {mfu(flops_step, rate):.2%} of the fp32 peak; "
+            f"B1/B2 launches {launches} ({smi})")
+        if launches != (0, 0):
+            raise AssertionError(f"{describe(config)}: the per-layer route launched {launches}")
+
+    # A captured midpoint step with remat (checkpointed layers recomputed in
+    # the backward, inside the graph) against the eager step on a twin.
+    config = model_config("antisymmetric", 16, 3, "midpoint", remat=True)
+    models = [build_single_block_resnet(config, generator=torch.Generator().manual_seed(0),
+                                        device="cuda") for _ in range(2)]
+    optimizers = [make_adam(m.parameters()) for m in models]
+    images, labels = zip(*[cifar_batch(np.random.default_rng(4 + i), 8) for i in range(3)])
+    images, labels = torch.stack(images).cuda(), torch.stack(labels).cuda()
+    metrics, norms = make_multi_step(models[0], optimizers[0])(images, labels, [LR] * 3)
+    eager = make_train_step(models[1], optimizers[1])
+    want = [eager(images[i], labels[i], LR) for i in range(3)]
+    loss_err = max(abs(float(metrics["loss"][i]) - float(m["loss"])) / abs(float(m["loss"]))
+                   for i, (m, _) in enumerate(want))
+    norm_err = max(norm_rel(norms[i], n) for i, (_, n) in enumerate(want))
+    param_err = max(norm_rel(p.detach(), q.detach()) for p, q in zip(*[m.parameters() for m in models]))
+    ok = max(loss_err, norm_err, param_err) <= TRAIN_GRAD_TOL
+    log(f"[types] {describe(config)}: 3 captured and replayed steps against 3 eager steps: loss max "
+        f"rel {loss_err:.2e}, grad-norm rows max norm-rel {norm_err:.2e}, parameters max norm-rel "
+        f"{param_err:.2e} (tol {TRAIN_GRAD_TOL:g}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the captured remat midpoint step disagrees with the eager step")
+    return tuple(total)
+
+
+def phase_epochs(smi, arrays):
+    """A device-resident epoch of 1562 replayed steps with augmentation for
+    the regular 64L x 16F and 64L x 8F models (the reference's other two
+    published runs), beside the antisymmetric one of phase_harness:
+    seconds, steps/s, MFU, the idle share of two profiled epochs of 60
+    steps, and one B1 and one B2 launch a replayed step.  Returns the
+    launches."""
+    train_x, train_y, val_x, val_y = arrays
+    steps = len(train_x) // HARNESS_BATCH
+    total = [0, 0]
+    for kernel_type, filters in (("regular", 16), ("regular", 8)):
+        config = model_config(kernel_type, filters)
+        trainer = Training(
+            build_single_block_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda"),
+            train_features=train_x, train_labels=train_y, val_features=val_x, val_labels=val_y,
+            batch_size=HARNESS_BATCH, jit_augment=standard_cifar_augment(), record_summaries=False)
+
+        def epoch(n):
+            return trainer.train(epochs=1, steps_per_epoch=n, learning_rate_schedule=lambda s: LR,
+                                 device_data=True, eval_frequency=None, verbose=False)
+
+        reset_counts()
+        epoch(WINDOW_STEPS)  # the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = epoch(steps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rate_figures(f"{describe(config)}, device-resident epoch, CUDA-graph replays",
+                     seconds, steps, smi, config)
+        idle = epoch_window(f"{describe(config)} device-resident epochs", epoch, WINDOW_STEPS)
+        launches = launch_counts()
+        want = (WARMUP_CALLS + WINDOW_STEPS + steps + 2 * WINDOW_STEPS,) * 2
+        loss = history["train"][-1]["mean_loss"]
+        ok = launches == want and np.isfinite(loss)
+        log(f"[epochs] {describe(config)}: launches B1 {launches[0]} B2 {launches[1]} (want {want}: "
+            f"{WARMUP_CALLS} warm-up calls + one replay a step), epoch loss {loss:.4f}, idle "
+            f"{idle:.1%}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{describe(config)}: the device-resident epoch is wrong")
+        total = [a + b for a, b in zip(total, launches)]
+        trainer.close()
+    return tuple(total)
+
+
+def phase_subcommands(tmp, smi):
+    """The research subcommands as a user runs them, in subprocesses on the
+    card: reproduce --synthetic (the three published runs, each with its
+    measured gradient-flow diagnostics), deep-stability at its defaults,
+    train then export --checkpoint of a regular model (load_exported must
+    predict what the checkpoint's model predicts), then, one at a time so
+    that their timings do not share the card, benchmark (antisymmetric,
+    regular and RK4, 64L x 16F) and sweep on a 2 x 2 grid."""
+    save_dir, csv_dir = os.path.join(tmp, "sub_ckpt"), os.path.join(tmp, "sub_csv")
+    model = ["--num-layers", "64", "--num-filters", "16"]
+    t0 = time.perf_counter()
+    procs = {
+        "reproduce": run_cli("reproduce", "--synthetic", "--device-data", "--epochs", "1",
+                             "--steps-per-epoch", "200", "--csv-dir", os.path.join(tmp, "repro_csv")),
+        "deep-stability": run_cli("deep-stability"),
+        "train": run_cli("train", *model, "--kernel-type", "regular", "--epochs", "1",
+                         "--steps-per-epoch", "100", "--synthetic-train-size", "5000",
+                         "--synthetic-val-size", "1000", "--device-data", "--save-dir", save_dir,
+                         "--csv-dir", csv_dir),
+    }
+    out = {name: finish(proc, name, timeout=600) for name, proc in procs.items()}
+    together_s = time.perf_counter() - t0
+    runs = out["reproduce"]["runs"]
+    measured = [r["gradient_flow"]["measured"] for r in runs]
+    spectrum = out["deep-stability"]["spectrum"]
+    sweep = out["deep-stability"]["gamma_sweep"]
+    ok = (len(runs) == 3 and all(m is not None and all(np.isfinite(list(m.values()))) for m in measured)
+          and all(np.isfinite(r["best_val_loss"]) for r in runs)
+          and len(sweep) == 3 and all(np.isfinite(list(v.values())).all() for v in sweep.values())
+          and spectrum["real_part_error"] < 1e-6 and spectrum["antisymmetry_defect"] < 1e-6)
+    for r in runs:
+        log(f"[cli] reproduce {r['run']}: best val accuracy {r['best_val_accuracy']:.4f} loss "
+            f"{r['best_val_loss']:.4f} ({r['data']} data), gradient flow measured "
+            f"{json.dumps(r['gradient_flow']['measured'])} (published "
+            f"{json.dumps(r['gradient_flow']['baseline'])})")
+    log(f"[cli] deep-stability (100L x 8F, gammas 0.0/0.05/0.2, 60 steps each): "
+        f"{json.dumps(out['deep-stability'])}")
+    log(f"[cli] reproduce, deep-stability and a regular train together {together_s:.1f} s "
+        f"({smi}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("reproduce or deep-stability printed a bad result")
+
+    checkpoint = os.path.join(save_dir, Checkpointer(save_dir).latest())
+    export_dir = os.path.join(tmp, "sub_export")
+    exported = finish(run_cli("export", export_dir, *model, "--kernel-type", "regular",
+                              "--checkpoint", checkpoint), "export")
+    predict, manifest = load_exported(exported["export_dir"], device="cuda")
+    config = model_config("regular", 16)
+    trained = build_single_block_resnet(config, generator=torch.Generator().manual_seed(5), device="cuda")
+    Checkpointer(save_dir).restore(TrainState(trained, make_adam(trained.parameters())), checkpoint)
+    images = np.random.default_rng(6).uniform(0, 255, (16, 32, 32, 3)).astype(np.float32)
+    with torch.no_grad():
+        want = trained(torch.from_numpy(images).cuda()).cpu()
+    err, ok = max_violation(torch.from_numpy(predict(images)), want, FP32_TOL)
+    ok = ok and manifest["config"]["kernel_type"] == "regular"
+    log(f"[cli] export --checkpoint of the trained regular 64L x 16F model, then load_exported: "
+        f"predictions max|export-model| {err:.3e} over 16 images (tol rtol=atol={FP32_TOL:g}): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the exported regular model predicts otherwise than its checkpoint")
+
+    bench_keys = {"train_steps_per_sec", "train_img_per_sec", "inference_latency_batch1_ms",
+                  "inference_fps_batch1", "device", "model_flops_per_step", "model_tflops",
+                  "mfu_vs_fp32_peak"}
+    for flags in (["--kernel-type", "antisymmetric"], ["--kernel-type", "regular"],
+                  ["--integrator", "rk4"]):
+        t0 = time.perf_counter()
+        result = finish(run_cli("benchmark", *model, *flags), "benchmark")
+        ok = set(result) == bench_keys and result["train_steps_per_sec"] > 0
+        log(f"[cli] benchmark {' '.join(flags)} 64L x 16F batch 32 ({time.perf_counter() - t0:.1f} s): "
+            f"{json.dumps(result)} ({smi}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("benchmark printed a bad result")
+    t0 = time.perf_counter()
+    result = finish(run_cli("sweep", "--widths", "16,32", "--depths", "16,32"), "sweep")
+    ok = set(result) == {"16x16", "16x32", "32x16", "32x32"} and all(
+        np.isfinite(v["steps_per_sec"]) and set(v) == {
+            "steps_per_sec", "images_per_sec", "step_ms", "model_tflops", "mfu_vs_fp32_peak"}
+        for v in result.values())
+    log(f"[cli] sweep widths 16,32 x depths 16,32, batch 128, 30 steps "
+        f"({time.perf_counter() - t0:.1f} s): {json.dumps(result)} ({smi}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("sweep printed a bad result")
+
+
+
+def cifar_arrays():
+    """Synthetic CIFAR-10 of the real size and dtype: (train images,
+    train labels, val images, val labels)."""
+    t0 = time.perf_counter()
+    train_x, train_y, val_x, val_y, _ = synthetic_cifar10(50000, 10000, seed=0)
+    log(f"[harness] synthetic_cifar10(50000, 10000, seed=0): {train_x.nbytes + val_x.nbytes} bytes "
+        f"of uint8 images, made in {time.perf_counter() - t0:.1f} s")
+    return train_x, train_y, val_x, val_y
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -970,17 +1375,23 @@ def main() -> int:
     phase_time_requests(predict, requests)
     phase_time_train(step, batch)
     phase_profile(step, batch)
-    harness_fwd, harness_bwd = phase_harness(smi)
+    arrays = cifar_arrays()
+    harness_fwd, harness_bwd = phase_harness(smi, arrays)
+    types_fwd, types_bwd = phase_kernel_types(smi)
+    phase_time_narrow(smi)
+    epochs_fwd, epochs_bwd = phase_epochs(smi, arrays)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_subcommands(tmp, smi)
     source = "differential_equations_resnet_tpu_torch/csrc/"
     replaces = "differential_equations_resnet_tpu/ops/pallas/fused_integrator.py:"
     kernels = [
         {"name": "fused_euler_fwd", "route": "cuda", "source": source + "fused_euler_fwd.cu",
          "replaces": replaces + "146",
-         "launches": serve_launches + train_fwd + harness_fwd,
+         "launches": serve_launches + train_fwd + harness_fwd + types_fwd + epochs_fwd,
          "max_abs_err": fwd_err, **fwd_timing, "library_ms": None},
         {"name": "fused_euler_bwd", "route": "cuda", "source": source + "fused_euler_bwd.cu",
          "replaces": replaces + "216",
-         "launches": train_bwd + harness_bwd,
+         "launches": train_bwd + harness_bwd + types_bwd + epochs_bwd,
          "max_abs_err": bwd_err, **bwd_timing, "library_ms": None},
     ]
     log(f"[device] {smi}")

@@ -1,0 +1,145 @@
+"""Width x depth train-throughput sweeps.
+
+Port of `differential_equations_resnet_tpu/experiments/sweeps.py` for one
+card (``mesh`` raises `NotImplementedError`, ROADMAP A15).  Each cell builds
+a single-block ODE-ResNet at (width, depth) on the ImageNet-32 workload and
+measures sustained train steps a second on synthetic data, every step a
+replay of one captured CUDA graph (`train.make_multi_step`), with model
+TFLOP/s and MFU against the card's fp32 peak (`utils.flops`): the port
+trains in fp32.
+
+Left behind, because they were measured on or chosen for a TPU: the JAX
+package's no-remat capacity rule (``remat=None`` is off here) and
+`imagenet32_config`'s bf16 default (fp32 here; bf16 compute waits for
+ROADMAP A5).  Each cell's identity stack is an Euler 3x3 stack and runs on
+B1/B2 (`models.single_block_resnet.identity_route`); on the card a width B2
+declines (C > 56 at 32x32, so the default grid's 64) raises
+`NotImplementedError` until B2 is widened (ROADMAP B6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from differential_equations_resnet_tpu_torch import resolve_device
+from differential_equations_resnet_tpu_torch.models import (
+    SingleBlockResNetConfig,
+    build_single_block_resnet,
+)
+from differential_equations_resnet_tpu_torch.models.single_block_resnet import dtype_name
+from differential_equations_resnet_tpu_torch.train.train_step import make_adam, make_multi_step
+from differential_equations_resnet_tpu_torch.utils.flops import mfu, single_block_train_flops
+
+
+def _no_mesh(mesh, name: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{name}(mesh=...): data parallelism over a device mesh waits for its port "
+            "(ROADMAP A15)."
+        )
+
+
+def imagenet32_config(
+    num_layers: int = 28,
+    num_filters: int = 64,
+    final_time: float = 8.0,
+    kernel_type: str = "antisymmetric",
+    compute_dtype=torch.float32,
+    **overrides,
+) -> SingleBlockResNetConfig:
+    """ImageNet-32-scale workload: 32x32 inputs, 1000 classes, a wider
+    trunk, fp32 compute."""
+    if dtype_name(compute_dtype) != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={dtype_name(compute_dtype)}: reduced-precision compute waits for "
+            "ROADMAP A5."
+        )
+    return SingleBlockResNetConfig(
+        image_shape=(32, 32, 3),
+        kernel_type=kernel_type,
+        kernel_size=3,
+        h=final_time / num_layers,
+        num_stages=2,
+        blocks_per_stage=(num_layers,),
+        filters_per_block=(num_filters,),
+        strides=((1, 1),),
+        num_classes=1000,
+        subtract_mean=127.5,
+        divide_by_stddev=127.5,
+        compute_dtype=compute_dtype,
+        **overrides,
+    )
+
+
+def measure_train_throughput(
+    config: SingleBlockResNetConfig,
+    batch_size: int,
+    mesh=None,
+    steps: int = 50,
+    warmup: int = 5,
+    seed: int = 0,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Dict[str, float]:
+    """Sustained train-step throughput of one configuration: ``warmup``
+    steps (the capture among them), then ``steps`` steps on one batch,
+    timed on the host clock up to a read of the last step's loss."""
+    _no_mesh(mesh, "measure_train_throughput")
+    device = resolve_device(device)
+    model = build_single_block_resnet(
+        config, generator=torch.Generator().manual_seed(seed), device=device)
+    multi = make_multi_step(model, make_adam(model.parameters()))
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(
+        rng.uniform(0, 255, (batch_size,) + tuple(config.image_shape)).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.integers(0, config.num_classes, (batch_size,))).to(device)
+
+    def run(n):
+        metrics, _ = multi(x.expand(n, *x.shape), y.expand(n, *y.shape), [1e-3] * n)
+        return float(metrics["loss"][-1])  # waits for the last step
+
+    run(warmup)
+    start = time.perf_counter()
+    run(steps)
+    elapsed = time.perf_counter() - start
+    steps_per_sec = steps / elapsed
+    flops_step = single_block_train_flops(config, batch_size)
+    return {
+        "steps_per_sec": steps_per_sec,
+        "images_per_sec": steps_per_sec * batch_size,
+        "step_ms": 1e3 * elapsed / steps,
+        "model_tflops": flops_step * steps_per_sec / 1e12,
+        "mfu_vs_fp32_peak": mfu(flops_step, steps_per_sec),
+    }
+
+
+def width_depth_sweep(
+    widths: Sequence[int] = (16, 32, 64),
+    depths: Sequence[int] = (16, 32, 64),
+    batch_size: int = 128,
+    mesh=None,
+    num_classes: int = 1000,
+    compute_dtype=torch.float32,
+    steps: int = 30,
+    kernel_type: str = "antisymmetric",
+    remat: Optional[bool] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Dict[Tuple[int, int], Dict[str, float]]:
+    """`measure_train_throughput` at every (width, depth) grid point.
+    ``remat=None`` means off."""
+    _no_mesh(mesh, "width_depth_sweep")
+    results: Dict[Tuple[int, int], Dict[str, float]] = {}
+    for width in widths:
+        for depth in depths:
+            config = imagenet32_config(num_layers=depth, num_filters=width,
+                                       kernel_type=kernel_type, compute_dtype=compute_dtype,
+                                       remat=bool(remat))
+            if num_classes != 1000:
+                config = dataclasses.replace(config, num_classes=num_classes)
+            results[(width, depth)] = measure_train_throughput(
+                config, batch_size, steps=steps, device=device)
+    return results

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     Antisym3x3Params,
+    AntisymKxKParams,
     he_truncated_normal,
 )
 
@@ -94,10 +95,10 @@ def apply_fc_activation(x: torch.Tensor, fc_activation: Optional[str]) -> torch.
 
 def l2_kernel_penalty(params, weight: float) -> torch.Tensor:
     """Keras-style L2 kernel regularization, ``weight * sum(k**2)`` over
-    every kernel parameter: dense conv and fc kernels and the antisymmetric
-    layers' free leaves (a, b, c, d, cross).  Biases, batch-norm parameters
-    and the constant gamma centre are not regularized, as in the JAX
-    package's `l2_kernel_penalty`."""
+    every kernel parameter: dense conv and fc kernels and the packed layers'
+    free leaves (a, b, c, d, cross; diag, cross).  Biases, batch-norm
+    parameters and the constant gamma centre are not regularized, as in the
+    JAX package's `l2_kernel_penalty`."""
     leaves = []
 
     def collect(p):
@@ -105,6 +106,8 @@ def l2_kernel_penalty(params, weight: float) -> torch.Tensor:
             leaves.append(p.kernel)
         elif isinstance(p, Antisym3x3Params):
             leaves.extend([p.a, p.b, p.c, p.d, p.cross])
+        elif isinstance(p, AntisymKxKParams):
+            leaves.extend([p.diag, p.cross])
         elif isinstance(p, dict):
             for v in p.values():
                 collect(v)

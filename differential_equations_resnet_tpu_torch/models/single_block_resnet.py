@@ -2,24 +2,44 @@
 
 Port of `differential_equations_resnet_tpu/models/single_block_resnet.py`
 (config, stage plans, init and the forward pass).  A residual block is one
-forward-Euler step of dY/dt = relu(K(t) Y + b), and a stage's run of
-identity blocks is the fused L-layer integrator `fused_euler_3x3`: the
-hand-written CUDA kernels on the card (B1 forward, B2 backward), their plain
-PyTorch versions on the CPU.  Gradients flow through every leaf, so the
-model trains (`train.train_step`); with no batch norm, train mode and eval
-mode compute the same forward.
+step of dY/dt = relu(K(t) Y + b): forward Euler, explicit midpoint or RK4.
+Every kernel type runs: antisymmetric (packed 3x3), regular (dense k x k)
+and centrosymmetric (packed k x k, trainable centre).  A stage's identity
+stack is first made dense, (L, k, k, C, C) kernels for all layers at once
+(`_dense_blocks`), then takes one of two routes, chosen from the dense
+stack's shapes before anything is launched (`identity_route`):
 
-What the port covers so far: Euler, antisymmetric 3x3 kernels, no batch
-norm, fp32.  The config accepts every key of the JAX package's
-``config.json``; features outside it raise `NotImplementedError` naming the
-ROADMAP item they wait on when the model is built.  Accepted and ignored,
-because they do not change the numbers of a forward or backward pass:
+- the fused route: an Euler stack of 3x3 kernels, any kernel type, on a
+  state within the JAX kernel gate's reach (C <= 128, H*W <= 4096), runs as
+  the fused L-layer integrator `fused_euler_dense`: the hand-written CUDA
+  kernels on the card (B1 forward, B2 backward), their plain PyTorch
+  versions on the CPU.  On the card a shape there that B1 or B2 declines
+  (at 32x32: C > 64, or C > 56 where a gradient is needed) raises
+  `NotImplementedError` naming ROADMAP B6 before B1 launches; it never
+  gives way to a plain version of what the kernels compute;
+- the per-layer route: midpoint, RK4, k != 3, and states past that reach,
+  for which the JAX package has no kernel either, run layer by layer,
+  `euler_relu_step` or the integrator over `conv_relu_field`, on cuDNN with
+  TF32 off, each layer checkpointed where ``remat`` is set.
 
-- ``use_pallas``: on the card the fused kernel is always the path;
+`route_counts` counts the stacks each route ran (Python calls: a replayed
+CUDA graph adds none).  Gradients flow through every leaf, so the model
+trains (`train.train_step`); with no batch norm, train mode and eval mode
+compute the same forward.
+
+The config accepts every key of the JAX package's ``config.json``; what the
+port does not run yet raises `NotImplementedError` naming the ROADMAP item
+it waits on when the model is built: batch norm (A10), bf16 compute (A5),
+int8 (A13) and the meshes (A15).  Accepted and ignored, because they do not
+change the numbers of a forward or backward pass:
+
+- ``use_pallas``: on the card the fused kernels are the route of every
+  stack they compute;
 - ``s2d_block``, ``s2d_force``, ``s2d_max_rows``: space-to-depth is an exact
   layout transform whose gate stays off on CUDA until it is measured there;
-- ``remat``, ``scan_unroll``, ``data_axis_size``, ``device_platform``,
-  ``pp_axis``, ``pp_microbatches``, ``pp_batch_axis``, ``tp_axis``.
+- ``remat`` on the fused route, which keeps only the stack's input anyway;
+- ``scan_unroll``, ``data_axis_size``, ``device_platform``, ``pp_axis``,
+  ``pp_microbatches``, ``pp_batch_axis``, ``tp_axis``.
 """
 
 from __future__ import annotations
@@ -44,11 +64,21 @@ from differential_equations_resnet_tpu_torch.models.blocks import (
 )
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     Antisym3x3Params,
+    AntisymKxKParams,
     init_antisym_3x3,
+    init_antisym_kxk,
+    materialize_3x3_stacked,
+    materialize_kxk,
 )
-from differential_equations_resnet_tpu_torch.ops.conv import conv2d_same
+from differential_equations_resnet_tpu_torch.ops.conv import (
+    conv2d_same,
+    conv_relu_field,
+    euler_relu_step,
+)
+from differential_equations_resnet_tpu_torch.ops.integrators import get_integrator, run_layers
 from differential_equations_resnet_tpu_torch.ops.kernels.fused_integrator import (
-    fused_euler_3x3,
+    fused_euler_dense,
+    in_reference_reach,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -168,11 +198,6 @@ def unsupported_reason(config: SingleBlockResNetConfig) -> str:
     waits on, or "" where the whole config is covered."""
     if config.use_batch_norm:
         return "use_batch_norm=True (batch norm, ROADMAP A10)"
-    if config.integrator != "euler":
-        return f"integrator={config.integrator!r} (midpoint and RK4, ROADMAP A4 and A10)"
-    if config.kernel_type != "antisymmetric":
-        return (f"kernel_type={config.kernel_type!r} (regular and centrosymmetric "
-                "kernels, ROADMAP A2 and A5)")
     if config.int8_forward:
         return "int8_forward=True (int8 convolutions, ROADMAP A13)"
     if config.pp_mesh is not None or config.tp_mesh is not None:
@@ -222,7 +247,24 @@ def stage_plans(config: SingleBlockResNetConfig) -> Tuple[_StagePlan, ...]:
 
 
 def _stack(params):
-    return type(params[0])(*[torch.stack(leaves) for leaves in zip(*params)])
+    return type(params[0])(*[None if leaves[0] is None else torch.stack(leaves)
+                             for leaves in zip(*params)])
+
+
+def _init_identity_blocks(generator: torch.Generator, config: SingleBlockResNetConfig,
+                          num_blocks: int, channels: int):
+    """Stacked (L, ...) parameters of a run of identity blocks: packed 3x3
+    antisymmetric, packed k x k centrosymmetric or dense k x k regular."""
+    if num_blocks == 0:
+        return None
+    k = config.kernel_size
+    if config.kernel_type == "antisymmetric":
+        draw = lambda: init_antisym_3x3(generator, channels)
+    elif config.kernel_type == "centrosymmetric":
+        draw = lambda: init_antisym_kxk(generator, k, channels, antisymmetric=False)
+    else:
+        draw = lambda: init_conv(generator, (k, k), channels, channels)
+    return _stack([draw() for _ in range(num_blocks)])
 
 
 def init_single_block_resnet(
@@ -230,8 +272,8 @@ def init_single_block_resnet(
 ) -> dict:
     """The parameter tree, drawn on the CPU from ``generator``: ``{"stem":
     ConvParams, "stages": [{"conv_main", "conv_shortcut" (conv-block stages
-    only), "blocks": stacked Antisym3x3Params or None}], "head":
-    DenseParams}``."""
+    only), "blocks": stacked Antisym3x3Params, AntisymKxKParams or
+    ConvParams, or None}], "head": DenseParams}``."""
     ks = (config.kernel_size, config.kernel_size)
     params = {"stem": init_conv(generator, ks, config.image_shape[-1], config.filters_per_block[0])}
     stages = []
@@ -240,10 +282,7 @@ def init_single_block_resnet(
         if plan.has_conv_block:
             sp["conv_main"] = init_conv(generator, ks, plan.in_channels, plan.filters)
             sp["conv_shortcut"] = init_conv(generator, (1, 1), plan.in_channels, plan.filters)
-        sp["blocks"] = (
-            _stack([init_antisym_3x3(generator, plan.filters) for _ in range(plan.num_identity)])
-            if plan.num_identity else None
-        )
+        sp["blocks"] = _init_identity_blocks(generator, config, plan.num_identity, plan.filters)
         stages.append(sp)
     params["stages"] = stages
     if config.include_top:
@@ -279,6 +318,53 @@ def _device_constant(values: Tuple[float, ...], shape, device: torch.device) -> 
         return torch.tensor(values, dtype=torch.float32, device=device).reshape(shape)
 
 
+def _dense_blocks(blocks, config: SingleBlockResNetConfig) -> ConvParams:
+    """Stacked block parameters -> stacked dense ``ConvParams`` ((L, k, k, C,
+    C) kernels, (L, C) biases), every layer materialized at once and
+    differentiably, so a dense-kernel gradient folds back onto packed
+    leaves.  Centrosymmetric kernels keep their trainable centre: gamma is
+    unused, as in the JAX package."""
+    if isinstance(blocks, Antisym3x3Params):
+        return ConvParams(materialize_3x3_stacked(blocks, config.gamma), blocks.bias)
+    if isinstance(blocks, AntisymKxKParams):
+        return ConvParams(materialize_kxk(blocks, config.kernel_size, antisymmetric=False),
+                          blocks.bias)
+    return blocks
+
+
+# Identity stacks run by each route since the counts were last set to 0.
+route_counts = {"fused": 0, "per_layer": 0}
+
+
+def identity_route(config: SingleBlockResNetConfig, x: torch.Tensor, dense: ConvParams) -> str:
+    """"fused" for an Euler stack of 3x3 kernels (the dense stack's own
+    shape), of any kernel type, on a state within the JAX kernel gate's
+    reach: one B1 launch (and one B2 launch in the backward) on the card,
+    or `NotImplementedError` for a shape they decline.  "per_layer"
+    otherwise.  Decided from shapes alone, before anything is launched."""
+    euler_3x3 = config.integrator == "euler" and tuple(dense.kernel.shape[1:3]) == (3, 3)
+    return "fused" if euler_3x3 and in_reference_reach(x.shape) else "per_layer"
+
+
+def _apply_identity_blocks(x: torch.Tensor, blocks, config: SingleBlockResNetConfig):
+    """A stage's identity stack on its route (`identity_route`)."""
+    dense = _dense_blocks(blocks, config)
+    route = identity_route(config, x, dense)
+    h = config.h
+    if route == "fused":
+        y = fused_euler_dense(x, dense.kernel, dense.bias, float(h))
+    else:
+        if config.integrator == "euler":
+            step = lambda y, p: euler_relu_step(y, p.kernel, p.bias, h)
+        else:
+            method = get_integrator(config.integrator)
+            field = lambda y, p: conv_relu_field(y, p.kernel, p.bias)
+            step = lambda y, p: method(field, y, h, p)
+        y = run_layers(step, x, dense, remat=config.remat)
+    route_counts[route] += 1
+    return y
+
+
 def apply_single_block_resnet(
     params: dict,
     x: torch.Tensor,
@@ -300,8 +386,7 @@ def apply_single_block_resnet(
         if plan.has_conv_block:
             x = _apply_conv_block(x, sp, plan.strides)
         if sp["blocks"] is not None:
-            # On CUDA a state a kernel declines raises NotImplementedError.
-            x = fused_euler_3x3(x, sp["blocks"], config.h, config.gamma)
+            x = _apply_identity_blocks(x, sp["blocks"], config)
     if config.include_top:
         x = dense(global_average_pool(x), params["head"])
         if not return_logits:

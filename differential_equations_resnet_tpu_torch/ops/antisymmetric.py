@@ -19,9 +19,15 @@ with c_in < c_out are their mirrors ``-rot180(cross)``.
 
 Materialization is advanced-index assignment, which autograd differentiates,
 so a gradient with respect to the dense kernel folds back onto the packed
-leaves.  The dense-lower (`Antisym3x3DenseParams`) and general k x k
-(`AntisymKxKParams`) layouts are declared here so that parameter trees holding
-them can be read, but their materialization waits for a later slice.
+leaves.
+
+The general k x k layout (`AntisymKxKParams`, `init_antisym_kxk`,
+`materialize_kxk`, `pack_kxk`) holds each diagonal spatial block's free
+entries in ``diag`` and mirrors them anti-centrosymmetrically (the
+antisymmetric kernel type) or centrosymmetrically (the centrosymmetric
+kernel type, whose odd-k centre is free).  The dense-lower layout
+(`Antisym3x3DenseParams`) is declared here so that parameter trees holding it
+can be read; its materialization waits for the bottleneck family.
 """
 
 from __future__ import annotations
@@ -189,5 +195,139 @@ def pack_3x3(
         c=diag[0, 2],
         d=diag[1, 0],
         cross=kernel[:, :, ci, co],
+        bias=bias,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _diag_layout(kernel_size: int, antisymmetric: bool):
+    """The free entries of a k x k (anti-)centrosymmetric diagonal block, as
+    the JAX package lays them out: entry (i, j) of the upper half (j >= i) is
+    free where ``j > i`` or ``j == i and i <= k//2 - 1``, and its mirror is
+    (k-1-i, k-1-j), negated (antisymmetric) or not (centrosymmetric).  For
+    odd k the centre is the constant gamma in the antisymmetric case and one
+    more free entry, its own mirror, otherwise.
+
+    Returns (free_flat, mirror_flat, center_flat_or_None), flat k*k
+    indices."""
+    free, mirror = [], []
+    center = None
+    for i in range(kernel_size):
+        for j in range(i, kernel_size):
+            if j > i or (j == i and i <= kernel_size // 2 - 1):
+                free.append(i * kernel_size + j)
+                mirror.append((kernel_size - 1 - i) * kernel_size + (kernel_size - 1 - j))
+            elif j == i and i == kernel_size // 2 and kernel_size % 2 == 1:
+                if antisymmetric:
+                    center = i * kernel_size + j
+                else:
+                    free.append(i * kernel_size + j)
+                    mirror.append(i * kernel_size + j)
+    return np.asarray(free, np.int64), np.asarray(mirror, np.int64), center
+
+
+def num_diag_free(kernel_size: int, antisymmetric: bool = True) -> int:
+    """Free entries of one diagonal (per-channel) spatial block."""
+    return int(_diag_layout(kernel_size, antisymmetric)[0].size)
+
+
+@functools.lru_cache(maxsize=None)
+def _diag_gather(kernel_size: int, antisymmetric: bool):
+    """For each flat position p of a k x k diagonal block: the free entry it
+    copies (``num_diag_free`` where none: a zero slot), its sign, and a 1
+    at the constant-gamma centre.  A position written by both the free and
+    the mirror list (the centrosymmetric centre) copies its entry once, as
+    the JAX package's second ``.at[].set`` overwrites the first, so its
+    gradient is counted once."""
+    free, mirror, center = _diag_layout(kernel_size, antisymmetric)
+    source = np.full(kernel_size * kernel_size, free.size, np.int64)
+    sign = np.zeros(kernel_size * kernel_size, np.float32)
+    source[free], sign[free] = np.arange(free.size), 1.0
+    source[mirror], sign[mirror] = np.arange(free.size), -1.0 if antisymmetric else 1.0
+    centre = np.zeros(kernel_size * kernel_size, np.float32)
+    if center is not None:
+        centre[center] = 1.0
+    return source, sign, centre
+
+
+@functools.lru_cache(maxsize=None)
+def _diag_gather_tensors(kernel_size: int, antisymmetric: bool, device: torch.device):
+    """`_diag_gather` as tensors on ``device``, made once (capture-safe, as
+    `_cross_index_tensors`)."""
+    with torch.inference_mode(False):
+        source, sign, centre = _diag_gather(kernel_size, antisymmetric)
+        return (torch.as_tensor(source, device=device),
+                torch.as_tensor(sign, device=device), torch.as_tensor(centre, device=device))
+
+
+def init_antisym_kxk(
+    generator: torch.Generator,
+    kernel_size: int,
+    channels: int,
+    antisymmetric: bool = True,
+    use_bias: bool = True,
+    dtype: torch.dtype = torch.float32,
+) -> AntisymKxKParams:
+    """Each free scalar He-truncated-normal with fan_in = k*k*C; bias zero."""
+    fan_in = kernel_size * kernel_size * channels
+    return AntisymKxKParams(
+        diag=he_truncated_normal(
+            generator, (num_diag_free(kernel_size, antisymmetric), channels), fan_in, dtype),
+        cross=he_truncated_normal(
+            generator, (kernel_size, kernel_size, num_cross_pairs(channels)), fan_in, dtype),
+        bias=torch.zeros((channels,), dtype=dtype) if use_bias else None,
+    )
+
+
+def materialize_kxk(
+    params: AntisymKxKParams,
+    kernel_size: int,
+    gamma: float = 0.0,
+    antisymmetric: bool = True,
+) -> torch.Tensor:
+    """Packed params -> dense (..., k, k, C, C) HWIO kernel.
+
+    The diagonal blocks are (anti-)centrosymmetric as ``antisymmetric``
+    says; the cross-channel mirror blocks are always ``-rot180`` of the free
+    blocks, as in the JAX package.  Leading (stacked-layer) dimensions pass
+    through, so a whole (L, ...) stack materializes at once.  The diagonal
+    blocks are a gather of the free entries (see `_diag_gather`)."""
+    k = kernel_size
+    diag = params.diag
+    channels = diag.shape[-1]
+    lead = tuple(diag.shape[:-2])
+    source, sign, centre = _diag_gather_tensors(k, antisymmetric, diag.device)
+    slots = torch.cat([diag, diag.new_zeros(lead + (1, channels))], dim=-2)
+    flat = slots[..., source, :] * sign[:, None].to(diag.dtype)
+    if gamma:
+        flat = flat + gamma * centre[:, None].to(diag.dtype)
+    blocks = flat.reshape(lead + (k, k, channels))
+    kernel = diag.new_zeros(lead + (k, k, channels, channels))
+    idx = torch.arange(channels, device=diag.device)
+    kernel[..., idx, idx] = blocks
+    if channels > 1:
+        ci, co = _cross_index_tensors(channels, diag.device)
+        kernel[..., ci, co] = params.cross
+        kernel[..., co, ci] = -params.cross.flip(-3, -2)
+    return kernel
+
+
+def pack_kxk(
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    antisymmetric: bool = True,
+) -> AntisymKxKParams:
+    """Inverse of `materialize_kxk` (up to the constant gamma centre in the
+    antisymmetric case): the packed free parameters of a dense (..., k, k,
+    C, C) kernel."""
+    k, channels = kernel.shape[-3], kernel.shape[-1]
+    lead = tuple(kernel.shape[:-4])
+    free, _, _ = _diag_layout(k, antisymmetric)
+    idx = torch.arange(channels, device=kernel.device)
+    diag_flat = kernel[..., idx, idx].reshape(lead + (k * k, channels))
+    ci, co = _cross_index_tensors(channels, kernel.device)
+    return AntisymKxKParams(
+        diag=diag_flat[..., torch.as_tensor(free, device=kernel.device), :],
+        cross=kernel[..., ci, co],
         bias=bias,
     )

@@ -11,6 +11,11 @@ and, as the JAX custom VJP does, its gradient by recomputing the trajectory
 from x: the autograd graph keeps only (x, kernels, biases), one state
 whatever the depth.
 
+The kernels take any dense 3x3 stack, so every kernel type runs on them:
+`fused_euler_3x3` materializes packed antisymmetric parameters first; the
+model passes its dense stack (regular kernels, or packed ones made dense)
+to `fused_euler_dense` itself.
+
 `fused_euler_dense` is the entry point.  On CPU tensors it runs the plain
 versions (`reference_euler_dense`, `reference_euler_dense_bwd`); on CUDA
 tensors it launches the kernels of ``csrc/fused_euler_fwd.cu`` (B1) and
@@ -18,8 +23,12 @@ tensors it launches the kernels of ``csrc/fused_euler_fwd.cu`` (B1) and
 runs an image as a thread-block cluster of n blocks, each holding a band of
 rows of the zero-padded state in shared memory (`band_plan` chooses n), so
 its gate is the card's shared memory, not the TPU's VMEM
-(`fused_euler_eligible`, `fused_euler_bwd_eligible`).  Where a gradient will
-be needed, a shape that B2 declines raises before B1 is launched.
+(`fused_euler_eligible`, `fused_euler_bwd_eligible`), and it takes less than
+the JAX gate's reach (`in_reference_reach`): at 32x32, B1 C <= 64 and B2 C
+<= 56, against C <= 128.  A shape in that reach that a kernel declines
+raises `NotImplementedError` naming ROADMAP B6 (the kernels widened); where
+a gradient will be needed, a shape that B2 declines raises before B1 is
+launched.
 
 Each wrapper counts its kernel's launches on the card in ``launches``.
 Under a CUDA-graph capture the kernel is recorded into the graph, not
@@ -171,12 +180,36 @@ def _declined(x: torch.Tensor, smem_bytes=state_smem_bytes) -> str:
     return ""
 
 
+def in_reference_reach(x_shape) -> bool:
+    """Whether a (B, H, W, C) state lies where the JAX package's kernel gate
+    takes it (C <= 128, H*W <= 4096): a 3x3 Euler stack there runs on B1/B2
+    on the card or raises, never on a plain version of what they compute."""
+    _, height, width, channels = x_shape
+    return channels <= MAX_CHANNELS and height * width <= MAX_PIXELS
+
+
+def _stack_with_bias(blocks) -> bool:
+    """Whether ``blocks`` is a stacked 3x3 stack with a bias: packed
+    `Antisym3x3Params`, or a dense ``ConvParams`` (recognised by its fields)
+    of (L, 3, 3, C, C) kernels, as the model passes any kernel type."""
+    if getattr(blocks, "bias", None) is None:
+        return False
+    if isinstance(blocks, Antisym3x3Params):
+        return True
+    if getattr(blocks, "_fields", None) == ("kernel", "bias"):
+        kernel = blocks.kernel
+        return kernel.dim() == 5 and tuple(kernel.shape[1:3]) == (3, 3)
+    return False
+
+
 def fused_euler_eligible(x: torch.Tensor, blocks) -> bool:
     """Whether the forward kernel B1 takes this (shape, dtype, params)
-    combination: a 4-D fp32 contiguous NHWC input, `Antisym3x3Params` with a
-    bias, C <= 128, H*W <= 4096, and some band count n (a power of two <=
-    min(16, H)) whose block fits one block's shared memory on sm_90
-    (`state_smem_bytes(H, W, C, n) <= 232,448`).
+    combination: a 4-D fp32 contiguous NHWC input; a stacked 3x3 stack with
+    a bias (`Antisym3x3Params`, or dense ``ConvParams`` (L, 3, 3, C, C) of
+    any kernel type); C <= 128, H*W <= 4096, and
+    some band count n (a power of two <= min(16, H)) whose block fits one
+    block's shared memory on sm_90 (`state_smem_bytes(H, W, C, n) <=
+    232,448`).
 
     At 32x32 this admits C <= 64 (the one-block-per-image kernel took C <=
     38), and it admits 64x64x16 (in 4 bands), as the JAX gate does.  Of the
@@ -184,9 +217,7 @@ def fused_euler_eligible(x: torch.Tensor, blocks) -> bool:
     wide rows or C >= 53 (at most 18 rows within 64x64): a band holds two
     states where that kernel updated one in place, and rows cannot be split
     below one a band."""
-    if not isinstance(blocks, Antisym3x3Params) or blocks.bias is None:
-        return False
-    return not _declined(x)
+    return _stack_with_bias(blocks) and not _declined(x)
 
 
 def fused_euler_bwd_eligible(x: torch.Tensor, blocks) -> bool:
@@ -195,9 +226,7 @@ def fused_euler_bwd_eligible(x: torch.Tensor, blocks) -> bool:
     this admits C <= 56 (the one-block-per-image kernel took C <= 21), and
     it admits 64x64x16 (in 8 bands).  Of the shapes that kernel took, it
     declines only images of a few rows with wide rows or C >= 41."""
-    if not isinstance(blocks, Antisym3x3Params) or blocks.bias is None:
-        return False
-    return not _declined(x, bwd_smem_bytes)
+    return _stack_with_bias(blocks) and not _declined(x, bwd_smem_bytes)
 
 
 def kernel_bands(x_shape, backward: bool = False, sms: int = SM_COUNT):
@@ -328,8 +357,9 @@ def _sm_count(device_index: int) -> int:
 def _check_operands(x, kernels, biases, matmul_dtype, reason, which):
     if reason:
         raise NotImplementedError(
-            f"{which} on CUDA declines this input: {reason}. A spatially tiled "
-            "kernel for such shapes is later work (ROADMAP B4)."
+            f"{which} on CUDA declines this input: {reason}. Kernels that take "
+            "every shape of the JAX gate's reach, and a tiled variant past it, are "
+            "later work (ROADMAP B6)."
         )
     channels, num_layers = x.shape[-1], kernels.shape[0]
     if tuple(kernels.shape) != (num_layers, 3, 3, channels, channels):
@@ -485,8 +515,9 @@ class FusedEulerDense(torch.autograd.Function):
             if reason:
                 raise NotImplementedError(
                     "fused_euler_dense on CUDA cannot differentiate this input: "
-                    f"its backward kernel B2 declines it ({reason}). Run under "
-                    "torch.no_grad() for the forward alone."
+                    f"its backward kernel B2 declines it ({reason}); a B2 that takes "
+                    "it is later work (ROADMAP B6). Run under torch.no_grad() for "
+                    "the forward alone."
                 )
         ctx.save_for_backward(x, kernels, biases)
         ctx.h, ctx.matmul_dtype = h, matmul_dtype
@@ -550,3 +581,4 @@ def fused_euler_3x3(
     kernel gradient folds back onto the packed leaves through autograd."""
     kernels = materialize_3x3_stacked(blocks, gamma=gamma)
     return fused_euler_dense(x, kernels, blocks.bias, float(h), matmul_dtype)
+

@@ -4,7 +4,11 @@ Port of `differential_equations_resnet_tpu/train/telemetry.py` for the
 single-block family.  The telemetry is the reference's product: one scalar
 ||grad||_2 / size(grad) per convolutional layer and step.  The layer
 structure is explicit in the parameter tree, so the norms of a stacked
-(L, ...) run of identity blocks are one reduction over the stack.
+(L, ...) run of identity blocks are one reduction over the stack, for every
+kernel type: the packed antisymmetric leaves (a, b, c, d, cross; divisor
+the free degrees of freedom 4C + 9C(C-1)/2), the packed k x k leaves (diag
+and cross; divisor their sizes) or the dense kernel (divisor k*k*C*C).
+Biases are left out.
 
 Names match the reference CSV columns: ``conv1_kernel_gradient_mean_norm``,
 then ``res{stage}_{block}_branch2_kernel_gradient_mean_norm`` per residual
@@ -21,12 +25,14 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from differential_equations_resnet_tpu_torch.models.blocks import ConvParams
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
     SingleBlockResNetConfig,
     stage_plans,
 )
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     Antisym3x3Params,
+    AntisymKxKParams,
     num_cross_pairs,
 )
 
@@ -45,14 +51,34 @@ def _mean_norm(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x) / x.numel()
 
 
-def _stacked_mean_norms(blocks: Antisym3x3Params) -> torch.Tensor:
-    """(L,) mean norms of stacked packed antisymmetric grads.  Biases are
-    excluded and the divisor counts the layer's free degrees of freedom,
-    4C + 9 * C(C-1)/2, as the JAX package does."""
-    leaves = [blocks.a, blocks.b, blocks.c, blocks.d, blocks.cross]
+def _kernel_leaves(block_grads) -> List[torch.Tensor]:
+    """The kernel leaves of a layer's (or a stack's) grads, biases left out:
+    the packed antisymmetric parameters, the packed k x k ones, or the dense
+    conv kernel."""
+    if isinstance(block_grads, Antisym3x3Params):
+        return [block_grads.a, block_grads.b, block_grads.c, block_grads.d, block_grads.cross]
+    if isinstance(block_grads, AntisymKxKParams):
+        return [block_grads.diag, block_grads.cross]
+    if isinstance(block_grads, ConvParams):
+        return [block_grads.kernel]
+    raise TypeError(f"Unsupported block grads type {type(block_grads)}.")
+
+
+def _per_layer_free_size(block_grads) -> int:
+    """Free degrees of freedom of one layer of a stack: 4C + 9C(C-1)/2 for
+    packed antisymmetric kernels, else the sizes of the kernel leaves
+    without their leading layer axis, as the JAX package counts them."""
+    if isinstance(block_grads, Antisym3x3Params):
+        channels = block_grads.a.shape[-1]
+        return 4 * channels + 9 * num_cross_pairs(channels)
+    return sum(int(np.prod(leaf.shape[1:])) for leaf in _kernel_leaves(block_grads))
+
+
+def _stacked_mean_norms(block_grads) -> torch.Tensor:
+    """(L,) mean norms of a stack's grads: one reduction over the stack."""
+    leaves = _kernel_leaves(block_grads)
     sq = sum(torch.sum(torch.square(leaf), dim=tuple(range(1, leaf.dim()))) for leaf in leaves)
-    channels = blocks.a.shape[-1]
-    return torch.sqrt(sq) / (4 * channels + 9 * num_cross_pairs(channels))
+    return torch.sqrt(sq) / _per_layer_free_size(block_grads)
 
 
 def gradient_metric_names(config) -> List[str]:

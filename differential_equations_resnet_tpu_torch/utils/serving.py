@@ -12,7 +12,9 @@ that package's ``config.json`` and ``params.pkl`` and ignores its StableHLO
 ``forward.hlo``.  ``params.pkl`` is read by a restricted unpickler that maps
 the JAX package's parameter NamedTuples onto the port's own classes and
 refuses every other global apart from NumPy's array reconstruction, so the
-port never imports the JAX package.
+port never imports the JAX package.  Every kernel type is exported and
+served; ``export_model(..., checkpoint=...)`` exports the parameters of a
+training checkpoint (the port's `train.checkpoint` format).
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import pickle
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -35,42 +36,12 @@ from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
     dtype_name,
 )
 from differential_equations_resnet_tpu_torch.utils.weight_utils import (
-    PARAM_CLASSES,
+    ParamsUnpickler,
     params_from_jax,
 )
 
 PARAMS_FILE = "params.pt"
 JAX_PARAMS_FILE = "params.pkl"
-
-# Where the JAX package defines the parameter classes its params.pkl names.
-_JAX_CLASS_MODULES = {
-    "ConvParams": "differential_equations_resnet_tpu.models.blocks",
-    "DenseParams": "differential_equations_resnet_tpu.models.blocks",
-    "BatchNormParams": "differential_equations_resnet_tpu.models.blocks",
-    "BatchNormState": "differential_equations_resnet_tpu.models.blocks",
-    "Antisym3x3Params": "differential_equations_resnet_tpu.ops.antisymmetric",
-    "Antisym3x3DenseParams": "differential_equations_resnet_tpu.ops.antisymmetric",
-    "AntisymKxKParams": "differential_equations_resnet_tpu.ops.antisymmetric",
-}
-# What NumPy's pickling of arrays and dtypes needs (numpy 1 and 2 paths;
-# protocol 5 rebuilds arrays with `_frombuffer`, older ones `_reconstruct`).
-_NUMPY_GLOBALS = {
-    (f"numpy.{core}.{module}", name)
-    for core in ("core", "_core")
-    for module, name in (("multiarray", "_reconstruct"), ("multiarray", "scalar"),
-                         ("numeric", "_frombuffer"))
-} | {("numpy", "ndarray"), ("numpy", "dtype")}
-
-
-class _JaxParamsUnpickler(pickle.Unpickler):
-    """Unpickles the JAX package's ``params.pkl`` onto the port's classes."""
-
-    def find_class(self, module: str, name: str):
-        if _JAX_CLASS_MODULES.get(name) == module:
-            return PARAM_CLASSES[name]
-        if (module, name) in _NUMPY_GLOBALS:
-            return super().find_class(module, name)
-        raise pickle.UnpicklingError(f"params.pkl may not reference {module}.{name}")
 
 
 def config_to_json(config: SingleBlockResNetConfig) -> dict:
@@ -94,16 +65,29 @@ def config_from_json(d: dict) -> SingleBlockResNetConfig:
 def export_model(
     model: SingleBlockResNet,
     output_dir: str,
+    checkpoint: Optional[str] = None,
     batch_size: int = 1,
     quantize: Optional[str] = None,
 ) -> str:
     """Write ``model``'s config and parameters to ``output_dir``; returns its
-    absolute path.  ``batch_size`` is recorded in the manifest as the JAX
-    package records it; the port's loader serves any batch size."""
+    absolute path.  With ``checkpoint`` (a checkpoint directory written by
+    `train.Checkpointer`, e.g. by ``Training.save`` or ``cli train
+    --save-dir``) its parameters are first restored into ``model``, which
+    must have the checkpoint's structure.  ``batch_size`` is recorded in the
+    manifest as the JAX package records it; the port's loader serves any
+    batch size."""
     if quantize == "int8":
         raise NotImplementedError("int8 serving waits on ROADMAP item A13.")
     if quantize is not None:
         raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+    if checkpoint is not None:
+        from differential_equations_resnet_tpu_torch.train.checkpoint import Checkpointer
+        from differential_equations_resnet_tpu_torch.train.train_step import (
+            create_train_state,
+        )
+
+        path = os.path.abspath(checkpoint.rstrip("/"))
+        Checkpointer(os.path.dirname(path)).restore(create_train_state(model), path)
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, "config.json"), "w") as f:
         json.dump(
@@ -128,7 +112,7 @@ def _load_params(export_dir: str):
     if os.path.isfile(ours):
         return torch.load(ours, map_location="cpu", weights_only=True), None
     with open(os.path.join(export_dir, JAX_PARAMS_FILE), "rb") as f:
-        blobs = _JaxParamsUnpickler(f).load()
+        blobs = ParamsUnpickler(f).load()
     return None, params_from_jax(blobs["params"])
 
 

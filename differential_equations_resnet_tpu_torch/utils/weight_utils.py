@@ -12,11 +12,22 @@ the same layouts (HWIO conv kernels, (d_in, d_out) dense kernels, stacked
 
 Parameter objects are recognised by field name, never by importing the JAX
 package.
+
+Weight surgery, the rest of the JAX package's `utils/weight_utils.py`:
+pickling a parameter tree with NumPy leaves (`pickle_model_weights`, read
+back by a restricted unpickler, `load_pickled_weights`, which also reads the
+JAX package's pickles), depth doubling (`double_model_depth`,
+`double_load_weights`: every stacked layer repeated twice, h halved so the
+final time T = h*L stays) and the reference's list-of-{kernel, bias} format
+(`export_reference_weights`, `import_reference_weights`) for every kernel
+type.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional
+import dataclasses
+import pickle
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -27,18 +38,61 @@ from differential_equations_resnet_tpu_torch.models.blocks import (
     ConvParams,
     DenseParams,
 )
-from differential_equations_resnet_tpu_torch.models.single_block_resnet import _named_leaves
+from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
+    SingleBlockResNetConfig,
+    _named_leaves,
+    _stack,
+    stage_plans,
+)
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     Antisym3x3DenseParams,
     Antisym3x3Params,
     AntisymKxKParams,
+    materialize_3x3,
+    materialize_kxk,
+    pack_3x3,
+    pack_kxk,
 )
+from differential_equations_resnet_tpu_torch.ops.integrators import layer_slice, num_layers
 
 PARAM_CLASSES: Dict[str, type] = {
     cls.__name__: cls
     for cls in (ConvParams, DenseParams, BatchNormParams, BatchNormState,
                 Antisym3x3Params, Antisym3x3DenseParams, AntisymKxKParams)
 }
+
+# Where each package (the JAX package's, this one) defines the parameter
+# classes its pickles name.
+_CLASS_MODULES = {
+    f"{package}.{module}": names
+    for package in ("differential_equations_resnet_tpu", "differential_equations_resnet_tpu_torch")
+    for module, names in (
+        ("models.blocks", ("ConvParams", "DenseParams", "BatchNormParams", "BatchNormState")),
+        ("ops.antisymmetric", ("Antisym3x3Params", "Antisym3x3DenseParams", "AntisymKxKParams")),
+    )
+}
+# What NumPy's pickling of arrays and dtypes needs (numpy 1 and 2 paths;
+# protocol 5 rebuilds arrays with `_frombuffer`, older ones `_reconstruct`).
+_NUMPY_GLOBALS = {
+    (f"numpy.{core}.{module}", name)
+    for core in ("core", "_core")
+    for module, name in (("multiarray", "_reconstruct"), ("multiarray", "scalar"),
+                         ("numeric", "_frombuffer"))
+} | {("numpy", "ndarray"), ("numpy", "dtype")}
+
+
+class ParamsUnpickler(pickle.Unpickler):
+    """Unpickles a parameter tree with NumPy leaves, written by either
+    package (`pickle_model_weights`, a JAX export's ``params.pkl``), onto the
+    port's parameter classes; every other global is refused, so the port
+    never imports the JAX package."""
+
+    def find_class(self, module: str, name: str):
+        if name in _CLASS_MODULES.get(module, ()):
+            return PARAM_CLASSES[name]
+        if (module, name) in _NUMPY_GLOBALS:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"a parameter pickle may not reference {module}.{name}")
 
 
 def _param_class(obj) -> Optional[type]:
@@ -58,7 +112,8 @@ def _param_class(obj) -> Optional[type]:
     if has("mean", "var"):
         return BatchNormState
     if has("kernel", "bias"):
-        return ConvParams if np.ndim(obj.kernel) == 4 else DenseParams
+        # Conv kernels are (k, k, C_in, C_out), stacked (L, k, k, C, C).
+        return DenseParams if np.ndim(obj.kernel) == 2 else ConvParams
     return None
 
 
@@ -117,3 +172,135 @@ def params_to_jax(tree, classes: Optional[Mapping[str, type]] = None) -> Any:
         lambda t: t.detach().cpu().numpy(),
         lambda cls, values: lookup[cls.__name__](*values),
     )
+
+
+def _numpy_leaf(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _tensor_leaf(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().float()
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _map_tree(fn, tree) -> Any:
+    """``tree`` with ``fn`` applied to every array or tensor leaf, parameter
+    objects rebuilt as the port's classes."""
+    return _convert(tree, fn, lambda cls, values: cls(*values))
+
+
+def pickle_model_weights(params, save_filename: str) -> None:
+    """Pickle a parameter tree (tensor or NumPy leaves) with NumPy leaves in
+    the port's parameter classes, the JAX package's `pickle_model_weights`
+    format."""
+    with open(save_filename, "wb") as f:
+        pickle.dump(_map_tree(_numpy_leaf, params), f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def load_pickled_weights(load_filename: str):
+    """A pickled parameter tree with NumPy leaves, written by either package,
+    through `ParamsUnpickler` (never a bare ``pickle.load``);
+    `params_from_jax` turns it into tensors."""
+    with open(load_filename, "rb") as f:
+        return ParamsUnpickler(f).load()
+
+
+def _doubled_stages(params) -> dict:
+    twice = lambda a: (torch.repeat_interleave(a, 2, dim=0) if isinstance(a, torch.Tensor)
+                       else np.repeat(np.asarray(a), 2, axis=0))
+    stages = []
+    for sp in params["stages"]:
+        sp = dict(sp)
+        for key in ("blocks", "blocks_bn"):
+            if sp.get(key) is not None:
+                sp[key] = _map_tree(twice, sp[key])
+        stages.append(sp)
+    return dict(params, stages=stages)
+
+
+def double_model_depth(params, config: SingleBlockResNetConfig):
+    """Depth-doubling continuation: (new_params, new_config) with every
+    stacked residual layer repeated into two consecutive layers and h halved,
+    so the ODE's final time h*L stays.  Stem and head are shared."""
+    new_config = dataclasses.replace(
+        config, blocks_per_stage=tuple(2 * b for b in config.blocks_per_stage), h=config.h / 2.0)
+    return _doubled_stages(params), new_config
+
+
+def double_load_weights(model_params, weights_pickle_file: str, config=None):
+    """Load pickled (l+2)-layer params and return the doubled (2l+2)-layer
+    params, with the doubled config when ``config`` is given."""
+    saved = load_pickled_weights(weights_pickle_file)
+    if config is None:
+        return _doubled_stages(saved)
+    return double_model_depth(saved, config)
+
+
+def export_reference_weights(params, config: SingleBlockResNetConfig) -> List[dict]:
+    """The reference's pickle payload: one {'kernel', 'bias'} dict of NumPy
+    arrays per trainable layer in graph order (stem, conv blocks, residual
+    layers, head), packed layers materialized to dense (k, k, C, C)
+    kernels."""
+    params = _map_tree(_tensor_leaf, params)
+    entry = lambda kernel, bias: {"kernel": _numpy_leaf(kernel), "bias": _numpy_leaf(bias)}
+    out = [entry(*params["stem"])]
+    with torch.no_grad():
+        for plan, sp in zip(stage_plans(config), params["stages"]):
+            if plan.has_conv_block:
+                out += [entry(*sp["conv_main"]), entry(*sp["conv_shortcut"])]
+            blocks = sp["blocks"]
+            if blocks is None:
+                continue
+            for layer in range(num_layers(blocks)):
+                block = layer_slice(blocks, layer)
+                if isinstance(block, Antisym3x3Params):
+                    kernel = materialize_3x3(block, gamma=config.gamma)
+                elif isinstance(block, AntisymKxKParams):
+                    kernel = materialize_kxk(block, config.kernel_size, gamma=config.gamma,
+                                             antisymmetric=config.kernel_type == "antisymmetric")
+                else:
+                    kernel = block.kernel
+                out.append(entry(kernel, block.bias))
+    if config.include_top:
+        out.append(entry(*params["head"]))
+    return out
+
+
+def import_reference_weights(weights: List[dict], params, config: SingleBlockResNetConfig):
+    """A reference-format weights list loaded into a parameter tree of the
+    same architecture as ``params`` (which gives the kernel type of each
+    stack; packed layers are packed again by `pack_3x3` / `pack_kxk`).
+    Returns a new tree of tensors."""
+    params = _map_tree(_tensor_leaf, params)
+    it = iter(weights)
+
+    def take():
+        w = next(it)
+        return _tensor_leaf(w["kernel"]), _tensor_leaf(w["bias"])
+
+    new_params = dict(params, stem=ConvParams(*take()))
+    stages = []
+    for plan, sp in zip(stage_plans(config), params["stages"]):
+        sp = dict(sp)
+        if plan.has_conv_block:
+            sp["conv_main"] = ConvParams(*take())
+            sp["conv_shortcut"] = ConvParams(*take())
+        blocks = sp["blocks"]
+        if blocks is not None:
+            layers = []
+            for _ in range(num_layers(blocks)):
+                kernel, bias = take()
+                if isinstance(blocks, Antisym3x3Params):
+                    layers.append(pack_3x3(kernel, bias))
+                elif isinstance(blocks, AntisymKxKParams):
+                    layers.append(pack_kxk(kernel, bias,
+                                           antisymmetric=config.kernel_type == "antisymmetric"))
+                else:
+                    layers.append(ConvParams(kernel, bias))
+            sp["blocks"] = _stack(layers)
+        stages.append(sp)
+    new_params["stages"] = stages
+    if config.include_top:
+        new_params["head"] = DenseParams(*take())
+    return new_params

@@ -10,8 +10,11 @@ runs on a machine with the card and no JAX:
 Inputs are made with NumPy from a seed.  The band-edge cases cover what the
 banded kernels split: batch 1 and 7, a height the band count does not divide,
 fewer rows than the plan's usual count, one band an image, and 64x64x16,
-which needs bands to fit at all.  chip_smoke.py holds both kernels at the
-main path's 64-layer shapes.
+which needs bands to fit at all.  Unstructured (regular) kernels at 16 and 8
+filters, a regular-kernel train step against the CPU, widths the kernels
+decline raising on the card, and a captured remat midpoint step against the
+eager one cover the other kernel types and the per-layer route.
+chip_smoke.py holds both kernels at the main path's 64-layer shapes.
 """
 
 import numpy as np
@@ -222,3 +225,132 @@ def test_graph_replayed_train_step_equals_the_eager_step(card):
     with torch.no_grad():
         probs = models[0](x)
     torch.testing.assert_close(make_predict_step(models[0])(x), probs, rtol=1e-5, atol=1e-6)
+
+
+def regular_case(batch, height, width, channels, layers, seed):
+    """As `case`, with unstructured (regular) He-scaled dense kernels."""
+    rng = np.random.default_rng(seed)
+    std = np.sqrt(2.0 / (9 * channels))
+    kernels = (std * rng.standard_normal((layers, 3, 3, channels, channels))).astype(np.float32)
+    bias = (0.05 * rng.standard_normal((layers, channels))).astype(np.float32)
+    x = rng.standard_normal((batch, height, width, channels)).astype(np.float32)
+    g = rng.standard_normal((batch, height, width, channels)).astype(np.float32)
+    return [torch.from_numpy(t).cuda() for t in (x, kernels, bias, g)]
+
+
+@pytest.mark.parametrize("channels", [16, 8])
+def test_kernels_take_unstructured_regular_kernels(card, channels):
+    """B1 and B2 compute any dense 3x3 stack, not only antisymmetric ones:
+    regular kernels at 32x32 and 16 and 8 filters, 4 layers, batch 4,
+    against the plain versions (B1 to 1e-4; B2 judged by float64 as in
+    test_band_edges_on_cuda)."""
+    x, kernels, bias, g = regular_case(4, 32, 32, channels, 4, seed=23)
+    got = fi.fused_euler_dense(x, kernels, bias, 0.125)
+    torch.testing.assert_close(got, fi.reference_euler_dense(x, kernels, bias, 0.125),
+                               rtol=TOL, atol=TOL)
+    got = fi.fused_euler_dense_bwd(x, kernels, bias, g, 0.125)
+    want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125)
+    judge = fi.reference_euler_dense_bwd(*[t.double() for t in (x, kernels, bias, g)], 0.125)
+    for name, a, w, j in zip(("gx", "gk", "gb"), got, want, judge):
+        assert norm_rel(a, j) <= 2 * norm_rel(w, j) + 1e-5, name
+
+
+def _card_model(config):
+    """The model of ``config`` on the card, random weights from seed 0."""
+    from differential_equations_resnet_tpu_torch.models import build_single_block_resnet
+
+    return build_single_block_resnet(config, generator=torch.Generator().manual_seed(0),
+                                     device="cuda")
+
+
+def test_regular_train_step_on_the_card_equals_the_cpu(card):
+    """A regular-kernel model (3L x 8F) takes one B1 and one B2 launch a
+    train step on the card, and its loss, grad-norm row and parameters
+    after 2 Adam updates agree with the CPU's plain path."""
+    from differential_equations_resnet_tpu_torch.models import cifar10_single_block_config
+    from differential_equations_resnet_tpu_torch.train import make_adam, make_train_step
+
+    config = cifar10_single_block_config(num_layers=3, num_filters=8, kernel_type="regular",
+                                         final_time=0.375)
+    from differential_equations_resnet_tpu_torch.models import build_single_block_resnet
+
+    on_card = _card_model(config)
+    on_cpu = build_single_block_resnet(config, params=on_card.params(), device="cpu")
+    steps = [make_train_step(m, make_adam(m.parameters())) for m in (on_card, on_cpu)]
+    rng = np.random.default_rng(5)
+    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+    for _ in range(2):
+        images = torch.from_numpy(rng.uniform(0, 255, (4, 32, 32, 3)).astype(np.float32))
+        labels = torch.from_numpy(rng.integers(0, 10, 4))
+        (m_card, n_card), (m_cpu, n_cpu) = [s(images.to(d), labels.to(d), 1e-3)
+                                            for s, d in zip(steps, ("cuda", "cpu"))]
+        torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"], rtol=1e-5, atol=0)
+        torch.testing.assert_close(n_card.cpu(), n_cpu, rtol=1e-4, atol=0)
+    assert (fi.fused_euler_dense.launches - before[0],
+            fi.fused_euler_dense_bwd.launches - before[1]) == (2, 2)
+    for p, q in zip(on_card.parameters(), on_cpu.parameters()):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=0, atol=1e-5)
+
+
+def test_a_width_the_kernels_decline_raises_on_the_card(card):
+    """A regular 3x3 Euler stack within the JAX gate's reach that a kernel
+    declines raises NotImplementedError naming ROADMAP B6, before any
+    launch, instead of running layer by layer: a train step at 64 filters
+    (B2 takes C <= 56 at 32x32) and a forward at 72 (B1 takes C <= 64).
+    The forward at 64 filters runs on B1 and agrees with the CPU."""
+    from differential_equations_resnet_tpu_torch.models import (
+        build_single_block_resnet,
+        cifar10_single_block_config,
+    )
+    from differential_equations_resnet_tpu_torch.train import make_adam, make_train_step
+
+    rng = np.random.default_rng(8)
+    images = torch.from_numpy(rng.uniform(0, 255, (2, 32, 32, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, 2))
+    config = cifar10_single_block_config(num_layers=2, num_filters=64, kernel_type="regular",
+                                         final_time=0.25)
+    on_card = _card_model(config)
+    on_cpu = build_single_block_resnet(config, params=on_card.params(), device="cpu")
+    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+    with torch.no_grad():
+        torch.testing.assert_close(on_card(images.cuda()).cpu(), on_cpu(images), rtol=TOL, atol=TOL)
+    with pytest.raises(NotImplementedError, match="B2 declines.*ROADMAP B6"):
+        make_train_step(on_card, make_adam(on_card.parameters()))(images.cuda(), labels.cuda(), 1e-3)
+    wide = _card_model(cifar10_single_block_config(num_layers=2, num_filters=72,
+                                                   kernel_type="regular", final_time=0.25))
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP B6"):
+        wide(images.cuda())
+    assert (fi.fused_euler_dense.launches - before[0],
+            fi.fused_euler_dense_bwd.launches - before[1]) == (1, 0)
+
+
+def test_captured_remat_midpoint_step_equals_the_eager_step(card):
+    """A midpoint stack with remat (each layer checkpointed without saving
+    the RNG state, so a CUDA graph can capture its recompute) replayed from
+    one captured step against the eager step on a twin: the per-layer route
+    launches no kernel, and 3 steps agree (cuDNN's weight gradient sums in
+    no fixed order, so not bit for bit)."""
+    from differential_equations_resnet_tpu_torch.models import cifar10_single_block_config
+    from differential_equations_resnet_tpu_torch.train import (
+        make_adam,
+        make_multi_step,
+        make_train_step,
+    )
+
+    config = cifar10_single_block_config(num_layers=3, num_filters=8, integrator="midpoint",
+                                         remat=True, final_time=0.375)
+    models = [_card_model(config) for _ in range(2)]
+    optimizers = [make_adam(m.parameters()) for m in models]
+    rng = np.random.default_rng(6)
+    images = torch.from_numpy(rng.uniform(0, 255, (3, 4, 32, 32, 3)).astype(np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 10, (3, 4))).cuda()
+    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+    metrics, norms = make_multi_step(models[0], optimizers[0])(images, labels, [1e-3] * 3)
+    eager = make_train_step(models[1], optimizers[1])
+    for i in range(3):
+        m, n = eager(images[i], labels[i], 1e-3)
+        torch.testing.assert_close(metrics["loss"][i], m["loss"], rtol=1e-5, atol=0)
+        torch.testing.assert_close(norms[i], n, rtol=1e-4, atol=0)
+    for p, q in zip(*[m.parameters() for m in models]):
+        torch.testing.assert_close(p, q, rtol=0, atol=1e-5)
+    assert (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches) == before

@@ -43,6 +43,9 @@ def test_fresh_import_loads_no_jax():
     assert len(modules) >= 12
     assert {f"{port.__name__}.train.{name}"
             for name in ("metrics", "schedules", "telemetry", "train_step")} <= set(modules)
+    assert {f"{port.__name__}.{name}" for name in (
+        "ops.integrators", "experiments", "experiments.deep_stability", "experiments.sweeps",
+        "utils.weight_utils", "cli")} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
