@@ -52,12 +52,22 @@ Phases, each of which raises on failure (exit code != 0):
    through B1/B2 and centrosymmetric k = 5, midpoint and RK4 on the
    per-layer route, each against the CPU with its launches and route
    asserted; widths within the JAX gate's reach that the kernels decline
-   (64 filters in training, 72 in a forward) raise before any launch; the
-   per-layer steps timed; a captured remat midpoint step against an eager
-   one; B1 and B2 timed at 8 filters;
+   (regular 64 filters in training, 72 in a forward) on the per-layer route
+   against the CPU with no launch, and with ``use_pallas`` (antisymmetric,
+   64 filters) a train step raising before any launch and the forward on
+   B1; the per-layer steps timed (the regular 64L x 64F one too); a
+   captured remat midpoint step against an eager one; B1 and B2 timed at 8
+   filters;
 11. epochs: device-resident epochs of the regular 64L x 16F and 8F models;
 12. subcommands: reproduce --synthetic, deep-stability, train then export
-   --checkpoint then load_exported, benchmark and sweep, in subprocesses.
+   --checkpoint then load_exported, benchmark and sweep, in subprocesses;
+13. bottleneck and batch norm (`phase_bottleneck`): ResNet-50 at 32x32 and
+   at 224x224 x 257 classes against the CPU, trained (2 steps against the
+   CPU, 3 captured against 3 eager, replayed steps timed) and served
+   (export, load, latency at batch 1 and 32), ResNet-50 v1.5, ResNet-101
+   and ResNet-152 forwards against the CPU, the single-block model with
+   batch norm against the CPU, and ``train --model resnet50`` then
+   ``export --checkpoint`` in subprocesses; none launches a kernel.
 
 A kernel's launches are those on the card: its wrapper counts each launch
 outside a CUDA-graph capture, and each replay of a graph counts the
@@ -68,6 +78,7 @@ of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -80,8 +91,10 @@ import numpy as np
 import torch
 
 from differential_equations_resnet_tpu_torch.models import (
+    build_resnet,
     build_single_block_resnet,
     cifar10_single_block_config,
+    resnet_preset,
 )
 from differential_equations_resnet_tpu_torch.models.blocks import init_conv
 from differential_equations_resnet_tpu_torch.models import single_block_resnet as sbr
@@ -108,6 +121,7 @@ from differential_equations_resnet_tpu_torch.utils.flops import (
     PEAK_FLOPS,
     mfu,
     single_block_train_flops,
+    train_flops,
 )
 from differential_equations_resnet_tpu_torch.utils.serving import export_model, load_exported
 
@@ -1035,27 +1049,135 @@ def reset_counts():
     sbr.route_counts.update(fused=0, per_layer=0)
 
 
-def cifar_batch(rng, n):
-    return (torch.from_numpy(rng.uniform(0, 255, (n, 32, 32, 3)).astype(np.float32)),
-            torch.from_numpy(rng.integers(0, 10, n)))
+def image_batch(rng, n, size=32, classes=10):
+    """``n`` uniform 0-255 images of ``size`` x ``size`` and their labels."""
+    return (torch.from_numpy(rng.uniform(0, 255, (n, size, size, 3)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, classes, n)))
+
+
+# Card against CPU after an Adam step, with batch norm: every parameter
+# element within BN_STEP_BOUND of lr (Adam's first two steps move an element
+# by at most ~1.2 lr whatever its gradient, so this is a flipped sign at
+# worst: an element whose gradient is fp32 roundoff steps either way), and
+# each parameter's gradient within the step's gradient tolerance
+# (norm-relative), but the conv biases that feed a batch norm, whose true
+# gradient is 0.
+BN_STEP_BOUND = 2.5
+STATE_TOL = 1e-4    # running statistics after a train step, norm-relative
+# The bottleneck family in train mode, card against CPU: at 32x32 its last
+# stage is 1x1, so batch norm there normalizes each channel over the batch's
+# 16 values alone, dividing the convs' fp32 differences by a spread that can
+# be small (a first step: loss 1.1e-05, grad norms 6.8e-04 at batch 16,
+# 1.3e-03 at batch 8, while the eval-mode logits agree to ~2e-6).
+RESNET_LOSS_TOL = 1e-4
+RESNET_GRAD_TOL = 5e-3    # the grad-norm row (the 3x3 mid-convs)
+# Each parameter's gradient, norm-relative: the antisymmetric mid-convs' d
+# (and a, b, c) vectors take differences of two nearly equal correlations (d
+# sits at +d and -d), and cuDNN's weight gradients differ from run to run,
+# so the worst leaf moves: 2.2e-02 to 2.6e-02 seen in ResNet-50 (the stem
+# norm's scale too), up to 7.3e-04 in the single-block model with batch
+# norm (its a and d vectors).  A fault in a layer's gradient is O(1).
+RESNET_LEAF_TOL = 1e-1
+BN_LEAF_TOL = 5e-3
+
+
+def bn_agreement(card, cpu):
+    """(max |card - cpu| over every parameter element in units of lr, the
+    worst norm-relative difference of a parameter's gradient and that
+    parameter's name, the conv biases that feed a batch norm left out),
+    after a step of both."""
+    worst, grad_err, leaf = 0.0, 0.0, ""
+    for name, a in card.named_parameters():
+        b = cpu.get_parameter(name)
+        worst = max(worst, float((a.detach().cpu() - b.detach()).abs().max()) / LR)
+        if not (name.endswith("__bias") and name != "head__bias"):
+            err = norm_rel(a.grad.cpu(), b.grad)
+            if err > grad_err:
+                grad_err, leaf = err, name
+    return worst, grad_err, leaf
+
+
+def sync_twin(card, cpu, opt_card, opt_cpu):
+    """Give the CPU twin the card's parameters, buffers and Adam slots."""
+    with torch.no_grad():
+        for a, b in zip(card.buffers(), cpu.buffers()):
+            b.copy_(a)
+        for a, b in zip(card.parameters(), cpu.parameters()):
+            b.copy_(a)
+            for key, value in opt_card.state[a].items():
+                opt_cpu.state[b][key].copy_(value)
+
+
+def compare_steps(tag, label, card, cpu, steps=2, batch=8, image_size=32, classes=10, seed=2,
+                  loss_tol=1e-5, grad_tol=TRAIN_GRAD_TOL, leaf_tol=TRAIN_GRAD_TOL):
+    """``steps`` train steps of ``card`` and its CPU twin on the same
+    batches, each from the same state: loss (relative, ``loss_tol``),
+    correct count, grad-norm row (relative, ``grad_tol``), the parameters
+    after Adam (norm-relative TRAIN_GRAD_TOL a leaf; with batch norm
+    `bn_agreement`: BN_STEP_BOUND, and ``leaf_tol`` for each parameter's
+    gradient) and the running statistics (STATE_TOL); then the twin
+    takes the card's state (`sync_twin`), so the next step is compared from
+    where the card stands.  (Left to run on, the two would part: Adam steps
+    an element by about lr * sign(g), and one whose gradient is fp32
+    roundoff steps either way; through batch norm the random-init ResNet
+    turns that into a 2-6% difference of the next loss.)  Logs every step,
+    then raises where they disagreed."""
+    bn = card.config.use_batch_norm
+    optimizers = {m: make_adam(m.parameters()) for m in (card, cpu)}
+    train = {m: make_train_step(m, optimizers[m]) for m in (card, cpu)}
+    rng = np.random.default_rng(seed)
+    agree = True
+    for n in range(1, steps + 1):
+        images, labels = image_batch(rng, batch, image_size, classes)
+        (m_card, norms_card), (m_cpu, norms_cpu) = [
+            train[m](images.to(dev), labels.to(dev), LR) for m, dev in ((card, "cuda"), (cpu, "cpu"))]
+        loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+        rel = ((norms_card.cpu() - norms_cpu).abs() / norms_cpu.abs())
+        same_correct = float(m_card["correct"]) == float(m_cpu["correct"])
+        if bn:
+            worst, grad_err, leaf = bn_agreement(card, cpu)
+            state_err = max(norm_rel(a.cpu(), b) for a, b in zip(card.buffers(), cpu.buffers()))
+            params_ok = (worst <= BN_STEP_BOUND and grad_err <= leaf_tol
+                         and state_err <= STATE_TOL)
+            params = (f"params max |card-cpu| {worst:.3f} of lr (tol {BN_STEP_BOUND:g}), "
+                      f"gradients max norm-rel {grad_err:.2e} a parameter, at {leaf} (tol "
+                      f"{leaf_tol:g}), "
+                      f"{len(list(card.buffers()))} running statistics max norm-rel "
+                      f"{state_err:.2e} (tol {STATE_TOL:g})")
+        else:
+            param_err = max(norm_rel(a.detach().cpu(), b.detach())
+                            for a, b in zip(card.parameters(), cpu.parameters()))
+            params_ok = param_err <= TRAIN_GRAD_TOL
+            params = f"params max norm-rel {param_err:.2e} (tol {TRAIN_GRAD_TOL:g})"
+        ok = (loss_err <= loss_tol and float(rel.max()) <= grad_tol and same_correct
+              and params_ok)
+        agree = agree and ok
+        log(f"[{tag}] {label} step {n} batch {batch} card vs cpu: loss rel {loss_err:.2e} "
+            f"(tol {loss_tol:g}), correct {float(m_card['correct']):g} vs {float(m_cpu['correct']):g}, "
+            f"{norms_card.numel()} grad norms max rel {float(rel.max()):.2e} at entry "
+            f"{int(rel.argmax())}, median {float(rel.median()):.2e} (tol {grad_tol:g}); after "
+            f"Adam {params}: {'ok' if ok else 'FAIL'}")
+        sync_twin(card, cpu, optimizers[card], optimizers[cpu])
+    if not agree:
+        raise AssertionError(f"{label}: the card's train steps disagree with the CPU's")
 
 
 def against_cpu(config, smi, steps=2, batch=8):
     """The model of ``config`` (random weights from seed 0) on the card
     against its twin on the CPU's plain path, from the same parameters and
     batches: the logits of one batch, then ``steps`` train steps at batch 8
-    (loss, correct count, grad-norm row, parameters after Adam).  Asserts the
-    route and its launches: a fused stack launches B1 once a forward and B2
-    once a step, a per-layer stack neither.  Returns the card's model and
-    the launches (B1, B2) of the run."""
+    (`compare_steps`, each from the same state).  Asserts the route and its
+    launches: a fused stack
+    launches B1 once a forward and B2 once a step, a per-layer stack
+    neither.  Returns the card's model and the launches (B1, B2) of the
+    run."""
     card = build_single_block_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda")
     # The route a train step takes, from the shapes alone.
     route = sbr.identity_route(config, torch.zeros(batch, 32, 32, config.filters_per_block[0]),
                                sbr._dense_blocks(card.params()["stages"][0]["blocks"], config))
     cpu = build_single_block_resnet(config, params=card.params(), device="cpu")
-    train = {m: make_train_step(m, make_adam(m.parameters())) for m in (card, cpu)}
-    rng = np.random.default_rng(2)
-    images, _ = cifar_batch(rng, batch)
+    rng = np.random.default_rng(1)
+    images, _ = image_batch(rng, batch)
     reset_counts()
     with torch.no_grad():
         got = card(images.cuda(), return_logits=True).cpu()
@@ -1066,40 +1188,25 @@ def against_cpu(config, smi, steps=2, batch=8):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{describe(config)}: the card's logits disagree with the CPU's")
-    for n in range(1, steps + 1):
-        images, labels = cifar_batch(rng, batch)
-        (m_card, norms_card), (m_cpu, norms_cpu) = [
-            train[m](images.to(dev), labels.to(dev), LR) for m, dev in ((card, "cuda"), (cpu, "cpu"))]
-        loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
-        norms_err = float(((norms_card.cpu() - norms_cpu).abs() / norms_cpu.abs()).max())
-        same_correct = float(m_card["correct"]) == float(m_cpu["correct"])
-        ok = loss_err <= 1e-5 and norms_err <= TRAIN_GRAD_TOL and same_correct
-        log(f"[types] {describe(config)} step {n} batch {batch} card vs cpu: loss rel {loss_err:.2e} "
-            f"(tol 1e-5), correct {float(m_card['correct']):g} vs {float(m_cpu['correct']):g}, "
-            f"{norms_card.numel()} grad norms max rel {norms_err:.2e} (tol {TRAIN_GRAD_TOL:g}): "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{describe(config)}: the card's train step disagrees with the CPU's")
-    param_err = max(norm_rel(a.detach().cpu(), b.detach())
-                    for a, b in zip(card.parameters(), cpu.parameters()))
+    compare_steps("types", describe(config), card, cpu, steps, batch)
     launches, routes = launch_counts(), dict(sbr.route_counts)
     want_launches = (1 + steps, steps) if route == "fused" else (0, 0)
-    ok = (param_err <= TRAIN_GRAD_TOL and launches == want_launches
+    ok = (launches == want_launches
           and routes == {"fused": 0, "per_layer": 0, route: 2 * (1 + steps)})  # card and CPU twin
-    log(f"[types] {describe(config)}: params after {steps} Adam updates max norm-rel {param_err:.2e}; "
-        f"a forward and {steps} steps launched B1 {launches[0]} and B2 {launches[1]} times "
-        f"(want {want_launches}), routes {routes} ({smi}): {'ok' if ok else 'FAIL'}")
+    log(f"[types] {describe(config)}: a forward and {steps} steps launched B1 {launches[0]} and B2 "
+        f"{launches[1]} times (want {want_launches}), routes {routes} ({smi}): "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{describe(config)}: launches {launches}, routes {routes}")
     return card, launches
 
 
-def replayed_steps_ms(model, steps=TIMED_STEPS, batch=HARNESS_BATCH):
+def replayed_steps_ms(model, steps=TIMED_STEPS, batch=HARNESS_BATCH, size=32, classes=10):
     """Milliseconds a train step of ``model`` takes as replays of one
     captured step at ``batch`` (host clock around ``steps`` replays that end
     in a synchronize; the capture before it)."""
     multi = make_multi_step(model, make_adam(model.parameters()))
-    images, labels = [t.cuda() for t in cifar_batch(np.random.default_rng(3), batch)]
+    images, labels = [t.cuda() for t in image_batch(np.random.default_rng(3), batch, size, classes)]
 
     def run(n):
         metrics, _ = multi(images.expand(n, *images.shape), labels.expand(n, *labels.shape), [LR] * n)
@@ -1130,46 +1237,91 @@ def raises_b6(run):
 
 def declined_widths(smi, batch=8):
     """Euler 3x3 stacks at 64 layers within the JAX kernel gate's reach
-    (C <= 128) that the kernels decline on the card: at 64 filters B1 takes
-    the forward (one launch, against the CPU) and a train step raises before
-    any launch, since B2 takes C <= 56 at 32x32; at 72 filters the forward
-    raises too (B1 takes C <= 64).  Neither runs on the per-layer route.
+    (C <= 128) that the kernels decline on the card: they run layer by layer
+    on cuDNN, as the JAX package runs them on XLA, except where the JAX
+    package would run its Pallas kernel.
+
+    - regular 64 filters (B2 takes C <= 56 at 32x32): 2 train steps on the
+      per-layer route against the CPU (`compare_steps`), no launch;
+    - regular 72 filters (B1 takes C <= 64): a forward on the per-layer
+      route against the CPU, no launch;
+    - antisymmetric with ``use_pallas``, 64 filters: a train step raises
+      naming ROADMAP B6 before any launch, and the forward runs on B1 (one
+      launch) against the CPU;
+    - 50 replayed steps of the regular 64L x 64F stack at batch 32, timed.
+
     Returns the B1 launches (1)."""
     rng = np.random.default_rng(7)
-    images, labels = cifar_batch(rng, batch)
-    config = model_config("antisymmetric", 64)
-    card = build_single_block_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda")
-    cpu = build_single_block_resnet(config, params=card.params(), device="cpu")
+    images, labels = image_batch(rng, batch)
+    regular = model_config("regular", 64)
+    card = build_single_block_resnet(regular, generator=torch.Generator().manual_seed(0), device="cuda")
+    cpu = build_single_block_resnet(regular, params=card.params(), device="cpu")
     reset_counts()
-    with torch.no_grad():
-        got = card(images.cuda(), return_logits=True).cpu()
-        want = cpu(images, return_logits=True)
-    err, ok = max_violation(got, want, FP32_TOL)
-    forward_launches = launch_counts()
-    train_error = raises_b6(lambda: make_train_step(card, make_adam(card.parameters()))(
-        images.cuda(), labels.cuda(), LR))
+    compare_steps("types", describe(regular), card, cpu, steps=2, batch=batch)
+    launches, routes = launch_counts(), dict(sbr.route_counts)
+    ok = launches == (0, 0) and routes == {"fused": 0, "per_layer": 4}
+    log(f"[types] {describe(regular)}: 2 train steps on card and CPU launched B1/B2 {launches} "
+        f"(want (0, 0)), routes {routes} (want 4 per-layer) ({smi}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{describe(regular)}: launches {launches}, routes {routes}")
+
     wide = model_config("regular", 72)
     wide_card = build_single_block_resnet(wide, generator=torch.Generator().manual_seed(0), device="cuda")
+    wide_cpu = build_single_block_resnet(wide, params=wide_card.params(), device="cpu")
+    reset_counts()
     with torch.no_grad():
-        wide_error = raises_b6(lambda: wide_card(images.cuda()))
+        got = wide_card(images.cuda(), return_logits=True).cpu()
+        want = wide_cpu(images, return_logits=True)
+    err, ok = max_violation(got, want, FP32_TOL)
     launches, routes = launch_counts(), dict(sbr.route_counts)
-    ok = ok and forward_launches == launches == (1, 0) and routes == {"fused": 2, "per_layer": 0}
-    log(f"[types] {describe(config)}: logits at batch {batch} on B1 max|card-cpu| {err:.3e} "
-        f"(tol rtol=atol={FP32_TOL:g}); a train step raised before any launch: {train_error}")
-    log(f"[types] {describe(wide)}: the forward raised before any launch: {wide_error}")
-    log(f"[types] declined widths: B1/B2 launches {launches} (want (1, 0)), routes {routes} "
-        f"(want 2 fused: card and CPU forwards at 64F, none per-layer) ({smi}): "
-        f"{'ok' if ok else 'FAIL'}")
+    ok = ok and launches == (0, 0) and routes == {"fused": 0, "per_layer": 2}
+    log(f"[types] {describe(wide)}: forward on the per-layer route, logits at batch {batch} "
+        f"max|card-cpu| {err:.3e} (tol rtol=atol={FP32_TOL:g}), launches {launches}, routes "
+        f"{routes}: {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"declined widths: logits err {err}, launches {launches}, routes {routes}")
-    return launches[0]
+        raise AssertionError(f"{describe(wide)}: logits err {err}, launches {launches}")
+
+    pallas = dataclasses.replace(model_config("antisymmetric", 64), use_pallas=True)
+    pallas_card = build_single_block_resnet(pallas, generator=torch.Generator().manual_seed(0),
+                                            device="cuda")
+    pallas_cpu = build_single_block_resnet(pallas, params=pallas_card.params(), device="cpu")
+    reset_counts()
+    train_error = raises_b6(lambda: make_train_step(pallas_card, make_adam(pallas_card.parameters()))(
+        images.cuda(), labels.cuda(), LR))
+    raised_launches = launch_counts()
+    with torch.no_grad():
+        got = pallas_card(images.cuda(), return_logits=True).cpu()
+        want = pallas_cpu(images, return_logits=True)
+    err, ok = max_violation(got, want, FP32_TOL)
+    launches, routes = launch_counts(), dict(sbr.route_counts)
+    ok = ok and raised_launches == (0, 0) and launches == (1, 0) and routes == {"fused": 2,
+                                                                                "per_layer": 0}
+    log(f"[types] {describe(pallas)} use_pallas: a train step raised before any launch "
+        f"(launches {raised_launches}): {train_error}")
+    log(f"[types] {describe(pallas)} use_pallas: forward on B1, logits at batch {batch} max|card-cpu| "
+        f"{err:.3e} (tol rtol=atol={FP32_TOL:g}); B1/B2 launches {launches} (want (1, 0)), routes "
+        f"{routes} (want 2 fused: card and CPU forwards) ({smi}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"use_pallas 64F: logits err {err}, launches {launches}, routes {routes}")
+
+    reset_counts()
+    ms = replayed_steps_ms(card)
+    flops_step = single_block_train_flops(regular, HARNESS_BATCH)
+    rate = 1e3 / ms
+    log(f"[types] {describe(regular)} per-layer route: {TIMED_STEPS} replayed steps at batch "
+        f"{HARNESS_BATCH}: {ms:.4f} ms a step, {rate:.2f} steps/s, {flops_step * rate / 1e12:.4f} "
+        f"model TFLOP/s ({flops_step / 1e9:.3f} GFLOP a step), MFU {mfu(flops_step, rate):.2%} of "
+        f"the fp32 peak; B1/B2 launches {launch_counts()} ({smi})")
+    if launch_counts() != (0, 0):
+        raise AssertionError(f"{describe(regular)}: the per-layer route launched {launch_counts()}")
+    return 1
 
 
 def phase_kernel_types(smi):
     """Regular and centrosymmetric 3x3 stacks through B1/B2 at 64 layers
     (16 and 8 filters), and the stacks on the per-layer route
     (centrosymmetric k = 5, midpoint, RK4), each against the CPU; widths the
-    kernels decline raising on the card; the per-layer stacks' replayed
+    kernels decline (`declined_widths`); the per-layer stacks' replayed
     steps at batch 32 timed; a captured remat midpoint step against an
     eager one.  Returns the B1 and B2 launches of the fused configurations'
     runs."""
@@ -1199,7 +1351,7 @@ def phase_kernel_types(smi):
     models = [build_single_block_resnet(config, generator=torch.Generator().manual_seed(0),
                                         device="cuda") for _ in range(2)]
     optimizers = [make_adam(m.parameters()) for m in models]
-    images, labels = zip(*[cifar_batch(np.random.default_rng(4 + i), 8) for i in range(3)])
+    images, labels = zip(*[image_batch(np.random.default_rng(4 + i), 8) for i in range(3)])
     images, labels = torch.stack(images).cuda(), torch.stack(labels).cuda()
     metrics, norms = make_multi_step(models[0], optimizers[0])(images, labels, [LR] * 3)
     eager = make_train_step(models[1], optimizers[1])
@@ -1348,6 +1500,215 @@ def phase_subcommands(tmp, smi):
 
 
 
+RESNET_LOGITS_TOL = 1e-4  # eval-mode logits card against CPU, norm-relative
+PREDICT_TOL = 1e-5        # a served export against the model it came from, norm-relative
+RESNET_PRESETS = {(3, 4, 6, 3): "ResNet-50", (3, 4, 23, 3): "ResNet-101", (3, 8, 36, 3): "ResNet-152"}
+
+
+def describe_resnet(config):
+    size = config.image_shape[0]
+    return (f"{RESNET_PRESETS[config.blocks_per_stage]} v{config.version:g} {config.kernel_type} "
+            f"mid {size}x{size} {config.num_classes} classes")
+
+
+def resnet_pair(preset, size, classes, antisymmetric_mid=True, version=1, seed=0):
+    """A bottleneck preset (random weights from ``seed``) on the card and
+    its twin on the CPU, with the same parameters and running statistics."""
+    config = resnet_preset(preset, classes, antisymmetric_mid=antisymmetric_mid,
+                           image_shape=(size, size, 3), version=version)
+    card = build_resnet(config, generator=torch.Generator().manual_seed(seed), device="cuda")
+    cpu = build_resnet(config, params=card.params(), state=card.state(), device="cpu")
+    return card, cpu
+
+
+def resnet_eval_against_cpu(card, cpu, batch, smi, seed=11):
+    """Eval-mode logits of ``batch`` images, card against CPU."""
+    config = card.config
+    images, _ = image_batch(np.random.default_rng(seed), batch, config.image_shape[0],
+                            config.num_classes)
+    with torch.no_grad():
+        got = card(images.cuda(), return_logits=True).cpu()
+        want = cpu(images, return_logits=True)
+    err = norm_rel(got, want)
+    ok = err <= RESNET_LOGITS_TOL and tuple(got.shape) == (batch, config.num_classes)
+    log(f"[resnet] {describe_resnet(config)}: eval-mode logits at batch {batch}, card vs cpu "
+        f"norm-rel {err:.2e} (tol {RESNET_LOGITS_TOL:g}) ({smi}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{describe_resnet(config)}: the card's logits disagree with the CPU's")
+
+
+def resnet_replayed(card, steps, smi, batch=HARNESS_BATCH):
+    """``steps`` replayed train steps at ``batch`` on synthetic images of
+    the model's shape: ms a step, images/s, model TFLOP/s and MFU."""
+    config = card.config
+    ms = replayed_steps_ms(card, steps, batch, config.image_shape[0], config.num_classes)
+    flops_step = train_flops(config, batch)
+    rate = 1e3 / ms
+    log(f"[resnet] {describe_resnet(config)}: {steps} replayed train steps at batch {batch}: "
+        f"{ms:.4f} ms a step, {batch * rate:.1f} images/s, {flops_step * rate / 1e12:.4f} model "
+        f"TFLOP/s ({flops_step / 1e9:.3f} GFLOP a step), MFU {mfu(flops_step, rate):.2%} of the "
+        f"fp32 peak ({smi})")
+    return ms
+
+
+def captured_against_eager(preset, size, classes, smi, steps=3, batch=8):
+    """A bottleneck train step captured after its warm-up calls and
+    replayed ``steps`` times against ``steps`` eager steps on a twin drawn
+    from the same seed, at learning rate 0: the parameters stay put, so the
+    running statistics after each step depend on the batches alone, and a
+    warm-up that did not give the batch-norm buffers back as it found them
+    shows as 3 momentum updates too many (~2% of the statistics' change).
+    (At a learning rate of 1e-3 the random-init ResNet is chaotic: Adam
+    steps each element by about lr * sign(g), and an element whose gradient
+    is fp32 roundoff steps either way, so two runs part after 2 steps.)"""
+    config = resnet_preset(preset, classes, antisymmetric_mid=True, image_shape=(size, size, 3))
+    models = [build_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda")
+              for _ in range(2)]
+    rng = np.random.default_rng(12)
+    images, labels = zip(*[image_batch(rng, batch, size, classes) for _ in range(steps)])
+    images, labels = torch.stack(images).cuda(), torch.stack(labels).cuda()
+    metrics, _ = make_multi_step(models[0], make_adam(models[0].parameters()))(
+        images, labels, [0.0] * steps)
+    eager = make_train_step(models[1], make_adam(models[1].parameters()))
+    want = [eager(images[i], labels[i], 0.0)[0] for i in range(steps)]
+    loss_err = max(abs(float(metrics["loss"][i]) - float(m["loss"])) / abs(float(m["loss"]))
+                   for i, m in enumerate(want))
+    state_err = max(norm_rel(a, b) for a, b in zip(models[0].buffers(), models[1].buffers()))
+    moved = all(torch.equal(p, q) for p, q in zip(models[0].parameters(), models[1].parameters()))
+    ok = loss_err <= 1e-5 and state_err <= 1e-5 and moved
+    log(f"[resnet] {describe_resnet(config)}: {steps} captured and replayed steps at batch {batch} "
+        f"and lr 0 against {steps} eager steps: loss max rel {loss_err:.2e} (tol 1e-5), "
+        f"{len(list(models[0].buffers()))} running statistics max norm-rel {state_err:.2e} (tol "
+        f"1e-5), parameters equal: {moved} ({smi}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the captured bottleneck step leaves other running statistics")
+
+
+def time_served(predict, batch, size, runs, smi):
+    """Request latency of a served model on the host clock (host to device,
+    forward, device to host), median of ``runs``; returns (ms, images/s)."""
+    images = np.random.default_rng(13).uniform(0, 255, (batch, size, size, 3)).astype(np.float32)
+    for _ in range(3):
+        predict(images)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        predict(images)
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    log(f"[resnet] served request at batch {batch}, {size}x{size}: {ms:.4f} ms median of {runs}, "
+        f"{batch / ms * 1e3:.1f} images/s ({smi})")
+    return ms
+
+
+def phase_bottleneck(tmp, smi):
+    """The bottleneck family and batch norm on the card, none of which runs
+    a hand-written kernel (the JAX package runs them on XLA's convolutions):
+
+    1. ResNet-50, antisymmetric mid-convs, 32x32, 10 classes (the JAX
+       bench's CIFAR-scale row, full widths): eval-mode logits at batch 8
+       and 2 train steps at batch 16 against the CPU (`compare_steps`: loss,
+       correct, the 17 grad norms, parameters and running statistics after
+       Adam), 3 captured steps against 3 eager ones at learning rate 0 (the
+       warm-up leaves the running statistics alone), then 50 replayed steps
+       at batch 32 timed;
+    2. the same at 224x224 and 257 classes (the v6 notebook's Caltech-256
+       shape, on seeded images): eval-mode logits at batch 2 against the
+       CPU, `export_model` -> `load_exported` -> predict at batch 1 and 32
+       (latency, images/s), 20 replayed train steps at batch 32 timed;
+    3. ResNet-50 v1.5 with regular mid-convs, ResNet-101 and ResNet-152:
+       eval-mode logits at 32x32, batch 4, against the CPU;
+    4. the single-block model with batch norm, 64L x 16F: 2 train steps at
+       batch 8 against the CPU on the per-layer route, no launch;
+    5. ``cli train --model resnet50`` for 20 device-resident steps, then
+       ``export --checkpoint`` and `load_exported`, in subprocesses.
+
+    Every kernel's launch count must stay 0 throughout."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    card, cpu = resnet_pair("resnet50", 32, 10)
+    resnet_eval_against_cpu(card, cpu, 8, smi)
+    compare_steps("resnet", describe_resnet(card.config), card, cpu, steps=2, batch=16,
+                  seed=14, loss_tol=RESNET_LOSS_TOL, grad_tol=RESNET_GRAD_TOL,
+                  leaf_tol=RESNET_LEAF_TOL)
+    captured_against_eager("resnet50", 32, 10, smi)
+    resnet_replayed(card, TIMED_STEPS, smi)
+    del card, cpu
+
+    card, cpu = resnet_pair("resnet50", 224, 257)
+    resnet_eval_against_cpu(card, cpu, 2, smi)
+    del cpu
+    predict, manifest = load_exported(export_model(card, os.path.join(tmp, "resnet50_224")),
+                                      device="cuda")
+    images = np.random.default_rng(15).uniform(0, 255, (4, 224, 224, 3)).astype(np.float32)
+    with torch.no_grad():
+        want = card(torch.from_numpy(images).cuda()).cpu()
+    err = norm_rel(torch.from_numpy(predict(images)), want)
+    ok = manifest["family"] == "bottleneck" and err <= PREDICT_TOL
+    log(f"[resnet] {describe_resnet(card.config)}: export_model -> load_exported -> predict at "
+        f"batch 4 against the model, norm-rel {err:.2e} (tol {PREDICT_TOL:g}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the served ResNet-50 predicts otherwise than the model")
+    for batch, runs in ((1, 25), (32, 10)):
+        time_served(predict, batch, 224, runs, smi)
+    del predict
+    resnet_replayed(card, 20, smi)
+    del card
+    torch.cuda.empty_cache()
+
+    for preset, version, antisymmetric_mid in (("resnet50", 1.5, False), ("resnet101", 1, True),
+                                               ("resnet152", 1, True)):
+        card, cpu = resnet_pair(preset, 32, 10, antisymmetric_mid, version)
+        resnet_eval_against_cpu(card, cpu, 4, smi)
+    del card, cpu
+
+    config = dataclasses.replace(model_config("antisymmetric", 16), use_batch_norm=True)
+    card = build_single_block_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda")
+    cpu = build_single_block_resnet(config, params=card.params(), device="cpu")
+    reset_counts()
+    compare_steps("bn", describe(config) + " batch norm", card, cpu, steps=2, batch=8,
+                  leaf_tol=BN_LEAF_TOL)
+    routes = dict(sbr.route_counts)
+    ok = launch_counts() == (0, 0) and routes == {"fused": 0, "per_layer": 4}
+    log(f"[bn] {describe(config)} batch norm: 2 train steps on card and CPU launched B1/B2 "
+        f"{launch_counts()} (want (0, 0)), routes {routes} (want 4 per-layer) ({smi}): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the single-block model with batch norm left the per-layer route")
+    del card, cpu
+
+    save_dir, csv_dir = os.path.join(tmp, "resnet_ckpt"), os.path.join(tmp, "resnet_csv")
+    model = ["--model", "resnet50"]
+    t0 = time.perf_counter()
+    trained = finish(run_cli("train", *model, "--epochs", "1", "--steps-per-epoch", "20",
+                             "--synthetic-train-size", "1000", "--synthetic-val-size", "200",
+                             "--device-data", "--save-dir", save_dir, "--csv-dir", csv_dir), "train")
+    train_s = time.perf_counter() - t0
+    checkpoint = os.path.join(save_dir, Checkpointer(save_dir).latest())
+    exported = finish(run_cli("export", os.path.join(tmp, "resnet_export"), *model,
+                              "--checkpoint", checkpoint), "export")
+    cli_s = time.perf_counter() - t0
+    predict, manifest = load_exported(exported["export_dir"], device="cuda")
+    restored = build_resnet(resnet_preset("resnet50", 10, antisymmetric_mid=True,
+                                          image_shape=(32, 32, 3)),
+                            generator=torch.Generator().manual_seed(5), device="cuda")
+    Checkpointer(save_dir).restore(TrainState(restored, make_adam(restored.parameters())), checkpoint)
+    images = np.random.default_rng(16).uniform(0, 255, (8, 32, 32, 3)).astype(np.float32)
+    with torch.no_grad():
+        want = restored(torch.from_numpy(images).cuda()).cpu()
+    err = norm_rel(torch.from_numpy(predict(images)), want)
+    ok = (np.isfinite(trained["best"]["loss"]) and manifest["family"] == "bottleneck"
+          and err <= PREDICT_TOL and launch_counts() == (0, 0))
+    log(f"[resnet] cli train --model resnet50 (20 device-resident steps at batch 32, then 7 eval "
+        f"batches) {train_s:.1f} s: {json.dumps(trained)}; export --checkpoint then load_exported "
+        f"{cli_s - train_s:.1f} s: predictions against the checkpoint's model norm-rel {err:.2e} "
+        f"(tol {PREDICT_TOL:g}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the CLI's ResNet-50 train, export or load went wrong")
+    log(f"[resnet] bottleneck and batch-norm phase {time.perf_counter() - t_phase:.1f} s, "
+        f"B1/B2 launches {launch_counts()} ({smi})")
+
+
 def cifar_arrays():
     """Synthetic CIFAR-10 of the real size and dtype: (train images,
     train labels, val images, val labels)."""
@@ -1382,6 +1743,7 @@ def main() -> int:
     epochs_fwd, epochs_bwd = phase_epochs(smi, arrays)
     with tempfile.TemporaryDirectory() as tmp:
         phase_subcommands(tmp, smi)
+        phase_bottleneck(tmp, smi)
     source = "differential_equations_resnet_tpu_torch/csrc/"
     replaces = "differential_equations_resnet_tpu/ops/pallas/fused_integrator.py:"
     kernels = [

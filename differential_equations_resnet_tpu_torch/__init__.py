@@ -23,13 +23,16 @@ reference.
 
 Module map (each module names its JAX counterpart):
 
-- `ops.antisymmetric`          <- `ops/antisymmetric.py` (packed 3x3 layout)
+- `ops.antisymmetric`          <- `ops/antisymmetric.py` (packed 3x3, k x k
+  and dense-lower layouts)
 - `ops.conv`                   <- `ops/conv.py` (`conv2d_same`,
-  `euler_relu_step`, `conv_relu_field`)
+  `conv2d_valid`, `antisym_conv2d_3x3`, `euler_relu_step`, `conv_relu_field`)
 - `ops.kernels.fused_integrator` <- `ops/pallas/fused_integrator.py` (forward
   kernel B1, backward kernel B2, their autograd Function)
-- `models.blocks`              <- `models/blocks.py` (with `l2_kernel_penalty`)
+- `models.blocks`              <- `models/blocks.py` (batch norm, pooling,
+  `l2_kernel_penalty`)
 - `models.single_block_resnet` <- `models/single_block_resnet.py`
+- `models.bottleneck_resnet`   <- `models/bottleneck_resnet.py`
 - `train.train_step`           <- `train/train_step.py` (Adam, loss, train and
   eval steps)
 - `train.telemetry`            <- `train/telemetry.py` (gradient mean norms,

@@ -16,10 +16,14 @@ defaults:
     python -m differential_equations_resnet_tpu_torch.cli train --num-layers 64 --epochs 1
 
 ``--device {cuda,cpu}`` (default cuda) picks where the model runs, as
-``JAX_PLATFORMS`` does for the JAX package.  Every kernel type, kernel size
-and integrator runs.  A model flag the port cannot run yet (``--model
-resnet50``, ``--bf16``, ``--int8-forward``) raises `NotImplementedError`
-when the model is built.  ``predict`` takes only a .npy array: image
+``JAX_PLATFORMS`` does for the JAX package.  Both model families run:
+``--model single_block`` with every kernel type, kernel size and
+integrator, and ``--model resnet50|resnet101|resnet152`` (with
+``--resnet-version``, ``--image-size``, ``--num-classes`` and ``--gamma``;
+``--kernel-type antisymmetric`` gives the antisymmetric mid-convs), in every
+subcommand that builds a model.  A model flag the port cannot run yet
+(``--bf16``, ``--int8-forward``) raises `NotImplementedError` when the
+model is built.  ``predict`` takes only a .npy array: image
 directories need the host preprocessors and records (ROADMAP A8), as
 ``convert-records`` and ``fetch-cifar10`` do, which are not registered yet.
 The MFU that ``benchmark`` and ``sweep`` print is against the card's fp32
@@ -43,7 +47,8 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
         "--model",
         choices=["single_block", "resnet50", "resnet101", "resnet152"],
         default="single_block",
-        help="single-block ODE-ResNet; the bottleneck presets wait for ROADMAP A12",
+        help="single-block ODE-ResNet (v7 notebook) or a bottleneck preset (v6 notebook's "
+             "Caltech-256 ResNet-50 workflow)",
     )
     p.add_argument("--image-size", type=int, default=32)
     p.add_argument("--num-classes", type=int, default=10)
@@ -63,7 +68,9 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--integrator", choices=["euler", "midpoint", "rk4"], default="euler")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--use-pallas", action="store_true",
-                   help="accepted; the hand-written kernels run every Euler 3x3 stack they compute")
+                   help="an antisymmetric Euler 3x3 stack that the hand-written kernels decline "
+                        "raises on the card (ROADMAP B6) instead of running layer by layer, "
+                        "as the JAX package runs such a stack on its Pallas kernel")
     p.add_argument("--s2d-block", type=int, default=2,
                    help="accepted and ignored: space-to-depth stays off on CUDA")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute (ROADMAP A5)")
@@ -82,14 +89,27 @@ def _build_model(args):
     import torch
 
     from differential_equations_resnet_tpu_torch.models import (
+        build_resnet,
         build_single_block_resnet,
         cifar10_single_block_config,
+        resnet_preset,
     )
 
+    compute_dtype = "bfloat16" if args.bf16 else "float32"
+    generator = torch.Generator().manual_seed(0)
     if args.model != "single_block":
-        raise NotImplementedError(
-            f"--model {args.model}: the bottleneck family waits for its port (ROADMAP A12)."
+        config = resnet_preset(
+            args.model,
+            num_classes=args.num_classes,
+            antisymmetric_mid=args.kernel_type == "antisymmetric",
+            image_shape=(args.image_size, args.image_size, 3),
+            version=args.resnet_version,
+            gamma=args.gamma,
+            compute_dtype=compute_dtype,
+            int8_forward=args.int8_forward,
+            int8_backward=args.int8_backward,
         )
+        return build_resnet(config, generator=generator, device=args.device)
     config = cifar10_single_block_config(
         num_layers=args.num_layers,
         final_time=args.final_time,
@@ -101,12 +121,11 @@ def _build_model(args):
         remat=args.remat,
         use_pallas=args.use_pallas,
         s2d_block=args.s2d_block,
-        compute_dtype="bfloat16" if args.bf16 else "float32",
+        compute_dtype=compute_dtype,
         int8_forward=args.int8_forward,
         int8_backward=args.int8_backward,
     )
-    return build_single_block_resnet(config, generator=torch.Generator().manual_seed(0),
-                                     device=args.device)
+    return build_single_block_resnet(config, generator=generator, device=args.device)
 
 
 def _load_data(args):
@@ -259,7 +278,7 @@ def cmd_benchmark(args) -> int:
         make_multi_step,
         make_predict_step,
     )
-    from differential_equations_resnet_tpu_torch.utils.flops import mfu, single_block_train_flops
+    from differential_equations_resnet_tpu_torch.utils.flops import mfu, train_flops
 
     model = _build_model(args)
     device = next(model.parameters()).device
@@ -298,7 +317,7 @@ def cmd_benchmark(args) -> int:
     float(out[0, 0])  # waits for the last forward
     latency_ms = (time.perf_counter() - t0) / 100 * 1e3
 
-    flops_step = single_block_train_flops(model.config, args.batch_size)
+    flops_step = train_flops(model.config, args.batch_size)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(json.dumps({
         "train_steps_per_sec": round(train_sps, 3),
@@ -616,8 +635,8 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("sweep")
     p.add_argument("--widths", default="16,32,64",
-                   help="on the card a width past B2's reach at 32x32 (C > 56, so the default "
-                        "64) raises NotImplementedError until ROADMAP B6")
+                   help="a width past the hand-written kernels' reach at 32x32 (C > 56 in "
+                        "training, so the default 64) runs layer by layer on cuDNN")
     p.add_argument("--depths", default="16,32,64")
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--num-classes", type=int, default=1000)

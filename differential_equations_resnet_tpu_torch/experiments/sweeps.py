@@ -11,10 +11,11 @@ trains in fp32.
 Left behind, because they were measured on or chosen for a TPU: the JAX
 package's no-remat capacity rule (``remat=None`` is off here) and
 `imagenet32_config`'s bf16 default (fp32 here; bf16 compute waits for
-ROADMAP A5).  Each cell's identity stack is an Euler 3x3 stack and runs on
-B1/B2 (`models.single_block_resnet.identity_route`); on the card a width B2
-declines (C > 56 at 32x32, so the default grid's 64) raises
-`NotImplementedError` until B2 is widened (ROADMAP B6).
+ROADMAP A5).  Each cell's identity stack is an Euler 3x3 stack: it runs on
+B1/B2 where they take it and layer by layer on cuDNN where they decline it
+(C > 56 at 32x32 in training, so the default grid's 64), as the JAX package
+runs it on XLA without ``use_pallas``
+(`models.single_block_resnet.identity_route`).
 """
 
 from __future__ import annotations

@@ -1,5 +1,13 @@
-"""Model families of the port (the single-block ODE-ResNet)."""
+"""Model families of the port: the single-block ODE-ResNet and the bottleneck
+ResNet-50/101/152."""
 
+from differential_equations_resnet_tpu_torch.models.bottleneck_resnet import (
+    BottleneckResNet,
+    BottleneckResNetConfig,
+    build_resnet,
+    get_resnet_build_function,
+    resnet_preset,
+)
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
     SingleBlockResNet,
     SingleBlockResNetConfig,
@@ -8,8 +16,13 @@ from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
 )
 
 __all__ = [
+    "BottleneckResNet",
+    "BottleneckResNetConfig",
     "SingleBlockResNet",
     "SingleBlockResNetConfig",
+    "build_resnet",
     "build_single_block_resnet",
     "cifar10_single_block_config",
+    "get_resnet_build_function",
+    "resnet_preset",
 ]

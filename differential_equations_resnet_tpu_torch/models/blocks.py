@@ -3,9 +3,11 @@
 Port of `differential_equations_resnet_tpu/models/blocks.py`.  Parameters are
 NamedTuples of tensors in the JAX package's layouts (HWIO conv kernels,
 (d_in, d_out) dense kernels).  Initializers follow TF-1.12 Keras: `he_normal`
-is a truncated normal with stddev sqrt(2/fan_in), biases start at zero.  The
-BatchNorm parameter types are declared so that trees holding them can be
-read; batch norm itself waits for a later slice.  `l2_kernel_penalty` is the
+is a truncated normal with stddev sqrt(2/fan_in), biases start at zero.
+Batch norm has Keras's semantics (epsilon 1e-3, momentum 0.99, the running
+variance updated with the biased batch variance), written out as the JAX
+package writes it rather than through `F.batch_norm`, which updates with the
+unbiased variance and the opposite momentum.  `l2_kernel_penalty` is the
 training objective's Keras-style L2 term.
 """
 
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
+    Antisym3x3DenseParams,
     Antisym3x3Params,
     AntisymKxKParams,
     he_truncated_normal,
@@ -43,6 +46,10 @@ class BatchNormState(NamedTuple):
     var: torch.Tensor                     # running variance, (C,)
 
 
+BN_EPSILON = 1e-3     # Keras BatchNormalization default (TF 1.12)
+BN_MOMENTUM = 0.99
+
+
 def init_conv(
     generator: torch.Generator,
     kernel_size: Tuple[int, int],
@@ -66,6 +73,43 @@ def init_dense(
     return DenseParams(kernel=kernel, bias=torch.zeros((d_out,), dtype=dtype))
 
 
+def init_batch_norm(channels: int, dtype: torch.dtype = torch.float32):
+    """(BatchNormParams, BatchNormState): scale 1, offset 0, running mean 0,
+    running variance 1."""
+    params = BatchNormParams(scale=torch.ones(channels, dtype=dtype),
+                             offset=torch.zeros(channels, dtype=dtype))
+    state = BatchNormState(mean=torch.zeros(channels, dtype=dtype),
+                           var=torch.ones(channels, dtype=dtype))
+    return params, state
+
+
+def batch_norm(
+    x: torch.Tensor,
+    params: BatchNormParams,
+    state: BatchNormState,
+    train: bool,
+) -> Tuple[torch.Tensor, BatchNormState]:
+    """Channel-axis (last axis) batch norm of an NHWC tensor:
+    ``(x - mean) * rsqrt(var + 1e-3) * scale + offset``.  With ``train``,
+    mean and biased variance over every other axis, through which the
+    gradient flows, and the new running statistics ``0.99 * old + 0.01 *
+    batch`` (detached); else the running statistics, unchanged.  Returns
+    (y, new_state); the caller writes new_state into its buffers."""
+    if train:
+        var, mean = torch.var_mean(x, dim=tuple(range(x.dim() - 1)), correction=0)
+        with torch.no_grad():
+            new_state = BatchNormState(
+                mean=BN_MOMENTUM * state.mean + (1.0 - BN_MOMENTUM) * mean,
+                var=BN_MOMENTUM * state.var + (1.0 - BN_MOMENTUM) * var,
+            )
+    else:
+        mean, var = state.mean, state.var
+        new_state = state
+    inv = torch.rsqrt(var.to(x.dtype) + BN_EPSILON)
+    y = (x - mean.to(x.dtype)) * inv * params.scale.to(x.dtype)
+    return y + params.offset.to(x.dtype), new_state
+
+
 def dense(x: torch.Tensor, params: DenseParams) -> torch.Tensor:
     return x @ params.kernel.to(x.dtype) + params.bias.to(x.dtype)
 
@@ -77,7 +121,14 @@ def global_average_pool(x: torch.Tensor) -> torch.Tensor:
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """Keras MaxPooling2D(pool_size=2, strides=None): VALID padding, NHWC."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1).contiguous()
+    return max_pool(x, (2, 2), (2, 2))
+
+
+def max_pool(x: torch.Tensor, window: Tuple[int, int], strides: Tuple[int, int]) -> torch.Tensor:
+    """Max pooling with VALID padding, NHWC (pad beforehand, with zeros,
+    where the model pads)."""
+    out = F.max_pool2d(x.permute(0, 3, 1, 2), tuple(window), tuple(strides))
+    return out.permute(0, 2, 3, 1).contiguous()
 
 
 def apply_fc_activation(x: torch.Tensor, fc_activation: Optional[str]) -> torch.Tensor:
@@ -96,7 +147,8 @@ def apply_fc_activation(x: torch.Tensor, fc_activation: Optional[str]) -> torch.
 def l2_kernel_penalty(params, weight: float) -> torch.Tensor:
     """Keras-style L2 kernel regularization, ``weight * sum(k**2)`` over
     every kernel parameter: dense conv and fc kernels and the packed layers'
-    free leaves (a, b, c, d, cross; diag, cross).  Biases, batch-norm
+    free leaves (a, b, c, d, cross of either antisymmetric layout, whose
+    dense-lower zeros add nothing; diag, cross).  Biases, batch-norm
     parameters and the constant gamma centre are not regularized, as in the
     JAX package's `l2_kernel_penalty`."""
     leaves = []
@@ -104,7 +156,7 @@ def l2_kernel_penalty(params, weight: float) -> torch.Tensor:
     def collect(p):
         if isinstance(p, (ConvParams, DenseParams)):
             leaves.append(p.kernel)
-        elif isinstance(p, Antisym3x3Params):
+        elif isinstance(p, (Antisym3x3Params, Antisym3x3DenseParams)):
             leaves.extend([p.a, p.b, p.c, p.d, p.cross])
         elif isinstance(p, AntisymKxKParams):
             leaves.extend([p.diag, p.cross])

@@ -2,39 +2,43 @@
 
 Port of `differential_equations_resnet_tpu/models/single_block_resnet.py`
 (config, stage plans, init and the forward pass).  A residual block is one
-step of dY/dt = relu(K(t) Y + b): forward Euler, explicit midpoint or RK4.
+step of dY/dt = relu(K(t) Y + b): forward Euler, explicit midpoint or RK4,
+or, with ``use_batch_norm``, the Euler step conv -> batch norm -> relu.
 Every kernel type runs: antisymmetric (packed 3x3), regular (dense k x k)
 and centrosymmetric (packed k x k, trainable centre).  A stage's identity
 stack is first made dense, (L, k, k, C, C) kernels for all layers at once
 (`_dense_blocks`), then takes one of two routes, chosen from the dense
-stack's shapes before anything is launched (`identity_route`):
+stack's shapes and the config before anything is launched
+(`identity_route`):
 
-- the fused route: an Euler stack of 3x3 kernels, any kernel type, on a
-  state within the JAX kernel gate's reach (C <= 128, H*W <= 4096), runs as
-  the fused L-layer integrator `fused_euler_dense`: the hand-written CUDA
-  kernels on the card (B1 forward, B2 backward), their plain PyTorch
-  versions on the CPU.  On the card a shape there that B1 or B2 declines
-  (at 32x32: C > 64, or C > 56 where a gradient is needed) raises
-  `NotImplementedError` naming ROADMAP B6 before B1 launches; it never
-  gives way to a plain version of what the kernels compute;
-- the per-layer route: midpoint, RK4, k != 3, and states past that reach,
-  for which the JAX package has no kernel either, run layer by layer,
-  `euler_relu_step` or the integrator over `conv_relu_field`, on cuDNN with
-  TF32 off, each layer checkpointed where ``remat`` is set.
+- the fused route: an Euler stack of 3x3 kernels without batch norm, any
+  kernel type, that the hand-written CUDA kernels take (B1 forward; B2
+  backward too where a gradient will be needed) runs as the fused L-layer
+  integrator `fused_euler_dense`: the kernels on the card, their plain
+  PyTorch versions on the CPU.  A stack that the JAX package would run on
+  its Pallas kernel (``use_pallas``, antisymmetric, fp32, within that
+  kernel gate's reach: C <= 128, H*W <= 4096) takes this route even where
+  B1 or B2 declines it, and on the card then raises `NotImplementedError`
+  naming ROADMAP B6 before any launch;
+- the per-layer route, everything else: midpoint, RK4, k != 3, batch norm,
+  and the Euler 3x3 stacks the kernels decline that the JAX package runs on
+  XLA's convolutions, run layer by layer (`euler_relu_step`, the integrator
+  over `conv_relu_field`, or conv, batch norm and relu) on cuDNN with TF32
+  off, each layer checkpointed where ``remat`` is set.
 
 `route_counts` counts the stacks each route ran (Python calls: a replayed
 CUDA graph adds none).  Gradients flow through every leaf, so the model
-trains (`train.train_step`); with no batch norm, train mode and eval mode
-compute the same forward.
+trains (`train.train_step`).  The forward takes ``train`` as the JAX
+``apply`` does: with batch norm, train mode normalizes by the batch's
+statistics and updates the running ones (the model's buffers), eval mode
+uses the running ones; without it the two compute the same forward.
 
 The config accepts every key of the JAX package's ``config.json``; what the
 port does not run yet raises `NotImplementedError` naming the ROADMAP item
-it waits on when the model is built: batch norm (A10), bf16 compute (A5),
-int8 (A13) and the meshes (A15).  Accepted and ignored, because they do not
-change the numbers of a forward or backward pass:
+it waits on when the model is built: bf16 compute (A5), int8 (A13) and the
+meshes (A15).  Accepted and ignored, because they do not change the numbers
+of a forward or backward pass:
 
-- ``use_pallas``: on the card the fused kernels are the route of every
-  stack they compute;
 - ``s2d_block``, ``s2d_force``, ``s2d_max_rows``: space-to-depth is an exact
   layout transform whose gate stays off on CUDA until it is measured there;
 - ``remat`` on the fused route, which keeps only the stack's input anyway;
@@ -51,13 +55,17 @@ from typing import Any, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from differential_equations_resnet_tpu_torch import resolve_device
 from differential_equations_resnet_tpu_torch.models.blocks import (
+    BatchNormState,
     ConvParams,
     apply_fc_activation,
+    batch_norm,
     dense,
     global_average_pool,
+    init_batch_norm,
     init_conv,
     init_dense,
     max_pool_2x2,
@@ -75,10 +83,18 @@ from differential_equations_resnet_tpu_torch.ops.conv import (
     conv_relu_field,
     euler_relu_step,
 )
-from differential_equations_resnet_tpu_torch.ops.integrators import get_integrator, run_layers
+from differential_equations_resnet_tpu_torch.ops.integrators import (
+    get_integrator,
+    layer_slice,
+    num_layers,
+    run_layers,
+)
 from differential_equations_resnet_tpu_torch.ops.kernels.fused_integrator import (
+    fused_euler_bwd_eligible,
     fused_euler_dense,
+    fused_euler_eligible,
     in_reference_reach,
+    needs_gradient,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -196,8 +212,6 @@ def cifar10_single_block_config(
 def unsupported_reason(config: SingleBlockResNetConfig) -> str:
     """What of ``config`` this slice does not run, with the ROADMAP item it
     waits on, or "" where the whole config is covered."""
-    if config.use_batch_norm:
-        return "use_batch_norm=True (batch norm, ROADMAP A10)"
     if config.int8_forward:
         return "int8_forward=True (int8 convolutions, ROADMAP A13)"
     if config.pp_mesh is not None or config.tp_mesh is not None:
@@ -246,11 +260,6 @@ def stage_plans(config: SingleBlockResNetConfig) -> Tuple[_StagePlan, ...]:
     return tuple(plans)
 
 
-def _stack(params):
-    return type(params[0])(*[None if leaves[0] is None else torch.stack(leaves)
-                             for leaves in zip(*params)])
-
-
 def _init_identity_blocks(generator: torch.Generator, config: SingleBlockResNetConfig,
                           num_blocks: int, channels: int):
     """Stacked (L, ...) parameters of a run of identity blocks: packed 3x3
@@ -264,25 +273,42 @@ def _init_identity_blocks(generator: torch.Generator, config: SingleBlockResNetC
         draw = lambda: init_antisym_kxk(generator, k, channels, antisymmetric=False)
     else:
         draw = lambda: init_conv(generator, (k, k), channels, channels)
-    return _stack([draw() for _ in range(num_blocks)])
+    return stack_trees([draw() for _ in range(num_blocks)])
+
+
+def _stacked_batch_norm(num_blocks: int, channels: int):
+    """(BatchNormParams, BatchNormState) of ``num_blocks`` layers, (L, C)."""
+    return tuple(type(t)(*[leaf.repeat(num_blocks, 1) for leaf in t])
+                 for t in init_batch_norm(channels))
 
 
 def init_single_block_resnet(
     config: SingleBlockResNetConfig, generator: torch.Generator
 ) -> dict:
     """The parameter tree, drawn on the CPU from ``generator``: ``{"stem":
-    ConvParams, "stages": [{"conv_main", "conv_shortcut" (conv-block stages
-    only), "blocks": stacked Antisym3x3Params, AntisymKxKParams or
-    ConvParams, or None}], "head": DenseParams}``."""
+    ConvParams, "stem_bn", "stages": [{"conv_main", "conv_shortcut",
+    "bn_main", "bn_shortcut" (conv-block stages only), "blocks": stacked
+    Antisym3x3Params, AntisymKxKParams or ConvParams, or None,
+    "blocks_bn"}], "head": DenseParams}``, the batch-norm parameters (scale
+    1, offset 0) only with ``use_batch_norm``.  `init_single_block_state`
+    gives the running statistics."""
     ks = (config.kernel_size, config.kernel_size)
+    bn = config.use_batch_norm
     params = {"stem": init_conv(generator, ks, config.image_shape[-1], config.filters_per_block[0])}
+    if bn:
+        params["stem_bn"] = init_batch_norm(config.filters_per_block[0])[0]
     stages = []
     for plan in stage_plans(config):
         sp = {}
         if plan.has_conv_block:
             sp["conv_main"] = init_conv(generator, ks, plan.in_channels, plan.filters)
             sp["conv_shortcut"] = init_conv(generator, (1, 1), plan.in_channels, plan.filters)
+            if bn:
+                sp["bn_main"] = init_batch_norm(plan.filters)[0]
+                sp["bn_shortcut"] = init_batch_norm(plan.filters)[0]
         sp["blocks"] = _init_identity_blocks(generator, config, plan.num_identity, plan.filters)
+        if bn and plan.num_identity:
+            sp["blocks_bn"] = _stacked_batch_norm(plan.num_identity, plan.filters)[0]
         stages.append(sp)
     params["stages"] = stages
     if config.include_top:
@@ -292,13 +318,41 @@ def init_single_block_resnet(
     return params
 
 
-def _apply_conv_block(x: torch.Tensor, sp: dict, strides) -> torch.Tensor:
-    """main = relu(conv_kxk(x, stride)); shortcut = conv_1x1(x, stride)."""
+def init_single_block_state(config: SingleBlockResNetConfig) -> dict:
+    """The state tree, the JAX package's ``model_state``: ``{"stem_bn",
+    "stages": [{"bn_main", "bn_shortcut", "blocks_bn"}]}`` of
+    `BatchNormState` running statistics (mean 0, variance 1) with
+    ``use_batch_norm``, else ``{"stages": [{}, ...]}``."""
+    bn = config.use_batch_norm
+    state = {"stem_bn": init_batch_norm(config.filters_per_block[0])[1]} if bn else {}
+    stages = []
+    for plan in stage_plans(config):
+        ss = {}
+        if bn and plan.has_conv_block:
+            ss["bn_main"] = init_batch_norm(plan.filters)[1]
+            ss["bn_shortcut"] = init_batch_norm(plan.filters)[1]
+        if bn and plan.num_identity:
+            ss["blocks_bn"] = _stacked_batch_norm(plan.num_identity, plan.filters)[1]
+        stages.append(ss)
+    state["stages"] = stages
+    return state
+
+
+def _apply_conv_block(x: torch.Tensor, sp: dict, ss: dict, config: SingleBlockResNetConfig,
+                      strides, train: bool):
+    """main = relu(BN(conv_kxk(x, stride))); shortcut = BN(conv_1x1(x,
+    stride)); out = main + shortcut (BN only with ``use_batch_norm``).
+    Returns (out, the stage's new batch-norm state)."""
     main = conv2d_same(x, sp["conv_main"].kernel, strides=strides, bias=sp["conv_main"].bias)
     shortcut = conv2d_same(
         x, sp["conv_shortcut"].kernel, strides=strides, bias=sp["conv_shortcut"].bias
     )
-    return torch.relu(main) + shortcut
+    new_ss = {}
+    if config.use_batch_norm:
+        main, new_ss["bn_main"] = batch_norm(main, sp["bn_main"], ss["bn_main"], train)
+        shortcut, new_ss["bn_shortcut"] = batch_norm(
+            shortcut, sp["bn_shortcut"], ss["bn_shortcut"], train)
+    return torch.relu(main) + shortcut, new_ss
 
 
 def _input_constant(value, device: torch.device) -> torch.Tensor:
@@ -336,23 +390,70 @@ def _dense_blocks(blocks, config: SingleBlockResNetConfig) -> ConvParams:
 route_counts = {"fused": 0, "per_layer": 0}
 
 
+def jax_runs_pallas(config: SingleBlockResNetConfig, x: torch.Tensor) -> bool:
+    """Whether the JAX package would run this stage's identity stack on its
+    Pallas kernel: ``use_pallas``, antisymmetric (packed, with a bias),
+    Euler, no batch norm, and an fp32 4-D state within its gate's reach
+    (JAX `_pallas_eligible` and `fused_euler_eligible`)."""
+    return (config.use_pallas and config.kernel_type == "antisymmetric"
+            and config.integrator == "euler" and not config.use_batch_norm
+            and x.dim() == 4 and x.dtype == torch.float32 and in_reference_reach(x.shape))
+
+
 def identity_route(config: SingleBlockResNetConfig, x: torch.Tensor, dense: ConvParams) -> str:
     """"fused" for an Euler stack of 3x3 kernels (the dense stack's own
-    shape), of any kernel type, on a state within the JAX kernel gate's
-    reach: one B1 launch (and one B2 launch in the backward) on the card,
-    or `NotImplementedError` for a shape they decline.  "per_layer"
-    otherwise.  Decided from shapes alone, before anything is launched."""
-    euler_3x3 = config.integrator == "euler" and tuple(dense.kernel.shape[1:3]) == (3, 3)
-    return "fused" if euler_3x3 and in_reference_reach(x.shape) else "per_layer"
+    shape) without batch norm, of any kernel type, that B1 takes and, where
+    a gradient will be needed, B2 too: one B1 launch (and one B2 launch in
+    the backward) on the card.  "fused" too for a stack they decline that
+    the JAX package would run on Pallas (`jax_runs_pallas`): on the card the
+    fused wrapper then raises naming ROADMAP B6 before any launch.
+    "per_layer" for every other stack, as the JAX package runs it on XLA's
+    convolutions.  Decided from shapes and the config, before anything is
+    launched."""
+    if (config.use_batch_norm or config.integrator != "euler"
+            or tuple(dense.kernel.shape[1:3]) != (3, 3)):
+        return "per_layer"
+    grad = needs_gradient(x, dense.kernel, dense.bias)
+    takes = fused_euler_eligible(x, dense) and (not grad or fused_euler_bwd_eligible(x, dense))
+    return "fused" if takes or jax_runs_pallas(config, x) else "per_layer"
 
 
-def _apply_identity_blocks(x: torch.Tensor, blocks, config: SingleBlockResNetConfig):
-    """A stage's identity stack on its route (`identity_route`)."""
-    dense = _dense_blocks(blocks, config)
+def _batch_norm_stack(x, dense: ConvParams, bn_params, bn_state, config, train: bool):
+    """The Euler stack with batch norm, layer by layer: y + h * relu(BN(conv(y)
+    + b)), each layer checkpointed where ``remat`` is set (the running
+    statistics are outputs of the checkpointed step, so a recompute in the
+    backward does not apply them twice).  Returns (y, the stack's new (L,
+    C) BatchNormState)."""
+    def step(y, p, bn_p, bn_s):
+        z, new = batch_norm(conv2d_same(y, p.kernel, bias=p.bias), bn_p, bn_s, train)
+        return y + config.h * torch.relu(z), new.mean, new.var
+
+    y, means, variances = x, [], []
+    for layer in range(num_layers(dense)):
+        args = (y, layer_slice(dense, layer), layer_slice(bn_params, layer),
+                layer_slice(bn_state, layer))
+        if config.remat:
+            y, mean, var = checkpoint(step, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            y, mean, var = step(*args)
+        means.append(mean)
+        variances.append(var)
+    return y, BatchNormState(torch.stack(means), torch.stack(variances))
+
+
+def _apply_identity_blocks(x: torch.Tensor, sp: dict, ss: dict,
+                           config: SingleBlockResNetConfig, train: bool):
+    """A stage's identity stack on its route (`identity_route`).  Returns
+    (y, the stage's new batch-norm state)."""
+    dense = _dense_blocks(sp["blocks"], config)
     route = identity_route(config, x, dense)
     h = config.h
+    new_ss = {}
     if route == "fused":
         y = fused_euler_dense(x, dense.kernel, dense.bias, float(h))
+    elif config.use_batch_norm:
+        y, new_ss["blocks_bn"] = _batch_norm_stack(x, dense, sp["blocks_bn"], ss["blocks_bn"],
+                                                   config, train)
     else:
         if config.integrator == "euler":
             step = lambda y, p: euler_relu_step(y, p.kernel, p.bias, h)
@@ -362,36 +463,53 @@ def _apply_identity_blocks(x: torch.Tensor, blocks, config: SingleBlockResNetCon
             step = lambda y, p: method(field, y, h, p)
         y = run_layers(step, x, dense, remat=config.remat)
     route_counts[route] += 1
-    return y
+    return y, new_ss
 
 
-def apply_single_block_resnet(
-    params: dict,
-    x: torch.Tensor,
-    config: SingleBlockResNetConfig,
-    return_logits: bool = False,
-) -> torch.Tensor:
-    """Forward pass on NHWC images.  ``return_logits=True`` skips the final
-    fc_activation (softmax)."""
+def normalize_input(x: torch.Tensor, config) -> torch.Tensor:
+    """fp32 images less ``subtract_mean``, over ``divide_by_stddev``."""
     x = x.to(torch.float32)
     if config.subtract_mean is not None:
         x = x - _input_constant(config.subtract_mean, x.device)
     if config.divide_by_stddev is not None:
         x = x / _input_constant(config.divide_by_stddev, x.device)
+    return x
+
+
+def apply_single_block_resnet(
+    params: dict,
+    state: dict,
+    x: torch.Tensor,
+    config: SingleBlockResNetConfig,
+    train: bool = False,
+    return_logits: bool = False,
+):
+    """Forward pass on NHWC images, the JAX ``apply``: returns (output,
+    new_state), new_state ``state`` itself without batch norm.
+    ``return_logits=True`` skips the final fc_activation (softmax)."""
+    x = normalize_input(x, config)
+    new_state = {"stages": []}
     stem = params["stem"]
-    x = torch.relu(conv2d_same(x, stem.kernel, strides=tuple(config.strides[0]), bias=stem.bias))
-    for plan, sp in zip(stage_plans(config), params["stages"]):
+    x = conv2d_same(x, stem.kernel, strides=tuple(config.strides[0]), bias=stem.bias)
+    if config.use_batch_norm:
+        x, new_state["stem_bn"] = batch_norm(x, params["stem_bn"], state["stem_bn"], train)
+    x = torch.relu(x)
+    for plan, sp, ss in zip(stage_plans(config), params["stages"], state["stages"]):
+        stage_ss = {}
         if plan.pool:
             x = max_pool_2x2(x)
         if plan.has_conv_block:
-            x = _apply_conv_block(x, sp, plan.strides)
+            x, conv_ss = _apply_conv_block(x, sp, ss, config, plan.strides, train)
+            stage_ss.update(conv_ss)
         if sp["blocks"] is not None:
-            x = _apply_identity_blocks(x, sp["blocks"], config)
+            x, blocks_ss = _apply_identity_blocks(x, sp, ss, config, train)
+            stage_ss.update(blocks_ss)
+        new_state["stages"].append(stage_ss)
     if config.include_top:
         x = dense(global_average_pool(x), params["head"])
         if not return_logits:
             x = apply_fc_activation(x, config.fc_activation)
-    return x
+    return x, (new_state if config.use_batch_norm else state)
 
 
 def _named_leaves(tree, prefix=""):
@@ -410,6 +528,20 @@ def _named_leaves(tree, prefix=""):
             yield from _named_leaves(value, f"{prefix}__{i}" if prefix else str(i))
 
 
+def stack_trees(trees):
+    """One tree whose tensor leaves are the ``trees``' leaves stacked on a
+    new leading (layer) axis: dicts and NamedTuples of tensors, None leaves
+    staying None."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*[stack_trees(list(leaves)) for leaves in zip(*trees)])
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    return None
+
+
 def map_leaves(fn, tree):
     """The parameter tree with ``fn`` applied to every tensor leaf."""
     if isinstance(tree, torch.Tensor):
@@ -423,20 +555,71 @@ def map_leaves(fn, tree):
     return tree
 
 
-class SingleBlockResNet(nn.Module):
-    """The model as an `nn.Module`: its parameter tree (the JAX package's
-    layout) is registered leaf by leaf as `nn.Parameter`s, so ``state_dict``
-    keys are the tree paths joined by "__" (``stem__kernel``,
-    ``stages__0__blocks__cross``, ...).
+class TreeModel(nn.Module):
+    """An `nn.Module` over a parameter tree and a state tree in the JAX
+    package's layouts: each parameter leaf is registered as an
+    `nn.Parameter` and each state leaf (batch-norm running statistics) as a
+    buffer, both named by their tree paths joined by "__", so ``state_dict``
+    keys are ``stem__kernel``, ``stages__0__blocks__cross``,
+    ``stem_bn__mean``, ....  Subclasses call `_register` and `_forward`."""
+
+    def _register(self, params, state, template, device: torch.device) -> None:
+        """Register copies of ``params`` and ``state`` (default:
+        ``template``, the init state, whose structure a given state must
+        have) on ``device``: a model never shares storage with the trees it
+        was built from, another model's included."""
+        self.tree = map_leaves(
+            lambda t: nn.Parameter(t.detach().to(device, torch.float32, copy=True)), params
+        )
+        for name, leaf in _named_leaves(self.tree):
+            self.register_parameter(name, leaf)
+        want = dict(_named_leaves(template))
+        values = want if state is None else dict(_named_leaves(state))
+        misfit = sorted(k for k in set(values) | set(want) if k not in values or k not in want
+                        or tuple(values[k].shape) != tuple(want[k].shape))
+        if misfit:
+            raise ValueError(f"the state tree does not fit the config at {misfit[:5]}")
+        self._state_names = list(want)  # in the template's order, as `state` maps it
+        for name in self._state_names:
+            self.register_buffer(name, values[name].detach().to(device, torch.float32, copy=True))
+        self._state_template = template
+
+    def params(self) -> dict:
+        """The parameter tree; its leaves are this module's parameters."""
+        return self.tree
+
+    def state(self) -> dict:
+        """The state tree; its leaves are this module's buffers."""
+        leaves = iter([self._buffers[name] for name in self._state_names])
+        return map_leaves(lambda _: next(leaves), self._state_template)
+
+    def _forward(self, apply, x: torch.Tensor, train: bool, return_logits: bool) -> torch.Tensor:
+        """``apply(params, state, x, config, train, return_logits)``; in train
+        mode the new state is written into the buffers, in place (so a CUDA
+        graph that captured them sees it)."""
+        out, new_state = apply(self.tree, self.state(), x, self.config, train, return_logits)
+        if train and self._state_names:
+            new = dict(_named_leaves(new_state))
+            with torch.no_grad():
+                for name in self._state_names:
+                    self._buffers[name].copy_(new[name])
+        return out
+
+
+class SingleBlockResNet(TreeModel):
+    """The single-block model as an `nn.Module` (see `TreeModel`).
 
     Give either ``params`` (a parameter tree, e.g. from
-    `utils.weight_utils.params_from_jax`) or a ``generator`` to draw them.
-    ``device`` defaults to CUDA (see `resolve_device`)."""
+    `utils.weight_utils.params_from_jax`) or a ``generator`` to draw them;
+    ``state`` (the running statistics, e.g. from `state_from_jax`) defaults
+    to the init state.  ``device`` defaults to CUDA (see
+    `resolve_device`)."""
 
     def __init__(
         self,
         config: SingleBlockResNetConfig,
         params: Optional[dict] = None,
+        state: Optional[dict] = None,
         *,
         generator: Optional[torch.Generator] = None,
         device: Optional[Union[str, torch.device]] = None,
@@ -451,24 +634,21 @@ class SingleBlockResNet(nn.Module):
         device = resolve_device(device)
         if params is None:
             params = init_single_block_resnet(config, generator)
-        self.tree = map_leaves(
-            lambda t: nn.Parameter(t.detach().to(device, torch.float32)), params
-        )
-        for name, leaf in _named_leaves(self.tree):
-            self.register_parameter(name, leaf)
+        self._register(params, state, init_single_block_state(config), device)
 
-    def params(self) -> dict:
-        """The parameter tree; its leaves are this module's parameters."""
-        return self.tree
-
-    def forward(self, x: torch.Tensor, return_logits: bool = False) -> torch.Tensor:
-        return apply_single_block_resnet(self.tree, x, self.config, return_logits)
+    def forward(self, x: torch.Tensor, return_logits: bool = False,
+                train: bool = False) -> torch.Tensor:
+        """The model's output (probabilities, or logits with
+        ``return_logits``); ``train=True`` is the JAX ``apply(...,
+        train=True)``: batch statistics, and the running ones updated."""
+        return self._forward(apply_single_block_resnet, x, train, return_logits)
 
 
 def build_single_block_resnet(
     config: Optional[SingleBlockResNetConfig] = None,
     *,
     params: Optional[dict] = None,
+    state: Optional[dict] = None,
     generator: Optional[torch.Generator] = None,
     device: Optional[Union[str, torch.device]] = None,
     **kwargs,
@@ -491,4 +671,4 @@ def build_single_block_resnet(
         config = SingleBlockResNetConfig(**kwargs)
     elif kwargs:
         raise TypeError("Pass either a config object or keyword arguments, not both.")
-    return SingleBlockResNet(config, params, generator=generator, device=device)
+    return SingleBlockResNet(config, params, state, generator=generator, device=device)

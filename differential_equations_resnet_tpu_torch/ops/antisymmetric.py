@@ -25,9 +25,14 @@ The general k x k layout (`AntisymKxKParams`, `init_antisym_kxk`,
 `materialize_kxk`, `pack_kxk`) holds each diagonal spatial block's free
 entries in ``diag`` and mirrors them anti-centrosymmetrically (the
 antisymmetric kernel type) or centrosymmetrically (the centrosymmetric
-kernel type, whose odd-k centre is free).  The dense-lower layout
-(`Antisym3x3DenseParams`) is declared here so that parameter trees holding it
-can be read; its materialization waits for the bottleneck family.
+kernel type, whose odd-k centre is free).
+
+The dense-lower layout (`Antisym3x3DenseParams`, the bottleneck family's
+mid-conv) keeps the same free parameters with ``cross`` at its natural
+(c_in > c_out) positions of a (..., 3, 3, C, C) tensor, so that
+`materialize_3x3_from_dense` is a mask, a flip, a transpose and an add, with
+no gather or scatter.  `dense_from_packed` and `packed_from_dense` convert
+between the layouts bit for bit.
 """
 
 from __future__ import annotations
@@ -178,6 +183,65 @@ def materialize_3x3_stacked(
         kernel[:, :, :, ci, co] = params.cross
         kernel[:, :, :, co, ci] = -params.cross.flip(1, 2)
     return kernel
+
+
+def dense_from_packed(params: Antisym3x3Params) -> Antisym3x3DenseParams:
+    """Packed (..., 3, 3, P) cross -> the dense-lower (..., 3, 3, C, C)
+    storage, zeros off the strictly lower triangle (one indexed write; for
+    init and conversion, not a hot path)."""
+    channels = params.a.shape[-1]
+    cross = params.cross.new_zeros(tuple(params.cross.shape[:-1]) + (channels, channels))
+    if channels > 1:
+        ci, co = _cross_index_tensors(channels, cross.device)
+        cross[..., ci, co] = params.cross
+    return Antisym3x3DenseParams(params.a, params.b, params.c, params.d, cross, params.bias)
+
+
+def packed_from_dense(params: Antisym3x3DenseParams) -> Antisym3x3Params:
+    """Inverse of `dense_from_packed` (one gather)."""
+    ci, co = _cross_index_tensors(params.a.shape[-1], params.cross.device)
+    return Antisym3x3Params(params.a, params.b, params.c, params.d,
+                            params.cross[..., ci, co], params.bias)
+
+
+def init_antisym_3x3_dense(
+    generator: torch.Generator,
+    channels: int,
+    use_bias: bool = True,
+    dtype: torch.dtype = torch.float32,
+) -> Antisym3x3DenseParams:
+    """Dense-layout init: draws exactly what `init_antisym_3x3` draws from
+    the same generator state, scattered into place."""
+    return dense_from_packed(init_antisym_3x3(generator, channels, use_bias, dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _lower_and_eye(channels: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The strictly lower (c_in > c_out) mask and the identity, (C, C), on
+    ``device``, made once (capture-safe, as `_cross_index_tensors`)."""
+    with torch.inference_mode(False):
+        lower = torch.ones(channels, channels, dtype=torch.bool, device=device).tril(-1)
+        return lower, torch.eye(channels, device=device)
+
+
+def materialize_3x3_from_dense(
+    params: Antisym3x3DenseParams, gamma: float = 0.0
+) -> torch.Tensor:
+    """Dense-lower params -> the full (..., 3, 3, C, C) HWIO kernel, with no
+    gather or scatter:
+
+        W = lower_mask * cross
+        K = W - flip_hw(W) transposed over (c_in, c_out) + diag(a, b, c, d, gamma) * I
+
+    The same kernel as `materialize_3x3` of the packed params.  Leading
+    (stacked-layer) dimensions pass through, so a whole (L, ...) stack
+    materializes at once."""
+    a = params.a
+    lower, eye = _lower_and_eye(a.shape[-1], a.device)
+    diag = _diag_blocks(a, params.b, params.c, params.d, gamma, a.dim() - 1)
+    w = torch.where(lower, params.cross, 0.0)
+    kernel = w - w.flip(-4, -3).transpose(-1, -2)
+    return kernel + diag[..., None] * eye.to(a.dtype)
 
 
 def pack_3x3(

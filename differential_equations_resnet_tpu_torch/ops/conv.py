@@ -1,8 +1,9 @@
 """Convolutions with TF "SAME" padding on NHWC activations and HWIO kernels,
 and the Euler residual step and ODE field with a relu-mask backward.
 
-Port of `conv2d_same`, `euler_relu_step` and `conv_relu_field` in
-`differential_equations_resnet_tpu/ops/conv.py`.  The padding is explicit
+Port of `differential_equations_resnet_tpu/ops/conv.py`: `conv2d_same`,
+`conv2d_valid`, `antisym_conv2d_3x3` (either antisymmetric layout),
+`euler_relu_step` and `conv_relu_field`.  The "SAME" padding is explicit
 because TF pads asymmetrically at stride 2 (the extra row and column go after
 the image) and PyTorch's ``padding='same'`` refuses strides above 1.
 
@@ -15,10 +16,17 @@ outside it, where cuDNN rounds fp32 to TF32 by default).
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
+    Antisym3x3DenseParams,
+    Antisym3x3Params,
+    materialize_3x3,
+    materialize_3x3_from_dense,
+)
 
 
 def _fp32_conv_context(x: torch.Tensor):
@@ -36,8 +44,12 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _padded_nchw(x: torch.Tensor, kernel_hw: Tuple[int, int], strides: Tuple[int, int]):
-    """x (NHWC) as NCHW with its "SAME" padding, and (top, left)."""
+def _padded_nchw(x: torch.Tensor, kernel_hw: Tuple[int, int], strides: Tuple[int, int],
+                 padding: str = "SAME"):
+    """x (NHWC) as NCHW with its "SAME" padding (none for "VALID"), and
+    (top, left)."""
+    if padding == "VALID":
+        return x.permute(0, 3, 1, 2), (0, 0)
     top, bottom = same_padding(x.shape[1], kernel_hw[0], strides[0])
     left, right = same_padding(x.shape[2], kernel_hw[1], strides[1])
     return F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom)), (top, left)
@@ -49,13 +61,15 @@ def conv2d_same_vjp(
     g: torch.Tensor,
     strides: Tuple[int, int] = (1, 1),
     need: Tuple[bool, bool] = (True, True),
+    padding: str = "SAME",
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """(dx, dK) of ``conv2d_same(x, kernel, strides)`` (no bias) at the NHWC
-    cotangent ``g``: the transposed convolution of g with K, and the
-    correlation of x with g.  ``need`` says which of the two to compute (the
-    other is None); dx needs only x's shape.  TF32 off on the card."""
+    """(dx, dK) of ``conv2d_same(x, kernel, strides)`` (no bias; of
+    `conv2d_valid` with ``padding="VALID"``) at the NHWC cotangent ``g``: the
+    transposed convolution of g with K, and the correlation of x with g.
+    ``need`` says which of the two to compute (the other is None); dx needs
+    only x's shape.  TF32 off on the card."""
     kh, kw = kernel.shape[0], kernel.shape[1]
-    padded, (top, left) = _padded_nchw(x, (kh, kw), strides)
+    padded, (top, left) = _padded_nchw(x, (kh, kw), strides, padding)
     with _fp32_conv_context(x):
         dpad, dk, _ = torch.ops.aten.convolution_backward(
             g.permute(0, 3, 1, 2), padded, kernel.to(x.dtype).permute(3, 2, 0, 1),
@@ -69,24 +83,26 @@ def conv2d_same_vjp(
     return dx, dk_hwio
 
 
-class _Conv2dSame(torch.autograd.Function):
-    """conv2d_same without bias, forward and backward both with TF32 off."""
+class _Conv2d(torch.autograd.Function):
+    """A convolution without bias, "SAME" or "VALID", forward and backward
+    both with TF32 off."""
 
     @staticmethod
-    def forward(ctx, x, kernel, strides):
-        padded, _ = _padded_nchw(x, kernel.shape[:2], strides)
+    def forward(ctx, x, kernel, strides, padding):
+        padded, _ = _padded_nchw(x, kernel.shape[:2], strides, padding)
         with _fp32_conv_context(x):
             out = F.conv2d(padded, kernel.permute(3, 2, 0, 1), stride=strides)
         ctx.save_for_backward(x, kernel)
-        ctx.strides = strides
+        ctx.strides, ctx.padding = strides, padding
         return out.permute(0, 2, 3, 1)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, kernel = ctx.saved_tensors
-        dx, dk = conv2d_same_vjp(x, kernel, g, ctx.strides, tuple(ctx.needs_input_grad[:2]))
-        return dx, dk, None
+        dx, dk = conv2d_same_vjp(x, kernel, g, ctx.strides, tuple(ctx.needs_input_grad[:2]),
+                                 ctx.padding)
+        return dx, dk, None, None
 
 
 def conv2d_same(
@@ -97,10 +113,39 @@ def conv2d_same(
 ) -> torch.Tensor:
     """2-D convolution, NHWC input, HWIO kernel, zero ("SAME") padding.
     Returns a contiguous NHWC tensor."""
-    out = _Conv2dSame.apply(x, kernel.to(x.dtype), tuple(strides))
+    out = _Conv2d.apply(x, kernel.to(x.dtype), tuple(strides), "SAME")
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out.contiguous()
+
+
+def conv2d_valid(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    strides: Tuple[int, int] = (1, 1),
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """2-D convolution with "VALID" padding (the bottleneck stem's, after an
+    explicit zero pad).  Returns a contiguous NHWC tensor."""
+    out = _Conv2d.apply(x, kernel.to(x.dtype), tuple(strides), "VALID")
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out.contiguous()
+
+
+def antisym_conv2d_3x3(
+    x: torch.Tensor,
+    params: Union[Antisym3x3Params, Antisym3x3DenseParams],
+    gamma: float = 0.0,
+    strides: Tuple[int, int] = (1, 1),
+) -> torch.Tensor:
+    """Antisymmetric 3x3 conv: the dense kernel materialized from either
+    layout (the dense-lower one without a scatter), "SAME" conv, + bias."""
+    if isinstance(params, Antisym3x3DenseParams):
+        kernel = materialize_3x3_from_dense(params, gamma)
+    else:
+        kernel = materialize_3x3(params, gamma)
+    return conv2d_same(x, kernel, strides=strides, bias=params.bias)
 
 
 def round_operand(t: torch.Tensor, matmul_dtype: torch.dtype) -> torch.Tensor:

@@ -25,10 +25,13 @@ rows of the zero-padded state in shared memory (`band_plan` chooses n), so
 its gate is the card's shared memory, not the TPU's VMEM
 (`fused_euler_eligible`, `fused_euler_bwd_eligible`), and it takes less than
 the JAX gate's reach (`in_reference_reach`): at 32x32, B1 C <= 64 and B2 C
-<= 56, against C <= 128.  A shape in that reach that a kernel declines
-raises `NotImplementedError` naming ROADMAP B6 (the kernels widened); where
-a gradient will be needed, a shape that B2 declines raises before B1 is
-launched.
+<= 56, against C <= 128.  On the card a shape that a kernel declines raises
+`NotImplementedError` naming ROADMAP B6 (the kernels widened); where a
+gradient will be needed (`needs_gradient`), a shape that B2 declines raises
+before B1 is launched.  The model sends such a stack here only where the JAX
+package would run its Pallas kernel (``use_pallas``, antisymmetric, within
+that reach); every other stack the kernels decline runs layer by layer on
+cuDNN (`models.single_block_resnet.identity_route`).
 
 Each wrapper counts its kernel's launches on the card in ``launches``.
 Under a CUDA-graph capture the kernel is recorded into the graph, not
@@ -200,6 +203,12 @@ def _stack_with_bias(blocks) -> bool:
         kernel = blocks.kernel
         return kernel.dim() == 5 and tuple(kernel.shape[1:3]) == (3, 3)
     return False
+
+
+def needs_gradient(*tensors: torch.Tensor) -> bool:
+    """Whether autograd will differentiate through an op on ``tensors``:
+    grad mode is on and one of them requires a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def fused_euler_eligible(x: torch.Tensor, blocks) -> bool:
@@ -545,7 +554,7 @@ def fused_euler_dense(
     `NotImplementedError` for a shape a kernel declines that this call needs.
     ``matmul_dtype=torch.bfloat16`` rounds the conv operands to bf16 and
     keeps fp32 sums; the state y stays fp32 throughout."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernels, biases)):
+    if needs_gradient(x, kernels, biases):
         return FusedEulerDense.apply(x, kernels, biases, h, matmul_dtype)
     return _forward(x, kernels, biases, h, matmul_dtype)
 

@@ -3,8 +3,9 @@
 Port of `differential_equations_resnet_tpu/train/checkpoint.py` on
 `torch.save`: a checkpoint is a directory under a metric-encoded name
 (``[name_][tags_]step-00000042[_loss-0.1234_accuracy-0.5000]``) holding
-``state.pt`` = {"step", "model" (the model's state_dict), "optimizer" (the
-optimizer's state_dict, Adam slots included)}, beside a sidecar
+``state.pt`` = {"step", "model" (the model's state_dict: its parameters and
+its batch-norm running statistics), "optimizer" (the optimizer's state_dict,
+Adam slots included)}, beside a sidecar
 ``<name>.meta.json`` with the step, the monitored metrics and a structure
 fingerprint that stands in for the JAX package's treedef: the state_dict's
 keys and shapes and the optimizer's state layout.  `restore` loads with

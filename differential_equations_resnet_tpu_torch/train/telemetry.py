@@ -1,19 +1,23 @@
 """Per-layer gradient mean-norm telemetry and its CSV logger.
 
-Port of `differential_equations_resnet_tpu/train/telemetry.py` for the
-single-block family.  The telemetry is the reference's product: one scalar
-||grad||_2 / size(grad) per convolutional layer and step.  The layer
-structure is explicit in the parameter tree, so the norms of a stacked
-(L, ...) run of identity blocks are one reduction over the stack, for every
-kernel type: the packed antisymmetric leaves (a, b, c, d, cross; divisor
-the free degrees of freedom 4C + 9C(C-1)/2), the packed k x k leaves (diag
-and cross; divisor their sizes) or the dense kernel (divisor k*k*C*C).
-Biases are left out.
+Port of `differential_equations_resnet_tpu/train/telemetry.py`.  The
+telemetry is the reference's product: one scalar ||grad||_2 / size(grad) per
+convolutional layer and step.  The layer structure is explicit in the
+parameter tree, so the norms of a stacked (L, ...) run of identity blocks
+are one reduction over the stack, for every kernel type: the antisymmetric
+leaves of either layout (a, b, c, d, cross; divisor the free degrees of
+freedom 4C + 9C(C-1)/2, so the dense-lower layout, whose other cross
+entries are zeros with zero gradient, reports what the packed one does),
+the packed k x k leaves (diag and cross; divisor their sizes) or the dense
+kernel (divisor k*k*C*C).  Biases and batch norm are left out.
 
 Names match the reference CSV columns: ``conv1_kernel_gradient_mean_norm``,
-then ``res{stage}_{block}_branch2_kernel_gradient_mean_norm`` per residual
-layer.  The bottleneck family waits for ROADMAP A12.  `SummaryWriter` and the
-moment and mean-norm summaries are the reference's tf.summary scalars.
+then for the single-block family
+``res{stage}_{block}_branch2_kernel_gradient_mean_norm`` per residual layer,
+and for the bottleneck family
+``res{stage}_{block}_branch2b_kernel_gradient_mean_norm`` per block, the
+norm of its 3x3 mid-conv.  `SummaryWriter` and the moment and mean-norm
+summaries are the reference's tf.summary scalars.
 """
 
 from __future__ import annotations
@@ -26,25 +30,21 @@ import numpy as np
 import torch
 
 from differential_equations_resnet_tpu_torch.models.blocks import ConvParams
+from differential_equations_resnet_tpu_torch.models.bottleneck_resnet import (
+    BottleneckResNetConfig,
+)
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
     SingleBlockResNetConfig,
     stage_plans,
 )
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
+    Antisym3x3DenseParams,
     Antisym3x3Params,
     AntisymKxKParams,
     num_cross_pairs,
 )
 
-
-def _check_config(config) -> None:
-    if isinstance(config, SingleBlockResNetConfig):
-        return
-    if type(config).__name__ == "BottleneckResNetConfig":
-        raise NotImplementedError(
-            "gradient telemetry of the bottleneck family waits for its port (ROADMAP A12)"
-        )
-    raise TypeError(f"Unsupported config type {type(config)}.")
+_ANTISYM_3X3 = (Antisym3x3Params, Antisym3x3DenseParams)
 
 
 def _mean_norm(x: torch.Tensor) -> torch.Tensor:
@@ -53,9 +53,9 @@ def _mean_norm(x: torch.Tensor) -> torch.Tensor:
 
 def _kernel_leaves(block_grads) -> List[torch.Tensor]:
     """The kernel leaves of a layer's (or a stack's) grads, biases left out:
-    the packed antisymmetric parameters, the packed k x k ones, or the dense
-    conv kernel."""
-    if isinstance(block_grads, Antisym3x3Params):
+    the antisymmetric parameters of either layout, the packed k x k ones, or
+    the dense conv kernel."""
+    if isinstance(block_grads, _ANTISYM_3X3):
         return [block_grads.a, block_grads.b, block_grads.c, block_grads.d, block_grads.cross]
     if isinstance(block_grads, AntisymKxKParams):
         return [block_grads.diag, block_grads.cross]
@@ -64,14 +64,16 @@ def _kernel_leaves(block_grads) -> List[torch.Tensor]:
     raise TypeError(f"Unsupported block grads type {type(block_grads)}.")
 
 
-def _per_layer_free_size(block_grads) -> int:
-    """Free degrees of freedom of one layer of a stack: 4C + 9C(C-1)/2 for
-    packed antisymmetric kernels, else the sizes of the kernel leaves
-    without their leading layer axis, as the JAX package counts them."""
-    if isinstance(block_grads, Antisym3x3Params):
+def _per_layer_free_size(block_grads, stacked: bool = True) -> int:
+    """Free degrees of freedom of one layer (of a stack, where ``stacked``):
+    4C + 9C(C-1)/2 for antisymmetric kernels of either layout, else the
+    sizes of the kernel leaves (without their leading layer axis), as the
+    JAX package counts them."""
+    if isinstance(block_grads, _ANTISYM_3X3):
         channels = block_grads.a.shape[-1]
         return 4 * channels + 9 * num_cross_pairs(channels)
-    return sum(int(np.prod(leaf.shape[1:])) for leaf in _kernel_leaves(block_grads))
+    start = 1 if stacked else 0
+    return sum(int(np.prod(leaf.shape[start:])) for leaf in _kernel_leaves(block_grads))
 
 
 def _stacked_mean_norms(block_grads) -> torch.Tensor:
@@ -82,30 +84,46 @@ def _stacked_mean_norms(block_grads) -> torch.Tensor:
 
 
 def gradient_metric_names(config) -> List[str]:
-    _check_config(config)
     names = ["conv1_kernel_gradient_mean_norm"]
-    for s, plan in enumerate(stage_plans(config)):
-        stage = s + 2
-        block = 0
-        if plan.has_conv_block:
-            names.append(f"res{stage}_{block}_branch2_kernel_gradient_mean_norm")
-            block = 1
-        for i in range(plan.num_identity):
-            names.append(f"res{stage}_{block + i}_branch2_kernel_gradient_mean_norm")
+    if isinstance(config, SingleBlockResNetConfig):
+        for s, plan in enumerate(stage_plans(config)):
+            stage = s + 2
+            block = 0
+            if plan.has_conv_block:
+                names.append(f"res{stage}_{block}_branch2_kernel_gradient_mean_norm")
+                block = 1
+            for i in range(plan.num_identity):
+                names.append(f"res{stage}_{block + i}_branch2_kernel_gradient_mean_norm")
+    elif isinstance(config, BottleneckResNetConfig):
+        for s, num_blocks in enumerate(config.blocks_per_stage):
+            names += [f"res{s + 2}_{b}_branch2b_kernel_gradient_mean_norm"
+                      for b in range(num_blocks)]
+    else:
+        raise TypeError(f"Unsupported config type {type(config)}.")
     return names
 
 
 def gradient_mean_norms(grads, config) -> torch.Tensor:
     """Per-layer gradient mean norms of a gradient tree (the parameter
     tree's layout), ordered as `gradient_metric_names`, on the grads'
-    device."""
-    _check_config(config)
+    device.  Bottleneck blocks report their 3x3 mid-conv: the conv block's,
+    then the stacked identity blocks'."""
     values = [_mean_norm(grads["stem"].kernel).reshape(1)]
-    for plan, sg in zip(stage_plans(config), grads["stages"]):
-        if plan.has_conv_block:
-            values.append(_mean_norm(sg["conv_main"].kernel).reshape(1))
-        if sg["blocks"] is not None:
-            values.append(_stacked_mean_norms(sg["blocks"]))
+    if isinstance(config, SingleBlockResNetConfig):
+        for plan, sg in zip(stage_plans(config), grads["stages"]):
+            if plan.has_conv_block:
+                values.append(_mean_norm(sg["conv_main"].kernel).reshape(1))
+            if sg["blocks"] is not None:
+                values.append(_stacked_mean_norms(sg["blocks"]))
+    elif isinstance(config, BottleneckResNetConfig):
+        for sg in grads["stages"]:
+            conv2 = sg["conv_block"]["conv2"]
+            sq = sum(torch.sum(torch.square(leaf)) for leaf in _kernel_leaves(conv2))
+            values.append((torch.sqrt(sq) / _per_layer_free_size(conv2, stacked=False)).reshape(1))
+            if sg["identity_blocks"] is not None:
+                values.append(_stacked_mean_norms(sg["identity_blocks"]["conv2"]))
+    else:
+        raise TypeError(f"Unsupported config type {type(config)}.")
     return torch.cat(values)
 
 

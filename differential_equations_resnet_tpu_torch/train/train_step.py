@@ -5,10 +5,14 @@ the K-step, device-resident epoch, evaluation and prediction loops.
 Port of `differential_equations_resnet_tpu/train/train_step.py`.  The JAX
 package jits pure functions of a `TrainState`; here the parameters live in
 the model (an `nn.Module`) and the Adam slots in the optimizer, and a step
-updates both in place.  On the card the identity stack's forward and
-backward are the hand-written kernels B1 and B2 (one launch each a step);
-nothing is synchronized with the host inside a step: the metrics and the
-grad-norm row come back as device tensors.
+updates both in place.  The train step runs the forward with ``train=True``
+(batch norm on the batch's statistics, its running statistics, the model's
+buffers, updated in place; with ``accum_steps > 1`` they go through the
+microbatches in order, as the JAX package threads them), evaluation and
+prediction with ``train=False``.  On the card a fused identity stack's
+forward and backward are the hand-written kernels B1 and B2 (one launch
+each a step); nothing is synchronized with the host inside a step: the
+metrics and the grad-norm row come back as device tensors.
 
 The loops (`make_multi_step`, `make_device_epoch`, `make_multi_eval_step`,
 `make_device_eval`, `make_predict_step`) keep the JAX signatures.  On CUDA
@@ -19,9 +23,12 @@ then costs a copy of its batch into the static buffers, one
 rows, which the caller reads once.  The learning rate is the optimizer's
 0-d device tensor (`make_adam` builds Adam with ``capturable=True`` on
 CUDA), set before each replay.  A capture that fails raises; there is no
-eager fallback.  On the CPU the same functions run the step eagerly in a
-loop.  The kernels' launch counters count the replays' launches, not the
-capture (`fused_integrator.count_replay`).
+eager fallback.  The warm-up calls before a capture change the parameters,
+the optimizer's state and the batch-norm buffers; each is given back its
+value before the capture, so a replayed step starts where an eager one
+would.  On the CPU the same functions run the step eagerly in a loop.  The
+kernels' launch counters count the replays' launches, not the capture
+(`fused_integrator.count_replay`).
 
 A graph holds the addresses of the parameters, the gradients and the
 optimizer's state tensors at capture: after ``optimizer.load_state_dict``
@@ -142,11 +149,13 @@ def _correct(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def build_loss_fn(model: nn.Module) -> Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
     """The training objective ``(images, labels) -> (loss, logits)``: mean
     cross-entropy from logits plus, with ``config.l2_regularization > 0``,
-    the L2 kernel penalty (which the reference declares on every kernel)."""
+    the L2 kernel penalty (which the reference declares on every kernel).
+    The forward runs in train mode, so batch norm updates its running
+    statistics."""
     l2_weight = float(model.config.l2_regularization or 0.0)
 
     def loss_fn(images, labels):
-        logits = model(images, return_logits=True)
+        logits = model(images, return_logits=True, train=True)
         loss = cross_entropy_from_logits(logits, labels)
         if l2_weight:
             loss = loss + l2_kernel_penalty(model.params(), l2_weight)
@@ -251,10 +260,11 @@ def unpack_rows(rows: torch.Tensor) -> Tuple[Metrics, torch.Tensor]:
     return {"loss": rows[:, 0], "correct": rows[:, 1], "count": rows[:, 2]}, rows[:, 3:]
 
 
-def _graph_tensors(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
-    """Every parameter and optimizer-state tensor: what a warm-up changes and
-    the capture must leave as it found."""
-    tensors = []
+def _graph_tensors(model: nn.Module, optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """Every parameter, optimizer-state tensor and buffer of the model (the
+    batch-norm running statistics): what a warm-up changes and the capture
+    must leave as it found."""
+    tensors = list(model.buffers())
     for group in optimizer.param_groups:
         for p in group["params"]:
             tensors.append(p.data)
@@ -340,7 +350,7 @@ class _StepRunner:
         self.optimizer = optimizer
         update = _build_update(model, optimizer, with_gradient_metrics, accum_steps)
         self.row = lambda images, labels: pack_row(*update(images, labels))
-        self.replayed = _Replayed("train step", self.row, lambda: _graph_tensors(optimizer))
+        self.replayed = _Replayed("train step", self.row, lambda: _graph_tensors(model, optimizer))
 
     def __call__(self, images: torch.Tensor, labels: torch.Tensor, lr) -> torch.Tensor:
         if not images.is_cuda:
@@ -455,7 +465,7 @@ def make_eval_step(model: nn.Module, *, mesh=None) -> Callable[[torch.Tensor, to
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> Metrics:
         with torch.no_grad():
-            logits = model(images, return_logits=True)
+            logits = model(images, return_logits=True, train=False)
             return {
                 "loss": cross_entropy_from_logits(logits, labels),
                 "correct": _correct(logits, labels),
@@ -473,7 +483,7 @@ def _eval_row(model):
 
     def row(images, labels, valid):
         with torch.no_grad():
-            logits = model(images, return_logits=True)
+            logits = model(images, return_logits=True, train=False)
             count = valid.sum()
             loss = (per_example_cross_entropy(logits, labels) * valid).sum() / count.clamp(min=1.0)
             correct = (_hits(logits, labels) * valid).sum()
@@ -544,7 +554,7 @@ def make_predict_step(model: nn.Module, mesh=None):
 
     def forward(images):
         with torch.no_grad():
-            return model(images)
+            return model(images, train=False)
 
     replayed = _Replayed("predict batch", forward)
 

@@ -79,8 +79,11 @@ class Training:
 
     Data is either ready-made batched `NumpyDataset`s (elements = (images,
     labels) batches) or in-memory arrays, as the reference's 'tfrecord' and
-    'arrays' dataset modes.  The model (a `SingleBlockResNet`) fixes the
-    device: CUDA, or the CPU for a model built with ``device="cpu"``."""
+    'arrays' dataset modes.  The model (a `SingleBlockResNet` or a
+    `BottleneckResNet`) fixes the device: CUDA, or the CPU for a model built
+    with ``device="cpu"``.  Training runs its forward in train mode (batch
+    norm updates its running statistics), evaluation and prediction in eval
+    mode."""
 
     def __init__(
         self,

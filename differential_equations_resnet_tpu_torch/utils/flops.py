@@ -58,6 +58,40 @@ def single_block_train_flops(config: Any, batch_size: int) -> int:
     return 3 * single_block_forward_flops(config, batch_size)
 
 
+def bottleneck_forward_flops(config: Any, batch_size: int) -> int:
+    """Nominal forward-pass FLOPs of a bottleneck ResNet: the stem's 7x7
+    conv, each block's 1x1, 3x3 and 1x1 convs (strided as the version
+    says), the projection shortcuts and the head.  Batch norm, relu, the
+    adds and the pools are left out, as in `single_block_forward_flops`.
+    The JAX package counts none for this family; this count is the port's."""
+    height, width, c_in = config.image_shape
+    height, width = (height + 6 - 7) // 2 + 1, (width + 6 - 7) // 2 + 1  # pad 3, 7x7/2 VALID
+    flops = 2 * batch_size * height * width * 49 * c_in * 64
+    height, width = (height + 2 - 3) // 2 + 1, (width + 2 - 3) // 2 + 1  # pad 1, 3x3/2 pool
+    channels = 64
+    for stage, (blocks, (f0, f1, f2)) in enumerate(zip(config.blocks_per_stage,
+                                                      config.filters_per_block)):
+        mid = f0 if f1 is None else f1
+        stride = 1 if stage == 0 else 2
+        out_h, out_w = _ceil_div(height, stride), _ceil_div(width, stride)
+        rows_in, rows_out = batch_size * height * width, batch_size * out_h * out_w
+        # The first 1x1 conv runs at the input's rows in v1.5, the output's in v1.
+        flops += 2 * (rows_out if config.version == 1 else rows_in) * channels * f0
+        flops += 2 * rows_out * (9 * f0 * mid + mid * f2 + channels * f2)
+        flops += (blocks - 1) * 2 * rows_out * (f2 * f0 + 9 * f0 * mid + mid * f2)
+        height, width, channels = out_h, out_w, f2
+    if config.include_top:
+        flops += 2 * batch_size * channels * config.num_classes
+    return int(flops)
+
+
+def train_flops(config: Any, batch_size: int) -> int:
+    """Nominal train-step FLOPs of either family: three times the forward."""
+    if hasattr(config, "version"):
+        return 3 * bottleneck_forward_flops(config, batch_size)
+    return single_block_train_flops(config, batch_size)
+
+
 # Peak rates of one NVIDIA H100 SXM (data sheet, dense, 700 W), in FLOP/s.
 PEAK_FLOPS = {
     "h100_sxm_fp32": 67e12,     # CUDA cores, no tensor cores

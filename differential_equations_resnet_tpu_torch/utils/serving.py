@@ -4,16 +4,19 @@ Port of `differential_equations_resnet_tpu/utils/serving.py`.  An export
 directory holds
 
     config.json   {"family", "batch_size", "quantize", "config"}, the JAX
-                  package's schema
-    params.pt     the model's state_dict (torch.save)
+                  package's schema; the family is "single_block" or
+                  "bottleneck"
+    params.pt     the model's state_dict (torch.save): its parameters and
+                  its batch-norm running statistics
 
 `load_exported` also serves a directory written by the JAX package: it reads
-that package's ``config.json`` and ``params.pkl`` and ignores its StableHLO
-``forward.hlo``.  ``params.pkl`` is read by a restricted unpickler that maps
-the JAX package's parameter NamedTuples onto the port's own classes and
-refuses every other global apart from NumPy's array reconstruction, so the
-port never imports the JAX package.  Every kernel type is exported and
-served; ``export_model(..., checkpoint=...)`` exports the parameters of a
+that package's ``config.json`` and ``params.pkl`` (``params`` and
+``model_state``) and ignores its StableHLO ``forward.hlo``.  ``params.pkl``
+is read by a restricted unpickler that maps the JAX package's parameter
+NamedTuples onto the port's own classes and refuses every other global apart
+from NumPy's array reconstruction, so the port never imports the JAX
+package.  Both families and every kernel type are exported and served;
+``export_model(..., checkpoint=...)`` exports the parameters and state of a
 training checkpoint (the port's `train.checkpoint` format).
 """
 
@@ -28,54 +31,74 @@ import numpy as np
 import torch
 
 from differential_equations_resnet_tpu_torch import resolve_device
+from differential_equations_resnet_tpu_torch.models.bottleneck_resnet import (
+    BottleneckResNet,
+    BottleneckResNetConfig,
+)
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
     DTYPES,
     SingleBlockResNet,
     SingleBlockResNetConfig,
-    build_single_block_resnet,
     dtype_name,
 )
 from differential_equations_resnet_tpu_torch.utils.weight_utils import (
     ParamsUnpickler,
     params_from_jax,
+    state_from_jax,
 )
 
 PARAMS_FILE = "params.pt"
 JAX_PARAMS_FILE = "params.pkl"
+# Each family's (config class, model class), by the manifest's name.
+FAMILIES = {
+    "single_block": (SingleBlockResNetConfig, SingleBlockResNet),
+    "bottleneck": (BottleneckResNetConfig, BottleneckResNet),
+}
 
 
-def config_to_json(config: SingleBlockResNetConfig) -> dict:
+def config_to_json(config) -> dict:
     d = dataclasses.asdict(config)
     d["compute_dtype"] = dtype_name(d["compute_dtype"])
     return d
 
 
-def config_from_json(d: dict) -> SingleBlockResNetConfig:
+def config_from_json(d: dict, family: str = "single_block"):
+    """The config of a manifest's ``"config"`` (either package's) for
+    ``family``."""
     d = dict(d)
     if d.get("compute_dtype") in DTYPES:
         d["compute_dtype"] = DTYPES[d["compute_dtype"]]
-    for key in ("blocks_per_stage", "filters_per_block", "use_max_pooling", "image_shape"):
+    for key in ("blocks_per_stage", "use_max_pooling", "image_shape"):
         if isinstance(d.get(key), list):
             d[key] = tuple(d[key])
+    if isinstance(d.get("filters_per_block"), list):
+        d["filters_per_block"] = tuple(tuple(f) if isinstance(f, list) else f
+                                       for f in d["filters_per_block"])
     if isinstance(d.get("strides"), list):
         d["strides"] = tuple(tuple(s) for s in d["strides"])
-    return SingleBlockResNetConfig(**d)
+    return _family(family)[0](**d)
+
+
+def _family(name: str):
+    if name not in FAMILIES:
+        raise ValueError(f"unknown model family {name!r}; expected one of {sorted(FAMILIES)}")
+    return FAMILIES[name]
 
 
 def export_model(
-    model: SingleBlockResNet,
+    model: Union[SingleBlockResNet, BottleneckResNet],
     output_dir: str,
     checkpoint: Optional[str] = None,
     batch_size: int = 1,
     quantize: Optional[str] = None,
 ) -> str:
-    """Write ``model``'s config and parameters to ``output_dir``; returns its
-    absolute path.  With ``checkpoint`` (a checkpoint directory written by
-    `train.Checkpointer`, e.g. by ``Training.save`` or ``cli train
-    --save-dir``) its parameters are first restored into ``model``, which
-    must have the checkpoint's structure.  ``batch_size`` is recorded in the
-    manifest as the JAX package records it; the port's loader serves any
-    batch size."""
+    """Write ``model``'s config, parameters and state to ``output_dir``;
+    returns its absolute path.  With ``checkpoint`` (a checkpoint directory
+    written by `train.Checkpointer`, e.g. by ``Training.save`` or ``cli
+    train --save-dir``) its parameters and state are first restored into
+    ``model``, which must have the checkpoint's structure.  ``batch_size``
+    is recorded in the manifest as the JAX package records it; the port's
+    loader serves any batch size."""
     if quantize == "int8":
         raise NotImplementedError("int8 serving waits on ROADMAP item A13.")
     if quantize is not None:
@@ -92,7 +115,8 @@ def export_model(
     with open(os.path.join(output_dir, "config.json"), "w") as f:
         json.dump(
             {
-                "family": "single_block",
+                "family": next(name for name, (_, cls) in FAMILIES.items()
+                               if isinstance(model, cls)),
                 "batch_size": int(batch_size),
                 "quantize": None,
                 "config": config_to_json(model.config),
@@ -106,22 +130,23 @@ def export_model(
 
 
 def _load_params(export_dir: str):
-    """The parameter tree of an export, from the port's params.pt (as a
-    state_dict) or the JAX package's params.pkl (as a tree)."""
+    """(state_dict, None, None) of the port's params.pt, or (None, params,
+    state) trees of the JAX package's params.pkl."""
     ours = os.path.join(export_dir, PARAMS_FILE)
     if os.path.isfile(ours):
-        return torch.load(ours, map_location="cpu", weights_only=True), None
+        return torch.load(ours, map_location="cpu", weights_only=True), None, None
     with open(os.path.join(export_dir, JAX_PARAMS_FILE), "rb") as f:
         blobs = ParamsUnpickler(f).load()
-    return None, params_from_jax(blobs["params"])
+    return None, params_from_jax(blobs["params"]), state_from_jax(blobs["model_state"])
 
 
 def load_exported(
     export_dir: str, device: Optional[Union[str, torch.device]] = None
 ) -> Tuple[Callable[[np.ndarray], np.ndarray], dict]:
-    """Load a serving export (the port's or the JAX package's).  Returns
-    ``(predict, manifest)``: ``predict(images (B, H, W, C) float32) ->
-    probabilities`` as a NumPy array, for any batch size B.
+    """Load a serving export (the port's or the JAX package's, either
+    family).  Returns ``(predict, manifest)``: ``predict(images (B, H, W,
+    C) float32) -> probabilities`` (eval mode: batch norm on the running
+    statistics) as a NumPy array, for any batch size B.
 
     Runs on CUDA unless ``device`` says otherwise; raises where CUDA is
     missing and the CPU was not asked for."""
@@ -130,19 +155,14 @@ def load_exported(
         manifest = json.load(f)
     if manifest.get("quantize") == "int8":
         raise NotImplementedError("int8 serving waits on ROADMAP item A13.")
-    if manifest.get("family") != "single_block":
-        raise NotImplementedError(
-            f"model family {manifest.get('family')!r} waits on ROADMAP item A12."
-        )
-    config = config_from_json(manifest["config"])
-    state_dict, params = _load_params(export_dir)
+    model_cls = _family(manifest.get("family"))[1]
+    config = config_from_json(manifest["config"], manifest["family"])
+    state_dict, params, state = _load_params(export_dir)
     if params is None:
-        model = build_single_block_resnet(
-            config, generator=torch.Generator().manual_seed(0), device=device
-        )
+        model = model_cls(config, generator=torch.Generator().manual_seed(0), device=device)
         model.load_state_dict(state_dict, strict=True)
     else:
-        model = build_single_block_resnet(config, params=params, device=device)
+        model = model_cls(config, params, state, device=device)
     model.eval()
 
     def predict(images: np.ndarray) -> np.ndarray:

@@ -6,7 +6,9 @@ the same layouts (HWIO conv kernels, (d_in, d_out) dense kernels, stacked
 
 - `params_from_jax` takes the JAX parameter tree as NumPy arrays (dicts,
   lists, and NamedTuples or any objects with the parameter fields) and
-  returns the port's tree of torch tensors;
+  returns the port's tree of torch tensors; `state_from_jax` does the same
+  for the JAX ``model_state`` (batch-norm running statistics), which a
+  model takes as its ``state``;
 - `params_to_jax` returns NumPy arrays in the port's NamedTuples, or in the
   classes the caller names, e.g. the JAX package's own.
 
@@ -20,7 +22,8 @@ JAX package's pickles), depth doubling (`double_model_depth`,
 `double_load_weights`: every stacked layer repeated twice, h halved so the
 final time T = h*L stays) and the reference's list-of-{kernel, bias} format
 (`export_reference_weights`, `import_reference_weights`) for every kernel
-type.
+type.  `convert_antisym_layout` converts every antisymmetric leaf of a tree
+between the packed and the dense-lower layout, bit for bit.
 """
 
 from __future__ import annotations
@@ -41,17 +44,19 @@ from differential_equations_resnet_tpu_torch.models.blocks import (
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
     SingleBlockResNetConfig,
     _named_leaves,
-    _stack,
+    stack_trees,
     stage_plans,
 )
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     Antisym3x3DenseParams,
     Antisym3x3Params,
     AntisymKxKParams,
+    dense_from_packed,
     materialize_3x3,
     materialize_kxk,
     pack_3x3,
     pack_kxk,
+    packed_from_dense,
 )
 from differential_equations_resnet_tpu_torch.ops.integrators import layer_slice, num_layers
 
@@ -138,6 +143,37 @@ def params_from_jax(tree) -> Any:
         lambda a: torch.from_numpy(np.array(a, dtype=np.float32)),
         lambda cls, values: cls(*values),
     )
+
+
+def state_from_jax(tree) -> Any:
+    """The JAX package's ``model_state`` tree (NumPy leaves; `BatchNormState`
+    recognised by its fields) -> the port's state tree of fp32 tensors on
+    the CPU, which `SingleBlockResNet` and `BottleneckResNet` take as
+    ``state`` and hold as buffers."""
+    return params_from_jax(tree)
+
+
+def convert_antisym_layout(params, to: str):
+    """Every antisymmetric-conv leaf of a parameter tree converted between
+    the packed (..., 3, 3, P) and the dense-lower (..., 3, 3, C, C) layouts
+    (``to`` = 'dense' or 'packed'), bit for bit; every other leaf passes
+    through.  For trees saved before the bottleneck mid-convs took the
+    dense layout."""
+    if to not in ("dense", "packed"):
+        raise ValueError(f"`to` must be 'dense' or 'packed', got {to!r}.")
+
+    def convert(node):
+        if isinstance(node, Antisym3x3Params) and to == "dense":
+            return dense_from_packed(node)
+        if isinstance(node, Antisym3x3DenseParams) and to == "packed":
+            return packed_from_dense(node)
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [convert(v) for v in node]
+        return node
+
+    return convert(params)
 
 
 def adam_state_from_jax(adam_state, optimizer: torch.optim.Optimizer) -> dict:
@@ -298,7 +334,7 @@ def import_reference_weights(weights: List[dict], params, config: SingleBlockRes
                                            antisymmetric=config.kernel_type == "antisymmetric"))
                 else:
                     layers.append(ConvParams(kernel, bias))
-            sp["blocks"] = _stack(layers)
+            sp["blocks"] = stack_trees(layers)
         stages.append(sp)
     new_params["stages"] = stages
     if config.include_top:

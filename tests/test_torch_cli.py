@@ -1,6 +1,8 @@
 """The port's command line on the CPU (``--device cpu``): train, analyze,
 evaluate and predict as a user runs them, and the flags the port cannot run
-yet (the research subcommands: tests/test_torch_cli_research.py)."""
+yet, for either model family (the research subcommands:
+tests/test_torch_cli_research.py; ``--model resnet50``:
+tests/test_torch_bottleneck_training.py)."""
 
 import glob
 import json
@@ -76,10 +78,10 @@ def test_resume_continues_from_the_latest_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model", "resnet50"], "A12"),
+    (["--model", "resnet50", "--bf16"], "A5"),
     (["--bf16"], "bfloat16"),
     (["--int8-forward"], "int8"),
-    (["--model", "resnet152"], "A12"),
+    (["--model", "resnet152", "--int8-forward"], "A13"),
     (["--int8-forward", "--int8-backward", "wgrad"], "A13"),
 ])
 def test_flags_the_port_cannot_run_raise(tmp_path, flags, match):

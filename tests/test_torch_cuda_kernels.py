@@ -12,8 +12,11 @@ banded kernels split: batch 1 and 7, a height the band count does not divide,
 fewer rows than the plan's usual count, one band an image, and 64x64x16,
 which needs bands to fit at all.  Unstructured (regular) kernels at 16 and 8
 filters, a regular-kernel train step against the CPU, widths the kernels
-decline raising on the card, and a captured remat midpoint step against the
-eager one cover the other kernel types and the per-layer route.
+decline running layer by layer (or raising where the JAX package would run
+Pallas), and a captured remat midpoint step against the eager one cover the
+other kernel types and the per-layer route; ResNet-50's eval forward against
+the CPU and a captured ResNet-50 step against eager steps (the batch-norm
+buffers) cover the bottleneck family, which runs no hand-written kernel.
 chip_smoke.py holds both kernels at the main path's 64-layer shapes.
 """
 
@@ -293,11 +296,15 @@ def test_regular_train_step_on_the_card_equals_the_cpu(card):
 
 
 def test_a_width_the_kernels_decline_raises_on_the_card(card):
-    """A regular 3x3 Euler stack within the JAX gate's reach that a kernel
-    declines raises NotImplementedError naming ROADMAP B6, before any
-    launch, instead of running layer by layer: a train step at 64 filters
-    (B2 takes C <= 56 at 32x32) and a forward at 72 (B1 takes C <= 64).
-    The forward at 64 filters runs on B1 and agrees with the CPU."""
+    """An Euler 3x3 stack within the JAX gate's reach that a kernel declines
+    runs layer by layer on cuDNN, as the JAX package runs it on XLA, and
+    agrees with the CPU: a regular train step at 64 filters (B2 takes C <=
+    56 at 32x32) and a forward at 72 (B1 takes C <= 64), with no launch.
+    Where the JAX package would run Pallas (use_pallas, antisymmetric) the
+    train step at 64 filters raises NotImplementedError naming ROADMAP B6
+    before any launch, and its forward runs on B1 and agrees with the CPU."""
+    import dataclasses
+
     from differential_equations_resnet_tpu_torch.models import (
         build_single_block_resnet,
         cifar10_single_block_config,
@@ -309,17 +316,31 @@ def test_a_width_the_kernels_decline_raises_on_the_card(card):
     labels = torch.from_numpy(rng.integers(0, 10, 2))
     config = cifar10_single_block_config(num_layers=2, num_filters=64, kernel_type="regular",
                                          final_time=0.25)
+    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
     on_card = _card_model(config)
     on_cpu = build_single_block_resnet(config, params=on_card.params(), device="cpu")
-    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+    steps = [make_train_step(m, make_adam(m.parameters())) for m in (on_card, on_cpu)]
+    (m_card, n_card), (m_cpu, n_cpu) = [s(images.to(d), labels.to(d), 1e-3)
+                                        for s, d in zip(steps, ("cuda", "cpu"))]
+    torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(n_card.cpu(), n_cpu, rtol=1e-4, atol=0)
+    for p, q in zip(on_card.parameters(), on_cpu.parameters()):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=0, atol=1e-5)
+    wide = dataclasses.replace(config, filters_per_block=(72,))
+    wide_card = _card_model(wide)
+    wide_cpu = build_single_block_resnet(wide, params=wide_card.params(), device="cpu")
     with torch.no_grad():
-        torch.testing.assert_close(on_card(images.cuda()).cpu(), on_cpu(images), rtol=TOL, atol=TOL)
+        torch.testing.assert_close(wide_card(images.cuda()).cpu(), wide_cpu(images),
+                                   rtol=TOL, atol=TOL)
+    assert (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches) == before
+    pallas = _card_model(dataclasses.replace(config, kernel_type="antisymmetric", use_pallas=True))
     with pytest.raises(NotImplementedError, match="B2 declines.*ROADMAP B6"):
-        make_train_step(on_card, make_adam(on_card.parameters()))(images.cuda(), labels.cuda(), 1e-3)
-    wide = _card_model(cifar10_single_block_config(num_layers=2, num_filters=72,
-                                                   kernel_type="regular", final_time=0.25))
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP B6"):
-        wide(images.cuda())
+        make_train_step(pallas, make_adam(pallas.parameters()))(images.cuda(), labels.cuda(), 1e-3)
+    assert (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches) == before
+    pallas_cpu = build_single_block_resnet(pallas.config, params=pallas.params(), device="cpu")
+    with torch.no_grad():
+        torch.testing.assert_close(pallas(images.cuda()).cpu(), pallas_cpu(images),
+                                   rtol=TOL, atol=TOL)
     assert (fi.fused_euler_dense.launches - before[0],
             fi.fused_euler_dense_bwd.launches - before[1]) == (1, 0)
 
@@ -354,3 +375,62 @@ def test_captured_remat_midpoint_step_equals_the_eager_step(card):
     for p, q in zip(*[m.parameters() for m in models]):
         torch.testing.assert_close(p, q, rtol=0, atol=1e-5)
     assert (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches) == before
+
+
+def _resnet50_pair(image_size, classes, seed=0, **fields):
+    """ResNet-50 with antisymmetric mid-convs, random weights from ``seed``,
+    on the card and its twin on the CPU."""
+    from differential_equations_resnet_tpu_torch.models import build_resnet, resnet_preset
+
+    config = resnet_preset("resnet50", classes, antisymmetric_mid=True,
+                           image_shape=(image_size, image_size, 3), **fields)
+    on_card = build_resnet(config, generator=torch.Generator().manual_seed(seed), device="cuda")
+    on_cpu = build_resnet(config, params=on_card.params(), state=on_card.state(), device="cpu")
+    return on_card, on_cpu
+
+
+def test_resnet50_eval_forward_on_the_card_equals_the_cpu(card):
+    """ResNet-50 (antisymmetric mid-convs, full widths) in eval mode at
+    32x32, batch 2, on cuDNN with TF32 off, against the CPU: logits to 1e-4
+    norm-relative.  No hand-written kernel runs in this family."""
+    on_card, on_cpu = _resnet50_pair(32, 10)
+    images = torch.from_numpy(np.random.default_rng(9).uniform(0, 255, (2, 32, 32, 3))
+                              .astype(np.float32))
+    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+    with torch.no_grad():
+        got = on_card(images.cuda(), return_logits=True).cpu()
+        want = on_cpu(images, return_logits=True)
+    assert norm_rel(got, want) <= 1e-4
+    assert (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches) == before
+
+
+def test_captured_bottleneck_step_leaves_the_running_statistics_as_an_eager_step(card):
+    """A ResNet-50 train step (batch 8, 32x32, v1.5) captured in a CUDA graph
+    after its warm-up calls and replayed 3 times, against 3 eager steps on
+    a twin, at learning rate 0 (the parameters stay put, so the running
+    statistics depend on the batches alone): the warm-up gives the
+    batch-norm buffers back as it found them, so losses and running
+    statistics agree and the parameters are equal."""
+    from differential_equations_resnet_tpu_torch.models import build_resnet
+    from differential_equations_resnet_tpu_torch.train import (
+        make_adam,
+        make_multi_step,
+        make_train_step,
+    )
+
+    replayed, _ = _resnet50_pair(32, 10, version=1.5)
+    eager = build_resnet(replayed.config, generator=torch.Generator().manual_seed(0),
+                         device="cuda")  # the same draws, in storage of its own
+    rng = np.random.default_rng(10)
+    images = torch.from_numpy(rng.uniform(0, 255, (3, 8, 32, 32, 3)).astype(np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 10, (3, 8))).cuda()
+    metrics, _ = make_multi_step(replayed, make_adam(replayed.parameters()))(images, labels,
+                                                                             [0.0] * 3)
+    step = make_train_step(eager, make_adam(eager.parameters()))
+    for i in range(3):
+        m, _ = step(images[i], labels[i], 0.0)
+        torch.testing.assert_close(metrics["loss"][i], m["loss"], rtol=1e-5, atol=0)
+    for (name, a), b in zip(replayed.named_buffers(), eager.buffers()):
+        assert norm_rel(a, b) <= 1e-5, name
+    for p, q in zip(replayed.parameters(), eager.parameters()):
+        assert torch.equal(p, q)

@@ -5,6 +5,7 @@ count, grad-norm row, parameters after Adam), with remat on and off; the
 routes the identity stack takes; depth doubling, the pickle round trip and
 the reference weight format, the 8L8F golden fixture included."""
 
+import dataclasses
 import os
 import pickle
 
@@ -144,57 +145,94 @@ def test_l2_penalty_covers_packed_kxk_leaves():
                                float(jax_blocks.l2_kernel_penalty(params, 1e-2)), rtol=1e-6)
 
 
-def test_routes():
-    """The route is decided from the dense stack's shapes, with or without
-    a gradient: fused for every kernel type's 3x3 Euler stack within the
-    JAX kernel gate's reach (C <= 128), a width B2 declines (C = 60 at
-    32x32) included; the per-layer route for k = 5, midpoint, RK4 and C >
-    128, where the JAX package has no kernel either."""
-    def route(kernel_type, k=3, integrator="euler", channels=8, grad=True):
-        config = config_from_json(_config_to_json(
-            config_of(kernel_type, k, integrator, False, filters=channels)))
-        blocks = sbr.init_single_block_resnet(config, torch.Generator().manual_seed(0))
-        blocks = blocks["stages"][0]["blocks"]
-        blocks = type(blocks)(*[None if t is None else t.requires_grad_(grad) for t in blocks])
-        with torch.set_grad_enabled(grad):
-            return sbr.identity_route(config, torch.zeros(2, 32, 32, channels),
-                                      sbr._dense_blocks(blocks, config))
+def _route(kernel_type, k=3, integrator="euler", channels=8, grad=True, **fields):
+    """The route of the stage-0 stack of a 2L x ``channels`` config (JAX
+    config fields in ``fields``), with or without a gradient."""
+    config = dataclasses.replace(config_from_json(_config_to_json(
+        config_of(kernel_type, k, integrator, False, filters=channels))), **fields)
+    blocks = sbr.init_single_block_resnet(config, torch.Generator().manual_seed(0))
+    blocks = blocks["stages"][0]["blocks"]
+    blocks = type(blocks)(*[None if t is None else t.requires_grad_(grad) for t in blocks])
+    with torch.set_grad_enabled(grad):
+        return sbr.identity_route(config, torch.zeros(2, 32, 32, channels),
+                                  sbr._dense_blocks(blocks, config))
 
+
+def test_routes():
+    """The route is decided from the dense stack's shapes and the config,
+    with or without a gradient: fused for every kernel type's 3x3 Euler
+    stack that B1 takes and, where a gradient is needed, B2 too; the
+    per-layer route for k = 5, midpoint, RK4, a width the kernels decline
+    (C = 60 at 32x32 with a gradient, 72 without) and C > 128, as the JAX
+    package runs all of them on XLA's convolutions."""
     for kernel_type in ("antisymmetric", "regular", "centrosymmetric"):
         for grad in (True, False):
-            assert route(kernel_type, grad=grad) == "fused"
-            assert route(kernel_type, channels=60, grad=grad) == "fused"
+            assert _route(kernel_type, grad=grad) == "fused"
+            assert _route(kernel_type, channels=60, grad=grad) == ("per_layer" if grad else "fused")
+            assert _route(kernel_type, channels=72, grad=grad) == "per_layer"
         for integrator in ("midpoint", "rk4"):
-            assert route(kernel_type, integrator=integrator) == "per_layer"
-    assert route("regular", channels=136) == "per_layer"
+            assert _route(kernel_type, integrator=integrator) == "per_layer"
+    assert _route("regular", channels=136) == "per_layer"
     for kernel_type in ("regular", "centrosymmetric"):
-        assert route(kernel_type, k=5) == "per_layer"
+        assert _route(kernel_type, k=5) == "per_layer"
+
+
+def test_declined_stacks_follow_the_jax_decision():
+    """Batch norm always takes the per-layer route (JAX skips Pallas with
+    it); a stack the kernels decline keeps the fused route, whose wrapper
+    raises on the card, only where the JAX package would run Pallas:
+    use_pallas, antisymmetric, within its gate's reach (C <= 128)."""
+    for kernel_type in ("antisymmetric", "regular"):
+        for grad in (True, False):
+            assert _route(kernel_type, grad=grad, use_batch_norm=True) == "per_layer"
+            assert _route(kernel_type, grad=grad, use_batch_norm=True,
+                          use_pallas=True) == "per_layer"
+    for grad in (True, False):
+        assert _route("antisymmetric", channels=72, grad=grad, use_pallas=True) == "fused"
+        assert _route("regular", channels=72, grad=grad, use_pallas=True) == "per_layer"
+        assert _route("centrosymmetric", channels=72, grad=grad, use_pallas=True) == "per_layer"
+    assert _route("antisymmetric", channels=60, use_pallas=True) == "fused"
+    assert _route("antisymmetric", channels=60, use_pallas=False) == "per_layer"
+    assert _route("antisymmetric", channels=136, use_pallas=True) == "per_layer"
+    assert _route("antisymmetric", integrator="rk4", use_pallas=True) == "per_layer"
 
 
 def test_a_width_b2_declines_raises_on_the_card(monkeypatch):
-    """On the card a regular 3x3 Euler stack at a width B2 declines (C =
-    60 at 32x32) raises `NotImplementedError` naming ROADMAP B6 where a
-    gradient is needed, before B1 launches: it does not give way to the
-    per-layer route.  Under no_grad B1 takes it.  CUDA-looking CPU tensors
-    stand in for the card, with B1's launch recorded instead of made."""
+    """On the card an Euler 3x3 stack at a width B2 declines (C = 60 at
+    32x32) where a gradient is needed runs layer by layer when it is
+    regular, as the JAX package runs it on XLA; with use_pallas and
+    antisymmetric kernels, where the JAX package runs Pallas, it raises
+    `NotImplementedError` naming ROADMAP B6 before B1 launches, and under
+    no_grad B1 takes it.  CUDA-looking CPU tensors stand in for the card,
+    with B1's launch recorded instead of made."""
     from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
 
     launched = []
     monkeypatch.setattr(fi, "_launch", lambda *args: launched.append(args) or args[0])
-    config = config_from_json(_config_to_json(config_of("regular", 3, "euler", False, filters=60)))
-    blocks = sbr.init_single_block_resnet(config, torch.Generator().manual_seed(0))
-    blocks = ConvParams(*[t.requires_grad_() for t in blocks["stages"][0]["blocks"]])
+
+    def stage(kernel_type, **fields):
+        config = config_from_json(_config_to_json(
+            config_of(kernel_type, 3, "euler", False, filters=60, **fields)))
+        blocks = sbr.init_single_block_resnet(config, torch.Generator().manual_seed(0))
+        # Made dense here, off the stand-in card; a dense stack passes through.
+        dense = sbr._dense_blocks(blocks["stages"][0]["blocks"], config)
+        return config, {"blocks": ConvParams(*[t.detach().requires_grad_() for t in dense])}
+
+    regular, regular_stage = stage("regular")
+    pallas, pallas_stage = stage("antisymmetric", use_pallas=True)
     x = torch.zeros(2, 32, 32, 60)
     sbr.route_counts.update(fused=0, per_layer=0)
     with monkeypatch.context() as card:
         card.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda", 0)))
+        y, _ = sbr._apply_identity_blocks(x, regular_stage, {}, regular, True)
+        assert y.requires_grad and not launched
         with pytest.raises(NotImplementedError, match="B2 declines.*ROADMAP B6"):
-            sbr._apply_identity_blocks(x, blocks, config)
+            sbr._apply_identity_blocks(x, pallas_stage, {}, pallas, True)
         assert not launched
         with torch.no_grad():
-            sbr._apply_identity_blocks(x, blocks, config)
+            sbr._apply_identity_blocks(x, pallas_stage, {}, pallas, False)
     assert len(launched) == 1
-    assert sbr.route_counts == {"fused": 1, "per_layer": 0}
+    assert sbr.route_counts == {"fused": 1, "per_layer": 1}
 
 
 @pytest.mark.parametrize("kernel_type,k,integrator,route", [

@@ -129,8 +129,8 @@ def test_port_config_matches_the_jax_keyword_surface():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(use_batch_norm=True), "A10"),
-    (dict(use_batch_norm=True, kernel_type="regular"), "A10"),
+    (dict(use_batch_norm=True, compute_dtype="bfloat16"), "A5"),
+    (dict(use_batch_norm=True, kernel_type="regular", int8_forward=True), "A13"),
     (dict(int8_forward=True, integrator="rk4"), "A13"),
     (dict(compute_dtype=torch.float16), "A5"),
     (dict(compute_dtype="bfloat16", kernel_type="centrosymmetric"), "A5"),
@@ -140,10 +140,11 @@ def test_port_config_matches_the_jax_keyword_surface():
     (dict(tp_mesh="mesh"), "A15"),
 ])
 def test_features_outside_the_slice_raise(overrides, item):
-    """What the port does not run yet (batch norm, reduced precision, int8,
-    the meshes) raises naming its ROADMAP item, whatever the kernel type or
-    integrator; every kernel type and integrator runs otherwise
-    (tests/test_torch_kernel_types.py)."""
+    """What the port does not run yet (reduced precision, int8, the meshes)
+    raises naming its ROADMAP item, whatever the kernel type, integrator or
+    batch norm; every kernel type and integrator runs otherwise
+    (tests/test_torch_kernel_types.py), batch norm too
+    (tests/test_torch_batch_norm.py)."""
     config = dataclasses.replace(
         cifar10_single_block_config(num_layers=2, num_filters=4), **overrides
     )

@@ -99,14 +99,16 @@ def test_int8_manifest_raises(tmp_path):
 
 
 def test_other_families_raise(tmp_path):
+    """A manifest of a family the port does not know raises; "bottleneck"
+    is served (tests/test_torch_bottleneck_training.py)."""
     export_dir = jax_export(tmp_path, layers=2, filters=4)
     path = os.path.join(export_dir, "config.json")
     with open(path) as f:
         manifest = json.load(f)
-    manifest["family"] = "bottleneck"
+    manifest["family"] = "wide_resnet"
     with open(path, "w") as f:
         json.dump(manifest, f)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="unknown model family 'wide_resnet'"):
         load_exported(export_dir, device="cpu")
 
 

@@ -176,8 +176,20 @@ def test_headline_names_are_conv1_and_64_residual_layers():
 
 
 def test_telemetry_of_the_bottleneck_family_waits_for_a12():
-    with pytest.raises(NotImplementedError, match="A12"):
-        gradient_metric_names(BottleneckResNetConfig(num_classes=10))
+    """The bottleneck family's names (the port's config, A12 ported) equal
+    the JAX package's; a config of neither family raises."""
+    from differential_equations_resnet_tpu_torch.models import (
+        BottleneckResNetConfig as PortBottleneckConfig,
+    )
+
+    jax_config = BottleneckResNetConfig(num_classes=10, blocks_per_stage=(2, 1, 3, 1))
+    names = gradient_metric_names(config_from_json(_config_to_json(jax_config), "bottleneck"))
+    assert isinstance(config_from_json(_config_to_json(jax_config), "bottleneck"),
+                      PortBottleneckConfig)
+    assert names == jax_gradient_metric_names(jax_config)
+    assert names[1] == "res2_0_branch2b_kernel_gradient_mean_norm" and len(names) == 8
+    with pytest.raises(TypeError):
+        gradient_metric_names(jax_config)
     with pytest.raises(TypeError):
         gradient_metric_names(object())
 

@@ -11,18 +11,27 @@ import pytest
 import torch
 
 from differential_equations_resnet_tpu.models import blocks as jax_blocks
+from differential_equations_resnet_tpu.models import bottleneck_resnet as jax_bottleneck
 from differential_equations_resnet_tpu.ops import antisymmetric as jax_antisym
 from differential_equations_resnet_tpu.utils.serving import _config_to_json
-from differential_equations_resnet_tpu_torch.models import build_single_block_resnet
+from differential_equations_resnet_tpu_torch.models import build_resnet, build_single_block_resnet
+from differential_equations_resnet_tpu_torch.models.bottleneck_resnet import init_resnet
 from differential_equations_resnet_tpu_torch.ops import antisymmetric as torch_antisym
 from differential_equations_resnet_tpu_torch.utils.serving import config_from_json
-from differential_equations_resnet_tpu_torch.utils.weight_utils import params_from_jax
+from differential_equations_resnet_tpu_torch.utils.weight_utils import (
+    params_from_jax,
+    params_to_jax,
+    state_from_jax,
+)
 
 # The JAX package's parameter classes, by name, for `params_to_jax`.
 JAX_CLASSES = {
     "ConvParams": jax_blocks.ConvParams,
     "DenseParams": jax_blocks.DenseParams,
+    "BatchNormParams": jax_blocks.BatchNormParams,
+    "BatchNormState": jax_blocks.BatchNormState,
     "Antisym3x3Params": jax_antisym.Antisym3x3Params,
+    "Antisym3x3DenseParams": jax_antisym.Antisym3x3DenseParams,
 }
 
 
@@ -74,12 +83,118 @@ def jax_params_with_biases(jax_model, seed):
     return params, state
 
 
-def port_model(config, jax_params):
-    """The port's model of a JAX config, on the CPU, holding ``jax_params``."""
-    port_config = config_from_json(_config_to_json(config))
-    return build_single_block_resnet(
-        port_config, params=params_from_jax(to_numpy(jax_params)), device="cpu"
-    )
+def with_batch_norms(params, state, seed):
+    """JAX trees with every batch norm made non-trivial with NumPy: scale 1
+    + 0.1 N(0, 1), offset 0.1 N(0, 1), running mean 0.1 N(0, 1), running
+    variance U(0.5, 1.5) (init leaves them 1, 0, 0, 1)."""
+    rng = np.random.default_rng(seed + 1000)
+    normal = lambda leaf, loc: (loc + 0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
+
+    def bn(path, leaf):
+        key = jax.tree_util.keystr(path)
+        if key.endswith(".scale"):
+            return normal(leaf, 1.0)
+        if key.endswith(".offset") or key.endswith(".mean"):
+            return normal(leaf, 0.0)
+        if key.endswith(".var"):
+            return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
+        return leaf
+
+    return (jax.tree_util.tree_map_with_path(bn, params),
+            jax.tree_util.tree_map_with_path(bn, state))
+
+
+def jax_params_and_state(jax_model, seed):
+    """`jax_params_with_biases`, then `with_batch_norms`."""
+    return with_batch_norms(*jax_params_with_biases(jax_model, seed), seed)
+
+
+def narrow_bottleneck_config(version, antisymmetric_mid, **fields):
+    """A JAX `BottleneckResNetConfig` at test size: two identity blocks in
+    stage 2, one block in the others, bottleneck width 8 (mid 8 or
+    antisymmetric), outer width 16, 32x32 images, 5 classes."""
+    mid = None if antisymmetric_mid else 8
+    return jax_bottleneck.BottleneckResNetConfig(
+        image_shape=(32, 32, 3), num_classes=5, version=version,
+        blocks_per_stage=(2, 1, 1, 1), filters_per_block=((8, mid, 16),) * 4,
+        kernel_type="antisymmetric" if antisymmetric_mid else "regular", gamma=0.05,
+        subtract_mean=127.5, divide_by_stddev=127.5, **fields)
+
+
+# (version, antisymmetric mid-convs) of the parity tests, and their ids.
+BOTTLENECK_CASES = [(1, True), (1, False), (1.5, True), (1.5, False)]
+BOTTLENECK_IDS = [f"v{v}-{'antisymmetric' if a else 'regular'}" for v, a in BOTTLENECK_CASES]
+
+
+def drawn_bottleneck_trees(config, seed):
+    """(params, state) for a JAX `BottleneckResNetConfig` as the JAX
+    package's trees of NumPy leaves, drawn by the port's init from a torch
+    seed (JAX's init draws leaf by leaf, ~12 s at ResNet-50's widths on the
+    CPU), with nonzero biases and `with_batch_norms`."""
+    port_config = config_from_json(_config_to_json(config), "bottleneck")
+    params, state = init_resnet(port_config, torch.Generator().manual_seed(seed))
+    params, state = params_to_jax(params, JAX_CLASSES), params_to_jax(state, JAX_CLASSES)
+    rng = np.random.default_rng(seed)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, leaf: (leaf + 0.05 * rng.standard_normal(leaf.shape).astype(np.float32)
+                            if jax.tree_util.keystr(path).endswith(".bias") else leaf), params)
+    return with_batch_norms(params, state, seed)
+
+
+def port_model(config, jax_params, jax_state=None):
+    """The port's model of a JAX config (either family), on the CPU, holding
+    ``jax_params`` and, where given, the ``jax_state`` running statistics."""
+    bottleneck = hasattr(config, "version")
+    port_config = config_from_json(_config_to_json(config),
+                                   "bottleneck" if bottleneck else "single_block")
+    state = None if jax_state is None else state_from_jax(to_numpy(jax_state))
+    build = build_resnet if bottleneck else build_single_block_resnet
+    return build(port_config, params=params_from_jax(to_numpy(jax_params)), state=state,
+                 device="cpu")
+
+
+# Parameters after Adam where batch norm is in the model.  Its train-mode
+# gradients carry ~1e-7 of fp32 roundoff, and Adam's first steps move an
+# element by about lr * sign(g) whatever |g|, so an element whose true
+# gradient is within that roundoff of 0 may step either way in either
+# package.  So: every element within 2 lr a step of the JAX package's, and
+# all but OUTLIERS of them within STEP_TOL of a step.
+STEP_TOL = 1e-2
+OUTLIERS = 1e-2
+# The running statistics after a train step, per leaf, norm-relative: the
+# step's batch statistics come from the parameters above.
+STEPPED_STATE_TOL = 1e-4
+
+
+def assert_params_close(got_tree, want_tree, steps, lr):
+    """The port's parameter tree after ``steps`` Adam updates at rate ``lr``
+    against the JAX package's ``want_tree``: every element within 2 * lr *
+    steps, and all but a fraction OUTLIERS of the elements within STEP_TOL *
+    lr * steps, the conv biases that feed a batch norm left out of that
+    count: the norm subtracts them out, so their true gradient is 0 and each
+    package's Adam steps them by its own roundoff."""
+    got = jax.tree.leaves(params_to_jax(got_tree, JAX_CLASSES))
+    want = jax.tree_util.tree_flatten_with_path(want_tree)[0]
+    assert len(got) == len(want) > 0
+    counted = off = 0
+    for g, (path, w) in zip(got, want):
+        key = jax.tree_util.keystr(path)
+        err = np.abs(g - np.asarray(w))
+        assert err.max() <= 2 * lr * steps, (key, float(err.max()))
+        if not (key.endswith(".bias") and not key.startswith("['head']")):
+            counted += err.size
+            off += int(np.sum(err > STEP_TOL * lr * steps))
+    assert off <= OUTLIERS * counted, (off, counted)
+
+
+def assert_stepped_state_close(got_tree, want_tree):
+    """The port's running statistics after train steps within
+    STEPPED_STATE_TOL (norm-relative, per leaf) of the JAX package's."""
+    got = jax.tree.leaves(params_to_jax(got_tree, JAX_CLASSES))
+    want = jax.tree.leaves(want_tree)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert norm_rel(g, w) <= STEPPED_STATE_TOL
 
 
 def norm_rel(got, want) -> float:
