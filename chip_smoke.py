@@ -9,17 +9,22 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. device: the card's name and power limit, from nvidia-smi;
 2. build: every CUDA source of the port, compiled from the checkout into
-   build/kernels/ (one nvcc per source, started together), with each
-   library's ptxas register and spill report;
+   build/kernels/ (one nvcc per source, started together: the band B1 and
+   B2 and their wide variants), with each library's ptxas register and
+   spill report;
 3. plan: each kernel's band plan (blocks of an image's thread-block
    cluster) at the main path's shapes and cudaOccupancyMaxActiveClusters for
-   every band count;
+   every band count, and the wide variants' launch plans at the widths the
+   band variants decline;
 4. kernels: each kernel against its plain PyTorch version on the card, TF32
    off, at the main path's shape, at small shapes and at band edges (batch
    1 and 7, uneven and short bands, one band, 64x64x16), in fp32 and
    bf16-operand modes: the forward kernel B1 (fused_euler_fwd) and the
    backward kernel B2 (fused_euler_bwd), whose dK and db must also be
-   bit-identical across two calls;
+   bit-identical across two calls; then the wide variants
+   (fused_euler_wide.cu, `phase_kernels_wide`) at 64 layers at 32x32x72,
+   32x32x128, 8x8x128, 64x64x48 (B2) and 64x64x128, both modes, B2 judged
+   by float64 and bit-identical across two calls;
 5. serve: the 64-layer x 16-filter antisymmetric CIFAR-10 model from a
    seeded init is exported, loaded on the card and asked for batches of 1, 7
    and 32 images; its answers are held against the same export served on
@@ -51,17 +56,23 @@ Phases, each of which raises on failure (exit code != 0):
 10. kernel types: at 64 layers, regular 16F and 8F and centrosymmetric k = 3
    through B1/B2 and centrosymmetric k = 5, midpoint and RK4 on the
    per-layer route, each against the CPU with its launches and route
-   asserted; widths within the JAX gate's reach that the kernels decline
-   (regular 64 filters in training, 72 in a forward) on the per-layer route
-   against the CPU with no launch, and with ``use_pallas`` (antisymmetric,
-   64 filters) a train step raising before any launch and the forward on
-   B1; the per-layer steps timed (the regular 64L x 64F one too); a
-   captured remat midpoint step against an eager one; B1 and B2 timed at 8
+   asserted; the per-layer steps timed; a captured remat midpoint step
+   against an eager one; then the wide phase (`phase_wide`): the widths the
+   band kernels decline on the wide variants against the CPU (``use_pallas``
+   antisymmetric 64 and 128 filters and regular 64 in training, regular 72
+   in a forward), the wide B1 and B2 timed at 32x32x64, 32x32x128 and
+   64x64x128 beside their bounds, and the regular 64L x 64F and 64L x 128F
+   train steps on the fused and the per-layer route; B1 and B2 timed at 8
    filters;
 11. epochs: device-resident epochs of the regular 64L x 16F and 8F models;
-12. subcommands: reproduce --synthetic, deep-stability, train then export
+12. bf16 (`phase_bf16`): the 64L x 16F model, `imagenet32_config()` (28L x
+   64F, 1000 classes) and ResNet-50 at 32x32 in bf16, each against the
+   CPU's bf16 (eval logits, a train step, export -> load -> predict), no
+   kernel launch, then replayed train steps timed with MFU against the
+   bf16 peak;
+13. subcommands: reproduce --synthetic, deep-stability, train then export
    --checkpoint then load_exported, benchmark and sweep, in subprocesses;
-13. bottleneck and batch norm (`phase_bottleneck`): ResNet-50 at 32x32 and
+14. bottleneck and batch norm (`phase_bottleneck`): ResNet-50 at 32x32 and
    at 224x224 x 257 classes against the CPU, trained (2 steps against the
    CPU, 3 captured against 3 eager, replayed steps timed) and served
    (export, load, latency at batch 1 and 32), ResNet-50 v1.5, ResNet-101
@@ -106,6 +117,7 @@ from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
 from differential_equations_resnet_tpu_torch.ops.kernels import _build
 from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
 from differential_equations_resnet_tpu_torch.data import synthetic_cifar10
+from differential_equations_resnet_tpu_torch.experiments import imagenet32_config
 from differential_equations_resnet_tpu_torch.data.jit_augment import standard_cifar_augment
 from differential_equations_resnet_tpu_torch.train import (
     Checkpointer,
@@ -120,6 +132,7 @@ from differential_equations_resnet_tpu_torch.train.train_step import TrainState,
 from differential_equations_resnet_tpu_torch.utils.flops import (
     PEAK_FLOPS,
     mfu,
+    peak_of,
     single_block_train_flops,
     train_flops,
 )
@@ -201,6 +214,13 @@ def phase_plan():
             blocks = min(batch, occupancy[bands][0]) * bands  # resident at once
             log(f"[plan] {name} batch {batch}: {text}; SMs in use: {min(blocks, sms)} of {sms} "
                 f"({blocks} blocks resident at once)")
+    # The shapes the band variants decline run on the wide ones.
+    for shape in ((32, 32, 32, 64), (32, 32, 32, 72), (32, 32, 32, 128), (8, 8, 8, 128),
+                  (32, 64, 64, 128)):
+        for backward in (False, True):
+            log(f"[plan] {'fused_euler_bwd' if backward else 'fused_euler_fwd'} "
+                f"B={shape[0]} {'x'.join(map(str, shape[1:]))}: "
+                f"{json.dumps(fi.launch_plan(shape, backward, sms))}")
 
 
 def make_case(batch, height, width, channels, layers, seed, unstructured=False):
@@ -1045,7 +1065,7 @@ def launch_counts():
 
 def reset_counts():
     """Every kernel's launch count and every route's count set to 0."""
-    fi.fused_euler_dense.launches = fi.fused_euler_dense_bwd.launches = 0
+    fi.reset_launch_counts()
     sbr.route_counts.update(fused=0, per_layer=0)
 
 
@@ -1162,7 +1182,7 @@ def compare_steps(tag, label, card, cpu, steps=2, batch=8, image_size=32, classe
         raise AssertionError(f"{label}: the card's train steps disagree with the CPU's")
 
 
-def against_cpu(config, smi, steps=2, batch=8):
+def against_cpu(config, smi, steps=2, batch=8, tag="types"):
     """The model of ``config`` (random weights from seed 0) on the card
     against its twin on the CPU's plain path, from the same parameters and
     batches: the logits of one batch, then ``steps`` train steps at batch 8
@@ -1183,17 +1203,17 @@ def against_cpu(config, smi, steps=2, batch=8):
         got = card(images.cuda(), return_logits=True).cpu()
         want = cpu(images, return_logits=True)
     err, ok = max_violation(got, want, FP32_TOL)
-    log(f"[types] {describe(config)}: route {route}; logits at batch {batch} max|card-cpu| "
+    log(f"[{tag}] {describe(config)}: route {route}; logits at batch {batch} max|card-cpu| "
         f"{err:.3e} (max|cpu| {float(want.abs().max()):.3e}), tol rtol=atol={FP32_TOL:g}: "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{describe(config)}: the card's logits disagree with the CPU's")
-    compare_steps("types", describe(config), card, cpu, steps, batch)
+    compare_steps(tag, describe(config), card, cpu, steps, batch)
     launches, routes = launch_counts(), dict(sbr.route_counts)
     want_launches = (1 + steps, steps) if route == "fused" else (0, 0)
     ok = (launches == want_launches
           and routes == {"fused": 0, "per_layer": 0, route: 2 * (1 + steps)})  # card and CPU twin
-    log(f"[types] {describe(config)}: a forward and {steps} steps launched B1 {launches[0]} and B2 "
+    log(f"[{tag}] {describe(config)}: a forward and {steps} steps launched B1 {launches[0]} and B2 "
         f"{launches[1]} times (want {want_launches}), routes {routes} ({smi}): "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -1223,105 +1243,205 @@ def replayed_steps_ms(model, steps=TIMED_STEPS, batch=HARNESS_BATCH, size=32, cl
     return ms
 
 
-def raises_b6(run):
-    """The NotImplementedError naming ROADMAP B6 that ``run()`` raises, or
-    AssertionError where it raises none."""
-    try:
-        run()
-    except NotImplementedError as e:
-        if "ROADMAP B6" in str(e):
-            return str(e)
-        raise
-    raise AssertionError("a stack the kernels decline ran on the card")
+class route_of_wide_stacks:
+    """Within it, the model sends every stack whose shape needs a kernel's
+    wide variant (and that the JAX package would not run on Pallas) down
+    ``route``, whatever its width (`models.single_block_resnet.wide_route`
+    reads `WIDE_FUSED_MAX_CHANNELS`), to time the two routes of one stack."""
+
+    def __init__(self, route):
+        self.limit = fi.MAX_CHANNELS if route == "fused" else 0
+
+    def __enter__(self):
+        self.saved, sbr.WIDE_FUSED_MAX_CHANNELS = sbr.WIDE_FUSED_MAX_CHANNELS, self.limit
+
+    def __exit__(self, *exc):
+        sbr.WIDE_FUSED_MAX_CHANNELS = self.saved
 
 
-def declined_widths(smi, batch=8):
-    """Euler 3x3 stacks at 64 layers within the JAX kernel gate's reach
-    (C <= 128) that the kernels decline on the card: they run layer by layer
-    on cuDNN, as the JAX package runs them on XLA, except where the JAX
-    package would run its Pallas kernel.
+def wide_counts():
+    return fi.WIDE_FWD.launches, fi.WIDE_BWD.launches
 
-    - regular 64 filters (B2 takes C <= 56 at 32x32): 2 train steps on the
-      per-layer route against the CPU (`compare_steps`), no launch;
-    - regular 72 filters (B1 takes C <= 64): a forward on the per-layer
-      route against the CPU, no launch;
-    - antisymmetric with ``use_pallas``, 64 filters: a train step raises
-      naming ROADMAP B6 before any launch, and the forward runs on B1 (one
-      launch) against the CPU;
-    - 50 replayed steps of the regular 64L x 64F stack at batch 32, timed.
 
-    Returns the B1 launches (1)."""
-    rng = np.random.default_rng(7)
-    images, labels = image_batch(rng, batch)
-    regular = model_config("regular", 64)
-    card = build_single_block_resnet(regular, generator=torch.Generator().manual_seed(0), device="cuda")
-    cpu = build_single_block_resnet(regular, params=card.params(), device="cpu")
-    reset_counts()
-    compare_steps("types", describe(regular), card, cpu, steps=2, batch=batch)
-    launches, routes = launch_counts(), dict(sbr.route_counts)
-    ok = launches == (0, 0) and routes == {"fused": 0, "per_layer": 4}
-    log(f"[types] {describe(regular)}: 2 train steps on card and CPU launched B1/B2 {launches} "
-        f"(want (0, 0)), routes {routes} (want 4 per-layer) ({smi}): {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"{describe(regular)}: launches {launches}, routes {routes}")
+def phase_wide(smi, batch=8):
+    """Euler 3x3 stacks at 64 layers within the JAX kernel gate's reach that
+    the band kernels decline, on the wide variants, each against the CPU
+    (`against_cpu`: logits, 2 train steps at batch 8 from the same state,
+    launches and routes):
 
-    wide = model_config("regular", 72)
-    wide_card = build_single_block_resnet(wide, generator=torch.Generator().manual_seed(0), device="cuda")
-    wide_cpu = build_single_block_resnet(wide, params=wide_card.params(), device="cpu")
+    - antisymmetric with ``use_pallas`` (as ``train --use-pallas
+      --num-filters 64`` builds it), 64 and 128 filters: B1 and B2 both
+      wide at 128, the band B1 and the wide B2 at 64;
+    - regular 64 filters, on the route `wide_route` names;
+    - regular 72 filters: a forward, on the wide B1 where `wide_route` is
+      fused.
+
+    Returns the launches (B1, B2, wide B1, wide B2) of the phase."""
+    total = [0, 0, 0, 0]
+    for kernel_type, filters, pallas in (("antisymmetric", 64, True),
+                                         ("antisymmetric", 128, True), ("regular", 64, False)):
+        config = dataclasses.replace(model_config(kernel_type, filters), use_pallas=pallas)
+        reset_counts()
+        card, launches = against_cpu(config, smi, tag="wide")
+        wide = wide_counts()
+        want = (1 + 2 if fi.kernel_variant((batch, 32, 32, filters)) == "wide" else 0,
+                2) if launches != (0, 0) else (0, 0)
+        ok = wide == want
+        log(f"[wide] {describe(config)}{' use_pallas' if pallas else ''}: wide-variant launches "
+            f"B1 {wide[0]} B2 {wide[1]} (want {want}) of B1/B2 {launches}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{describe(config)}: wide launches {wide}")
+        total = [a + b for a, b in zip(total, launches + wide)]
+        del card
+    config = model_config("regular", 72)
+    card = build_single_block_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda")
+    cpu = build_single_block_resnet(config, params=card.params(), device="cpu")
+    images, _ = image_batch(np.random.default_rng(7), batch)
     reset_counts()
     with torch.no_grad():
-        got = wide_card(images.cuda(), return_logits=True).cpu()
-        want = wide_cpu(images, return_logits=True)
+        got = card(images.cuda(), return_logits=True).cpu()
+        want = cpu(images, return_logits=True)
     err, ok = max_violation(got, want, FP32_TOL)
-    launches, routes = launch_counts(), dict(sbr.route_counts)
-    ok = ok and launches == (0, 0) and routes == {"fused": 0, "per_layer": 2}
-    log(f"[types] {describe(wide)}: forward on the per-layer route, logits at batch {batch} "
-        f"max|card-cpu| {err:.3e} (tol rtol=atol={FP32_TOL:g}), launches {launches}, routes "
-        f"{routes}: {'ok' if ok else 'FAIL'}")
+    launches, wide = launch_counts(), wide_counts()
+    fused = sbr.wide_route(72) == "fused"
+    ok = ok and launches == ((1, 0) if fused else (0, 0)) and wide == launches
+    log(f"[wide] {describe(config)}: forward on route {sbr.wide_route(72)}, logits at batch {batch} "
+        f"max|card-cpu| {err:.3e} (max|cpu| {float(want.abs().max()):.3e}, tol rtol=atol="
+        f"{FP32_TOL:g}), B1/B2 launches {launches}, wide {wide} ({smi}): {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{describe(wide)}: logits err {err}, launches {launches}")
+        raise AssertionError(f"{describe(config)}: logits err {err}, launches {launches}")
+    total = [a + b for a, b in zip(total, launches + wide)]
+    return tuple(total)
 
-    pallas = dataclasses.replace(model_config("antisymmetric", 64), use_pallas=True)
-    pallas_card = build_single_block_resnet(pallas, generator=torch.Generator().manual_seed(0),
-                                            device="cuda")
-    pallas_cpu = build_single_block_resnet(pallas, params=pallas_card.params(), device="cpu")
-    reset_counts()
-    train_error = raises_b6(lambda: make_train_step(pallas_card, make_adam(pallas_card.parameters()))(
-        images.cuda(), labels.cuda(), LR))
-    raised_launches = launch_counts()
-    with torch.no_grad():
-        got = pallas_card(images.cuda(), return_logits=True).cpu()
-        want = pallas_cpu(images, return_logits=True)
-    err, ok = max_violation(got, want, FP32_TOL)
-    launches, routes = launch_counts(), dict(sbr.route_counts)
-    ok = ok and raised_launches == (0, 0) and launches == (1, 0) and routes == {"fused": 2,
-                                                                                "per_layer": 0}
-    log(f"[types] {describe(pallas)} use_pallas: a train step raised before any launch "
-        f"(launches {raised_launches}): {train_error}")
-    log(f"[types] {describe(pallas)} use_pallas: forward on B1, logits at batch {batch} max|card-cpu| "
-        f"{err:.3e} (tol rtol=atol={FP32_TOL:g}); B1/B2 launches {launches} (want (1, 0)), routes "
-        f"{routes} (want 2 fused: card and CPU forwards) ({smi}): {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"use_pallas 64F: logits err {err}, launches {launches}, routes {routes}")
 
-    reset_counts()
-    ms = replayed_steps_ms(card)
-    flops_step = single_block_train_flops(regular, HARNESS_BATCH)
-    rate = 1e3 / ms
-    log(f"[types] {describe(regular)} per-layer route: {TIMED_STEPS} replayed steps at batch "
-        f"{HARNESS_BATCH}: {ms:.4f} ms a step, {rate:.2f} steps/s, {flops_step * rate / 1e12:.4f} "
-        f"model TFLOP/s ({flops_step / 1e9:.3f} GFLOP a step), MFU {mfu(flops_step, rate):.2%} of "
-        f"the fp32 peak; B1/B2 launches {launch_counts()} ({smi})")
-    if launch_counts() != (0, 0):
-        raise AssertionError(f"{describe(regular)}: the per-layer route launched {launch_counts()}")
-    return 1
+def phase_time_wide(smi, step_widths=(64, 96, 112, 128)):
+    """The wide variants timed at batch 32, 64 layers, beside their bounds
+    and their plain versions: B1 and B2 at 32x32x64 (B1's band variant
+    too: it takes that width), 32x32x128 and 64x64x128 (fewer calls: a
+    call there is tens to hundreds of ms); then the train step of the
+    regular 64L x C models at batch 32, C in ``step_widths``, on both
+    routes (`route_of_wide_stacks`), replayed, which `WIDE_FUSED_MAX_CHANNELS`
+    is set from.  Returns the wide B1 and B2
+    timings at 32x32x128 (the `kernels` line's)."""
+    out = {}
+    for hh, c, runs in ((32, 64, 10), (32, 128, 5), (64, 128, 2)):
+        x, kernels, biases, g = make_case(32, hh, hh, c, 64, 10 + c, unstructured=True)
+        variants = [("fused_euler_fwd_wide", False,
+                     lambda: fi._launch_wide(x, kernels, biases, 0.125, torch.float32),
+                     lambda: fi.reference_euler_dense(x, kernels, biases, 0.125)),
+                    ("fused_euler_bwd_wide", True,
+                     lambda: fi._launch_bwd_wide(x, kernels, biases, g, 0.125, torch.float32),
+                     lambda: fi.reference_euler_dense_bwd(x, kernels, biases, g, 0.125))]
+        if fi.kernel_variant(x.shape) == "band":
+            variants.append(("fused_euler_fwd (band)", False,
+                             lambda: fi._launch(x, kernels, biases, 0.125, torch.float32), None))
+        for name, backward, run, plain in variants:
+            ms = cuda_time_ms(run, runs=runs, repeats=3, warmup=1)
+            plain_ms = cuda_time_ms(plain, runs=max(1, runs // 2), repeats=3, warmup=1) if plain else None
+            bound = kernel_bounds(32, hh, hh, c, 64, backward)
+            log(f"[time] {name} B=32 {hh}x{hh}x{c} L=64: kernel {ms:.4f} ms"
+                + (f", plain {plain_ms:.4f} ms" if plain else "")
+                + f"; bound {bound['flops'] / 1e9:.3f} GFLOP / 67 TFLOP/s = {bound['bound_ms']:.4f} "
+                f"ms by {bound['bound_by']}; kernel at {bound['bound_ms'] / ms:.1%} of it ({smi})")
+            if hh == 32 and c == 128 and plain:
+                out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                             "bound_by": bound["bound_by"]}
+        del x, kernels, biases, g
+        torch.cuda.empty_cache()
+    for filters in step_widths:
+        config = model_config("regular", filters)
+        card = build_single_block_resnet(config, generator=torch.Generator().manual_seed(0),
+                                         device="cuda")
+        flops_step = single_block_train_flops(config, HARNESS_BATCH)
+        for route in ("fused", "per_layer"):
+            with route_of_wide_stacks(route):
+                reset_counts()
+                ms = replayed_steps_ms(card, steps=20)
+                launches = launch_counts()
+            rate = 1e3 / ms
+            log(f"[time] {describe(config)} train step on the {route} route, 20 replayed steps at "
+                f"batch {HARNESS_BATCH}: {ms:.4f} ms a step, {flops_step * rate / 1e12:.4f} model "
+                f"TFLOP/s ({flops_step / 1e9:.3f} GFLOP a step), MFU {mfu(flops_step, rate):.2%} of "
+                f"the fp32 peak; B1/B2 launches {launches}, wide {wide_counts()} ({smi})")
+        del card
+        torch.cuda.empty_cache()
+    return out
+
+
+# The wide B2's distance from float64, norm-relative, that a relu-mask flip
+# explains: the wide kernels sum each output over the 9C (tap, input)
+# products in one fp32 accumulator, in order (1152 of them at C = 128),
+# where cuDNN splits its sums, so their z carries a few times the rounding
+# of the plain version's and, at 64 layers, flips a few times as many mask
+# elements (each moves one g_z element by h * g).  On an NVIDIA H100 80GB
+# HBM3 at 700 W, 32x32x128, B = 4: B2 2.4-3.4e-04 from float64, the plain
+# version 1.0-2.0e-04.  A fault in an index or a race is O(1e-2)
+# or more, and breaks the bit-identity of two calls.
+WIDE_F64_TOL = 1e-3
+
+
+def phase_kernels_wide():
+    """The wide variants against their plain versions at 64 layers, fp32 and
+    bf16 operands: B1 to FP32_TOL / BF16_TOL as in phase_kernels; B2 judged
+    by a float64 run of its plain version as in phase_kernels_bwd (as close
+    to it as the plain version is, 2x + 1e-5, or within WIDE_F64_TOL of it),
+    its dK and db bit-identical across two calls.  Returns the max |kernel
+    - plain| of each at 32x32x128, fp32."""
+    errs = {}
+    fwd_cases = [(8, 32, 32, 72), (8, 32, 32, 128), (8, 8, 8, 128), (2, 64, 64, 128)]
+    bwd_cases = [(4, 32, 32, 72), (4, 32, 32, 128), (8, 8, 8, 128), (2, 64, 64, 48),
+                 (2, 64, 64, 128)]
+    for i, (b, hh, ww, c) in enumerate(fwd_cases):
+        x, kernels, biases, _ = make_case(b, hh, ww, c, 64, 400 + i, unstructured=True)
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            before = fi.WIDE_FWD.launches
+            got = fi.fused_euler_dense(x, kernels, biases, 0.125, matmul_dtype=dtype)
+            want = fi.reference_euler_dense(x, kernels, biases, 0.125, matmul_dtype=dtype)
+            torch.cuda.synchronize()
+            err, ok = max_violation(got, want, tol)
+            ok = ok and fi.WIDE_FWD.launches == before + 1
+            log(f"[kernels] wide B1 B={b} {hh}x{ww}x{c} L=64 {str(dtype).split('.')[-1]}: "
+                f"max|kernel-plain| {err:.3e} (max|plain| {float(want.abs().max()):.3e}), tol "
+                f"rtol=atol={tol:g}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the wide B1 disagrees with its plain version at {x.shape}")
+            if (hh, c) == (32, 128) and dtype == torch.float32:
+                errs["fused_euler_fwd_wide"] = err
+    for i, (b, hh, ww, c) in enumerate(bwd_cases):
+        x, kernels, biases, g = make_case(b, hh, ww, c, 64, 500 + i, unstructured=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            before = fi.WIDE_BWD.launches
+            got = fi.fused_euler_dense_bwd(x, kernels, biases, g, 0.125, dtype)
+            want = fi.reference_euler_dense_bwd(x, kernels, biases, g, 0.125, dtype)
+            judge = fi.reference_euler_dense_bwd(
+                *[t.double() for t in (x, kernels, biases, g)], 0.125, dtype)
+            again = fi.fused_euler_dense_bwd(x, kernels, biases, g, 0.125, dtype)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+            parts, ok = [], same and fi.WIDE_BWD.launches == before + 2
+            for name, a, w, j in zip(("gx", "gk", "gb"), got, want, judge):
+                kernel_err, plain_err = norm_rel(a, j), norm_rel(w, j)
+                ok = ok and kernel_err <= max(2 * plain_err + 1e-5, WIDE_F64_TOL)
+                parts.append(f"{name} {norm_rel(a, w):.2e} (f64: B2 {kernel_err:.2e}, plain "
+                             f"{plain_err:.2e})")
+            log(f"[kernels] wide B2 B={b} {hh}x{ww}x{c} L=64 {str(dtype).split('.')[-1]}: norm-rel "
+                f"|B2-plain| " + "; ".join(parts) + f"; two calls bit-identical {same}: "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the wide B2 is wrong at {x.shape} ({dtype})")
+            if (hh, c) == (32, 128) and dtype == torch.float32:
+                errs["fused_euler_bwd_wide"] = max(float((a - w).abs().max())
+                                                   for a, w in zip(got, want))
+        del x, kernels, biases, g, got, want, judge, again
+        torch.cuda.empty_cache()
+    return errs
 
 
 def phase_kernel_types(smi):
     """Regular and centrosymmetric 3x3 stacks through B1/B2 at 64 layers
     (16 and 8 filters), and the stacks on the per-layer route
     (centrosymmetric k = 5, midpoint, RK4), each against the CPU; widths the
-    kernels decline (`declined_widths`); the per-layer stacks' replayed
+    kernels' band variants decline (`phase_wide`); the per-layer stacks' replayed
     steps at batch 32 timed; a captured remat midpoint step against an
     eager one.  Returns the B1 and B2 launches of the fused configurations'
     runs."""
@@ -1329,7 +1449,6 @@ def phase_kernel_types(smi):
     for kernel_type, filters, k in FUSED_CONFIGS:
         _, launches = against_cpu(model_config(kernel_type, filters, k), smi)
         total = [a + b for a, b in zip(total, launches)]
-    total[0] += declined_widths(smi)
     for kernel_type, filters, k, integrator in PER_LAYER_CONFIGS:
         config = model_config(kernel_type, filters, k, integrator)
         card, _ = against_cpu(config, smi)
@@ -1709,6 +1828,133 @@ def phase_bottleneck(tmp, smi):
         f"B1/B2 launches {launch_counts()} ({smi})")
 
 
+# bf16 on the card against bf16 on the CPU: the two round to bf16 after
+# every layer but sum in fp32 in other orders (cuDNN's against oneDNN's), so
+# a last-bit difference before a rounding moves a value by one bf16 ulp and
+# later layers carry it on; and batch norm in train mode divides by the
+# spread of the batch's 16 values at ResNet-50's 1x1 last stage (its fp32
+# comparison takes batch 16 too; BF16_BN_TRAIN_TOL).  So each quantity
+# (eval logits, loss, grad-norm row) must be within its tolerance of the
+# CPU's bf16 (norm-relative) or, failing that, as close to the CPU's fp32
+# run of the same parameters as the CPU's bf16 run is (2x its distance +
+# BF16_TOL).  Measurements: NVIDIA H100 80GB HBM3 at 700 W.
+BF16_TOL = 2e-2
+# ResNet-50's train-mode loss and grad-norm row, card bf16 against CPU bf16:
+# batch norm over 16 values at the 1x1 stage in bf16 moves them 5-16% from
+# fp32 on the card and 1-10% on the CPU (NVIDIA H100 80GB HBM3 at 700 W:
+# loss 4.8e-02 and grad norms 6.8e-02 apart; 1.3e-01 and 2.7e-01 at batch
+# 4), while its eval logits agree to 6.2e-03.  A fault in a cast or a
+# layer's gradient is O(1).
+BF16_BN_TRAIN_TOL = 0.15
+BF16_PREDICT_TOL = 1e-3  # a served bf16 export against its model on the card, norm-relative
+
+
+def bf16_against_cpu(label, card, classes, size, smi, batch=8, seed=30, train_tol=BF16_TOL):
+    """A bf16 model on the card against its twins on the CPU (bf16, and
+    fp32 as the judge), from the same parameters and state: eval logits,
+    then one train step (loss, grad-norm row, the parameters after Adam
+    within BN_STEP_BOUND lr), the loss and grad-norm row to ``train_tol``.
+    No B1/B2 launch and no fused stack.  Then
+    `export_model` -> `load_exported` -> predict at batch 32 against the
+    model.  Returns the checks' worst norm-relative distance to the CPU's
+    bf16."""
+    build = build_resnet if hasattr(card.config, "version") else build_single_block_resnet
+    cpu = build(card.config, params=card.params(), state=card.state(), device="cpu")
+    exact = build(dataclasses.replace(card.config, compute_dtype=torch.float32),
+                  params=card.params(), state=card.state(), device="cpu")
+    rng = np.random.default_rng(seed)
+    images, labels = image_batch(rng, batch, size, classes)
+    logits, out = [], []
+    reset_counts()
+    # The bf16 twins first: the fp32 judge's stack takes the plain B1/B2 path.
+    for m, d in ((card, "cuda"), (cpu, "cpu"), (exact, "cpu")):
+        if m is exact:
+            routes = dict(sbr.route_counts)
+        with torch.no_grad():
+            logits.append(m(images.to(d), return_logits=True).cpu())
+        out.append(make_train_step(m, make_adam(m.parameters()))(images.to(d), labels.to(d), LR))
+    results = {"logits": tuple(logits)}
+    results["loss"] = tuple(m["loss"].cpu().reshape(1) for m, _ in out)
+    results["grad norms"] = tuple(n.cpu() for _, n in out)
+    ok, parts, worst = True, [], 0.0
+    for name, (a, b, j) in results.items():
+        d, d_card, d_cpu = norm_rel(a, b), norm_rel(a, j), norm_rel(b, j)
+        this = d <= (BF16_TOL if name == "logits" else train_tol) or d_card <= 2 * d_cpu + BF16_TOL
+        ok, worst = ok and this, max(worst, d)
+        parts.append(f"{name} {d:.2e} (to fp32: card {d_card:.2e}, cpu {d_cpu:.2e})")
+    step_lr = max(float((a.detach().cpu() - b.detach()).abs().max()) / LR
+                  for a, b in zip(card.parameters(), cpu.parameters()))
+    dtypes = {p.dtype for p in card.parameters()}
+    ok = (ok and step_lr <= BN_STEP_BOUND and dtypes == {torch.float32}
+          and launch_counts() == (0, 0) and routes["fused"] == 0)
+    log(f"[bf16] {label}: card bf16 against CPU bf16, norm-rel " + "; ".join(parts)
+        + f" (tol {BF16_TOL:g}, {train_tol:g} for the loss and grad norms, or 2x the CPU's "
+        f"distance to fp32 + {BF16_TOL:g}); params after Adam max "
+        f"|card-cpu| {step_lr:.3f} lr (tol {BN_STEP_BOUND:g}), parameters {sorted(map(str, dtypes))}; "
+        f"B1/B2 launches {launch_counts()}, bf16 routes {routes} ({smi}): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: bf16 on the card disagrees with bf16 on the CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        predict, manifest = load_exported(export_model(card, os.path.join(tmp, "bf16")),
+                                          device="cuda")
+        images = np.random.default_rng(seed + 1).uniform(0, 255, (32, size, size, 3)).astype(
+            np.float32)
+        with torch.no_grad():
+            want = card(torch.from_numpy(images).cuda()).cpu()
+        t0 = time.perf_counter()
+        served = predict(images)
+        served_ms = (time.perf_counter() - t0) * 1e3
+        err = norm_rel(torch.from_numpy(served), want)
+    ok = manifest["config"]["compute_dtype"] == "bfloat16" and err <= BF16_PREDICT_TOL
+    log(f"[bf16] {label}: export_model -> load_exported -> predict at batch 32 ({served_ms:.1f} "
+        f"ms, eager) against the model, norm-rel {err:.2e} (tol {BF16_PREDICT_TOL:g}), manifest "
+        f"compute_dtype {manifest['config']['compute_dtype']}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the served bf16 export predicts otherwise than its model")
+    return worst
+
+
+def phase_bf16(smi):
+    """bf16 compute on the card, which runs every layer on cuDNN (the JAX
+    kernel gate takes fp32 only): the 64L x 16F antisymmetric CIFAR-10
+    model, `imagenet32_config()` (28L x 64F, 1000 classes, bf16 by
+    default) and ResNet-50 at 32x32, each against the CPU
+    (`bf16_against_cpu`: eval logits, a train step, export -> load ->
+    predict), then 50 replayed train steps at batch 32 timed, model
+    TFLOP/s and MFU against the bf16 peak.  No B1/B2 launch."""
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    models = (
+        ("64L x 16F antisymmetric", cifar10_single_block_config(
+            num_layers=64, num_filters=16, compute_dtype=bf16), 10, 8),
+        ("imagenet32_config() 28L x 64F", imagenet32_config(), 1000, 8),
+        ("ResNet-50 32x32", resnet_preset("resnet50", 10, antisymmetric_mid=True,
+                                          image_shape=(32, 32, 3), compute_dtype=bf16), 10, 16),
+    )
+    peak_name, peak = peak_of(bf16)
+    for label, config, classes, batch in models:
+        if config.compute_dtype != bf16:
+            raise AssertionError(f"{label}: compute dtype {config.compute_dtype}, not bf16")
+        build = build_resnet if hasattr(config, "version") else build_single_block_resnet
+        card = build(config, generator=torch.Generator().manual_seed(0), device="cuda")
+        bf16_against_cpu(label, card, classes, 32, smi, batch=batch,
+                         train_tol=BF16_BN_TRAIN_TOL if hasattr(config, "version") else BF16_TOL)
+        reset_counts()
+        ms = replayed_steps_ms(card, steps=TIMED_STEPS, classes=classes)
+        flops_step = train_flops(config, HARNESS_BATCH)
+        rate = 1e3 / ms
+        log(f"[bf16] {label}: {TIMED_STEPS} replayed train steps at batch {HARNESS_BATCH}: "
+            f"{ms:.4f} ms a step, {rate:.2f} steps/s, {flops_step * rate / 1e12:.4f} model TFLOP/s "
+            f"({flops_step / 1e9:.3f} GFLOP a step), MFU {mfu(flops_step, rate, peak):.2%} of the "
+            f"{peak / 1e12:g} TFLOP/s {peak_name} peak; B1/B2 launches {launch_counts()} ({smi})")
+        if launch_counts() != (0, 0):
+            raise AssertionError(f"{label}: a bf16 stack launched B1/B2")
+        del card
+        torch.cuda.empty_cache()
+    log(f"[bf16] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
 def cifar_arrays():
     """Synthetic CIFAR-10 of the real size and dtype: (train images,
     train labels, val images, val labels)."""
@@ -1729,6 +1975,7 @@ def main() -> int:
     phase_plan()
     fwd_err = phase_kernels()
     bwd_err = phase_kernels_bwd()
+    wide_errs = phase_kernels_wide()
     serve_launches, predict, requests = phase_serve()
     (train_fwd, train_bwd), step, batch = phase_train(smi)
     fwd_timing = phase_time_kernel()
@@ -1739,8 +1986,11 @@ def main() -> int:
     arrays = cifar_arrays()
     harness_fwd, harness_bwd = phase_harness(smi, arrays)
     types_fwd, types_bwd = phase_kernel_types(smi)
+    wide_fwd, wide_bwd, wide_only_fwd, wide_only_bwd = phase_wide(smi)
+    wide_timing = phase_time_wide(smi)
     phase_time_narrow(smi)
     epochs_fwd, epochs_bwd = phase_epochs(smi, arrays)
+    phase_bf16(smi)
     with tempfile.TemporaryDirectory() as tmp:
         phase_subcommands(tmp, smi)
         phase_bottleneck(tmp, smi)
@@ -1749,12 +1999,21 @@ def main() -> int:
     kernels = [
         {"name": "fused_euler_fwd", "route": "cuda", "source": source + "fused_euler_fwd.cu",
          "replaces": replaces + "146",
-         "launches": serve_launches + train_fwd + harness_fwd + types_fwd + epochs_fwd,
+         "launches": (serve_launches + train_fwd + harness_fwd + types_fwd + epochs_fwd
+                      + wide_fwd - wide_only_fwd),
          "max_abs_err": fwd_err, **fwd_timing, "library_ms": None},
         {"name": "fused_euler_bwd", "route": "cuda", "source": source + "fused_euler_bwd.cu",
          "replaces": replaces + "216",
-         "launches": train_bwd + harness_bwd + types_bwd + epochs_bwd,
+         "launches": train_bwd + harness_bwd + types_bwd + epochs_bwd + wide_bwd - wide_only_bwd,
          "max_abs_err": bwd_err, **bwd_timing, "library_ms": None},
+        {"name": "fused_euler_fwd_wide", "route": "cuda", "source": source + "fused_euler_wide.cu",
+         "replaces": replaces + "146", "launches": wide_only_fwd,
+         "max_abs_err": wide_errs["fused_euler_fwd_wide"],
+         **wide_timing["fused_euler_fwd_wide"], "library_ms": None},
+        {"name": "fused_euler_bwd_wide", "route": "cuda", "source": source + "fused_euler_wide.cu",
+         "replaces": replaces + "216", "launches": wide_only_bwd,
+         "max_abs_err": wide_errs["fused_euler_bwd_wide"],
+         **wide_timing["fused_euler_bwd_wide"], "library_ms": None},
     ]
     log(f"[device] {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -21,14 +21,14 @@ defaults:
 integrator, and ``--model resnet50|resnet101|resnet152`` (with
 ``--resnet-version``, ``--image-size``, ``--num-classes`` and ``--gamma``;
 ``--kernel-type antisymmetric`` gives the antisymmetric mid-convs), in every
-subcommand that builds a model.  A model flag the port cannot run yet
-(``--bf16``, ``--int8-forward``) raises `NotImplementedError` when the
-model is built.  ``predict`` takes only a .npy array: image
+subcommand that builds a model, in fp32 or, with ``--bf16``, in bf16
+compute.  A model flag the port cannot run yet (``--int8-forward``) raises
+`NotImplementedError` when the model is built.  ``predict`` takes only a .npy array: image
 directories need the host preprocessors and records (ROADMAP A8), as
 ``convert-records`` and ``fetch-cifar10`` do, which are not registered yet.
-The MFU that ``benchmark`` and ``sweep`` print is against the card's fp32
-peak (``mfu_vs_fp32_peak``), where the JAX package prints it against a
-TPU's bf16 peak.
+The MFU that ``benchmark`` and ``sweep`` print is against the card's peak
+for the compute dtype (``mfu_vs_fp32_peak``, or ``mfu_vs_bf16_peak`` with
+``--bf16``), where the JAX package prints it against a TPU's bf16 peak.
 """
 
 from __future__ import annotations
@@ -68,12 +68,13 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--integrator", choices=["euler", "midpoint", "rk4"], default="euler")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--use-pallas", action="store_true",
-                   help="an antisymmetric Euler 3x3 stack that the hand-written kernels decline "
-                        "raises on the card (ROADMAP B6) instead of running layer by layer, "
-                        "as the JAX package runs such a stack on its Pallas kernel")
+                   help="every fp32 antisymmetric Euler 3x3 stack within the JAX kernel gate's "
+                        "reach (C <= 128, H*W <= 4096) runs on the hand-written kernels B1/B2, "
+                        "as the JAX package runs it on its Pallas kernel")
     p.add_argument("--s2d-block", type=int, default=2,
                    help="accepted and ignored: space-to-depth stays off on CUDA")
-    p.add_argument("--bf16", action="store_true", help="bfloat16 compute (ROADMAP A5)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (every layer on cuDNN; parameters stay fp32)")
     p.add_argument("--int8-forward", action="store_true", help="int8 convolutions (ROADMAP A13)")
     p.add_argument("--int8-backward", choices=["ste", "dgrad", "wgrad", "full"], default="ste")
     _add_device_arg(p)
@@ -95,7 +96,7 @@ def _build_model(args):
         resnet_preset,
     )
 
-    compute_dtype = "bfloat16" if args.bf16 else "float32"
+    compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
     generator = torch.Generator().manual_seed(0)
     if args.model != "single_block":
         config = resnet_preset(
@@ -265,7 +266,7 @@ def cmd_predict(args) -> int:
 def cmd_benchmark(args) -> int:
     """Train steps/s and batch-1 inference latency (the reference's
     wall-clock and FPS micro-benchmarks), with model TFLOP/s and MFU against
-    the card's fp32 peak.  Every train step and every batch-1 forward is a
+    the card's peak for the compute dtype (fp32, or bf16 with ``--bf16``).  Every train step and every batch-1 forward is a
     replay of one captured CUDA graph on the card; each timed region ends in
     a read of a value of its last call.  ``--scan-steps`` is accepted and
     changes nothing.  ``--profile-dir`` writes a `torch.profiler` chrome
@@ -278,7 +279,10 @@ def cmd_benchmark(args) -> int:
         make_multi_step,
         make_predict_step,
     )
-    from differential_equations_resnet_tpu_torch.utils.flops import mfu, train_flops
+    from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
+        compute_dtype_of,
+    )
+    from differential_equations_resnet_tpu_torch.utils.flops import mfu, peak_of, train_flops
 
     model = _build_model(args)
     device = next(model.parameters()).device
@@ -318,6 +322,7 @@ def cmd_benchmark(args) -> int:
     latency_ms = (time.perf_counter() - t0) / 100 * 1e3
 
     flops_step = train_flops(model.config, args.batch_size)
+    peak_name, peak = peak_of(compute_dtype_of(model.config))
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(json.dumps({
         "train_steps_per_sec": round(train_sps, 3),
@@ -327,7 +332,7 @@ def cmd_benchmark(args) -> int:
         "device": f"{device}: {name}",
         "model_flops_per_step": flops_step,
         "model_tflops": round(flops_step * train_sps / 1e12, 2),
-        "mfu_vs_fp32_peak": round(mfu(flops_step, train_sps), 4),
+        f"mfu_vs_{peak_name}_peak": round(mfu(flops_step, train_sps, peak), 4),
     }))
     return 0
 
@@ -634,13 +639,12 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_deep_stability)
 
     p = sub.add_parser("sweep")
-    p.add_argument("--widths", default="16,32,64",
-                   help="a width past the hand-written kernels' reach at 32x32 (C > 56 in "
-                        "training, so the default 64) runs layer by layer on cuDNN")
+    p.add_argument("--widths", default="16,32,64")
     p.add_argument("--depths", default="16,32,64")
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--num-classes", type=int, default=1000)
-    p.add_argument("--bf16", action="store_true", help="bfloat16 compute (ROADMAP A5)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (MFU against the bf16 peak)")
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--kernel-type", choices=["antisymmetric", "regular"], default="antisymmetric")
     remat_group = p.add_mutually_exclusive_group()

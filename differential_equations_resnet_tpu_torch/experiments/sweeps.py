@@ -5,17 +5,16 @@ card (``mesh`` raises `NotImplementedError`, ROADMAP A15).  Each cell builds
 a single-block ODE-ResNet at (width, depth) on the ImageNet-32 workload and
 measures sustained train steps a second on synthetic data, every step a
 replay of one captured CUDA graph (`train.make_multi_step`), with model
-TFLOP/s and MFU against the card's fp32 peak (`utils.flops`): the port
-trains in fp32.
+TFLOP/s and MFU against the card's peak for the dtype the cell computes in
+(`utils.flops.peak_of`: ``mfu_vs_bf16_peak`` or ``mfu_vs_fp32_peak``).
+`imagenet32_config` and `width_depth_sweep` compute in bf16 by default, as
+the JAX package's do; a bf16 cell runs every layer on cuDNN, as the JAX
+package runs it on XLA (its kernel gate takes fp32 only).  An fp32 cell's
+identity stack runs on B1/B2 or layer by layer as
+`models.single_block_resnet.identity_route` says.
 
-Left behind, because they were measured on or chosen for a TPU: the JAX
-package's no-remat capacity rule (``remat=None`` is off here) and
-`imagenet32_config`'s bf16 default (fp32 here; bf16 compute waits for
-ROADMAP A5).  Each cell's identity stack is an Euler 3x3 stack: it runs on
-B1/B2 where they take it and layer by layer on cuDNN where they decline it
-(C > 56 at 32x32 in training, so the default grid's 64), as the JAX package
-runs it on XLA without ``use_pallas``
-(`models.single_block_resnet.identity_route`).
+Left behind, because it was measured on a TPU: the JAX package's no-remat
+capacity rule (``remat=None`` is off here).
 """
 
 from __future__ import annotations
@@ -32,9 +31,13 @@ from differential_equations_resnet_tpu_torch.models import (
     SingleBlockResNetConfig,
     build_single_block_resnet,
 )
-from differential_equations_resnet_tpu_torch.models.single_block_resnet import dtype_name
+from differential_equations_resnet_tpu_torch.models.single_block_resnet import compute_dtype_of
 from differential_equations_resnet_tpu_torch.train.train_step import make_adam, make_multi_step
-from differential_equations_resnet_tpu_torch.utils.flops import mfu, single_block_train_flops
+from differential_equations_resnet_tpu_torch.utils.flops import (
+    mfu,
+    peak_of,
+    single_block_train_flops,
+)
 
 
 def _no_mesh(mesh, name: str) -> None:
@@ -50,16 +53,11 @@ def imagenet32_config(
     num_filters: int = 64,
     final_time: float = 8.0,
     kernel_type: str = "antisymmetric",
-    compute_dtype=torch.float32,
+    compute_dtype=torch.bfloat16,
     **overrides,
 ) -> SingleBlockResNetConfig:
     """ImageNet-32-scale workload: 32x32 inputs, 1000 classes, a wider
-    trunk, fp32 compute."""
-    if dtype_name(compute_dtype) != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={dtype_name(compute_dtype)}: reduced-precision compute waits for "
-            "ROADMAP A5."
-        )
+    trunk, bf16 compute."""
     return SingleBlockResNetConfig(
         image_shape=(32, 32, 3),
         kernel_type=kernel_type,
@@ -88,7 +86,9 @@ def measure_train_throughput(
 ) -> Dict[str, float]:
     """Sustained train-step throughput of one configuration: ``warmup``
     steps (the capture among them), then ``steps`` steps on one batch,
-    timed on the host clock up to a read of the last step's loss."""
+    timed on the host clock up to a read of the last step's loss.  MFU is
+    against the peak of the config's compute dtype (``mfu_vs_bf16_peak`` or
+    ``mfu_vs_fp32_peak``)."""
     _no_mesh(mesh, "measure_train_throughput")
     device = resolve_device(device)
     model = build_single_block_resnet(
@@ -109,12 +109,13 @@ def measure_train_throughput(
     elapsed = time.perf_counter() - start
     steps_per_sec = steps / elapsed
     flops_step = single_block_train_flops(config, batch_size)
+    peak_name, peak = peak_of(compute_dtype_of(config))
     return {
         "steps_per_sec": steps_per_sec,
         "images_per_sec": steps_per_sec * batch_size,
         "step_ms": 1e3 * elapsed / steps,
         "model_tflops": flops_step * steps_per_sec / 1e12,
-        "mfu_vs_fp32_peak": mfu(flops_step, steps_per_sec),
+        f"mfu_vs_{peak_name}_peak": mfu(flops_step, steps_per_sec, peak),
     }
 
 
@@ -124,7 +125,7 @@ def width_depth_sweep(
     batch_size: int = 128,
     mesh=None,
     num_classes: int = 1000,
-    compute_dtype=torch.float32,
+    compute_dtype=torch.bfloat16,
     steps: int = 30,
     kernel_type: str = "antisymmetric",
     remat: Optional[bool] = None,

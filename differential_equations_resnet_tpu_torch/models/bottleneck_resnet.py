@@ -20,9 +20,11 @@ this family on XLA's convolutions and has no Pallas kernel for it.
 
 `BottleneckResNet` is the `nn.Module`: its parameters are the tree's leaves
 and the batch-norm running statistics its buffers (`TreeModel`), and its
-forward takes ``train`` as JAX ``apply`` does.  ``int8_forward`` raises
-naming ROADMAP A13 and a ``compute_dtype`` other than fp32 ROADMAP A5 when
-the model is built.
+forward takes ``train`` as JAX ``apply`` does.  ``compute_dtype`` is the
+JAX package's, as in the single-block family: the input cast to it, every
+convolution and batch norm in its input's dtype, the head on an fp32
+input, the parameters fp32.  ``int8_forward`` raises naming ROADMAP A13
+when the model is built.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from differential_equations_resnet_tpu_torch.models.blocks import (
 )
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
     TreeModel,
-    dtype_name,
+    dtype_reason,
     normalize_input,
     stack_trees,
 )
@@ -149,10 +151,7 @@ def unsupported_reason(config: BottleneckResNetConfig) -> str:
     it waits on, or "" where the whole config is covered."""
     if config.int8_forward:
         return "int8_forward=True (int8 convolutions, ROADMAP A13)"
-    if dtype_name(config.compute_dtype) != "float32":
-        return (f"compute_dtype={dtype_name(config.compute_dtype)} "
-                "(reduced-precision compute, ROADMAP A5)")
-    return ""
+    return dtype_reason(config)
 
 
 def _mid_is_antisym(config: BottleneckResNetConfig, filters: Filters) -> bool:
@@ -314,7 +313,7 @@ def apply_resnet(
         new_state["stages"].append(stage_ss)
 
     if config.include_top:
-        x = dense(global_average_pool(x), params["head"])
+        x = dense(global_average_pool(x).to(torch.float32), params["head"])
         if not return_logits:
             x = apply_fc_activation(x, config.fc_activation)
     return x, (new_state if bn else state)

@@ -11,20 +11,21 @@ stack is first made dense, (L, k, k, C, C) kernels for all layers at once
 stack's shapes and the config before anything is launched
 (`identity_route`):
 
-- the fused route: an Euler stack of 3x3 kernels without batch norm, any
-  kernel type, that the hand-written CUDA kernels take (B1 forward; B2
-  backward too where a gradient will be needed) runs as the fused L-layer
-  integrator `fused_euler_dense`: the kernels on the card, their plain
-  PyTorch versions on the CPU.  A stack that the JAX package would run on
-  its Pallas kernel (``use_pallas``, antisymmetric, fp32, within that
-  kernel gate's reach: C <= 128, H*W <= 4096) takes this route even where
-  B1 or B2 declines it, and on the card then raises `NotImplementedError`
-  naming ROADMAP B6 before any launch;
+- the fused route: an fp32 Euler stack of 3x3 kernels without batch norm,
+  any kernel type, within the JAX kernel gate's reach (C <= 128, H*W <=
+  4096) runs as the fused L-layer integrator `fused_euler_dense`: the
+  hand-written kernels B1 (forward) and B2 (backward) on the card, their
+  plain PyTorch versions on the CPU.  Every such stack that the JAX package
+  would run on its Pallas kernel (``use_pallas``, antisymmetric) takes it;
+  every other one takes it where the kernels' band variant runs it (B2's
+  too where a gradient will be needed), or, where the shape needs a wide
+  variant (`ops.kernels.fused_integrator.kernel_variant`), up to the width
+  where that was measured faster (`wide_route`);
 - the per-layer route, everything else: midpoint, RK4, k != 3, batch norm,
-  and the Euler 3x3 stacks the kernels decline that the JAX package runs on
-  XLA's convolutions, run layer by layer (`euler_relu_step`, the integrator
-  over `conv_relu_field`, or conv, batch norm and relu) on cuDNN with TF32
-  off, each layer checkpointed where ``remat`` is set.
+  bf16 or fp16 compute (the JAX gate takes fp32 only), and the Euler 3x3
+  stacks left to it above, run layer by layer (`euler_relu_step`, the
+  integrator over `conv_relu_field`, or conv, batch norm and relu) on cuDNN
+  with TF32 off, each layer checkpointed where ``remat`` is set.
 
 `route_counts` counts the stacks each route ran (Python calls: a replayed
 CUDA graph adds none).  Gradients flow through every leaf, so the model
@@ -33,11 +34,17 @@ trains (`train.train_step`).  The forward takes ``train`` as the JAX
 statistics and updates the running ones (the model's buffers), eval mode
 uses the running ones; without it the two compute the same forward.
 
+``compute_dtype`` (fp32, bf16 or fp16) is the JAX package's: the input is
+cast to it at entry, every convolution, batch norm and dense layer computes
+in its input's dtype (kernels and biases cast to it), the head runs on an
+fp32 input and the loss's log-softmax in fp32 (`train.train_step`); the
+parameters, Adam's slots, checkpoints and the gradient telemetry stay fp32.
+
 The config accepts every key of the JAX package's ``config.json``; what the
 port does not run yet raises `NotImplementedError` naming the ROADMAP item
-it waits on when the model is built: bf16 compute (A5), int8 (A13) and the
-meshes (A15).  Accepted and ignored, because they do not change the numbers
-of a forward or backward pass:
+it waits on when the model is built: int8 (A13) and the meshes (A15).
+Accepted and ignored, because they do not change the numbers of a forward
+or backward pass:
 
 - ``s2d_block``, ``s2d_force``, ``s2d_max_rows``: space-to-depth is an exact
   layout transform whose gate stays off on CUDA until it is measured there;
@@ -90,10 +97,10 @@ from differential_equations_resnet_tpu_torch.ops.integrators import (
     run_layers,
 )
 from differential_equations_resnet_tpu_torch.ops.kernels.fused_integrator import (
-    fused_euler_bwd_eligible,
     fused_euler_dense,
     fused_euler_eligible,
     in_reference_reach,
+    kernel_variant,
     needs_gradient,
 )
 
@@ -103,6 +110,12 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch
 def dtype_name(dtype: Union[str, torch.dtype]) -> str:
     """"float32" for torch.float32 or "float32"."""
     return dtype if isinstance(dtype, str) else str(dtype).replace("torch.", "")
+
+
+def compute_dtype_of(config) -> torch.dtype:
+    """A config's ``compute_dtype`` (a torch dtype or its name) as a torch
+    dtype."""
+    return DTYPES[dtype_name(config.compute_dtype)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,9 +229,14 @@ def unsupported_reason(config: SingleBlockResNetConfig) -> str:
         return "int8_forward=True (int8 convolutions, ROADMAP A13)"
     if config.pp_mesh is not None or config.tp_mesh is not None:
         return "pp_mesh/tp_mesh (pipeline and tensor parallelism, ROADMAP A15)"
-    if dtype_name(config.compute_dtype) != "float32":
-        return (f"compute_dtype={dtype_name(config.compute_dtype)} "
-                "(reduced-precision compute, ROADMAP A5)")
+    return dtype_reason(config)
+
+
+def dtype_reason(config) -> str:
+    """Why ``config.compute_dtype`` is not one the port computes in, or ""."""
+    name = dtype_name(config.compute_dtype)
+    if name not in DTYPES:
+        return f"compute_dtype={name} (the port computes in {', '.join(DTYPES)})"
     return ""
 
 
@@ -355,21 +373,23 @@ def _apply_conv_block(x: torch.Tensor, sp: dict, ss: dict, config: SingleBlockRe
     return torch.relu(main) + shortcut, new_ss
 
 
-def _input_constant(value, device: torch.device) -> torch.Tensor:
+def _input_constant(value, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """A config's subtract_mean / divide_by_stddev (a scalar or per-channel
-    values) as an fp32 tensor on ``device``, made once per (values,
-    device): a host-to-device copy on every forward cannot be captured in
-    a CUDA graph.  It stays a device tensor, not a Python scalar, because
-    CUDA divides by a Python scalar as a multiplication by its reciprocal,
-    which can move the last bit."""
+    values) as a tensor of ``dtype`` on ``device`` (JAX ``jnp.asarray(value,
+    x.dtype)``), made once per (values, device, dtype): a host-to-device
+    copy on every forward cannot be captured in a CUDA graph.  It stays a
+    device tensor, not a Python scalar, because CUDA divides by a Python
+    scalar as a multiplication by its reciprocal, which can move the last
+    bit."""
     values = np.asarray(value, dtype=np.float32)
-    return _device_constant(tuple(values.ravel().tolist()), values.shape, device)
+    return _device_constant(tuple(values.ravel().tolist()), values.shape, device, dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def _device_constant(values: Tuple[float, ...], shape, device: torch.device) -> torch.Tensor:
+def _device_constant(values: Tuple[float, ...], shape, device: torch.device,
+                     dtype: torch.dtype) -> torch.Tensor:
     with torch.inference_mode(False):  # usable by autograd whoever asked first
-        return torch.tensor(values, dtype=torch.float32, device=device).reshape(shape)
+        return torch.tensor(values, dtype=torch.float32).reshape(shape).to(device, dtype)
 
 
 def _dense_blocks(blocks, config: SingleBlockResNetConfig) -> ConvParams:
@@ -400,22 +420,42 @@ def jax_runs_pallas(config: SingleBlockResNetConfig, x: torch.Tensor) -> bool:
             and x.dim() == 4 and x.dtype == torch.float32 and in_reference_reach(x.shape))
 
 
+# The widest stack whose train step on the kernels' wide variants beat the
+# per-layer one (64L x C, batch 32, NVIDIA H100 80GB HBM3 at 700 W: faster
+# at 64-112 filters, 0.7% slower at 128; PERF.md §5).  A wider stack that
+# needs a wide variant takes the per-layer route unless the JAX package
+# would run its Pallas kernel on it.
+WIDE_FUSED_MAX_CHANNELS = 112
+
+
+def wide_route(channels: int) -> str:
+    """The route of an fp32 Euler 3x3 stack of C channels, within the
+    reach, whose shape needs a kernel's wide variant and which the JAX
+    package would not run on Pallas: "fused" up to
+    `WIDE_FUSED_MAX_CHANNELS`, else "per_layer"."""
+    return "fused" if channels <= WIDE_FUSED_MAX_CHANNELS else "per_layer"
+
+
 def identity_route(config: SingleBlockResNetConfig, x: torch.Tensor, dense: ConvParams) -> str:
-    """"fused" for an Euler stack of 3x3 kernels (the dense stack's own
-    shape) without batch norm, of any kernel type, that B1 takes and, where
-    a gradient will be needed, B2 too: one B1 launch (and one B2 launch in
-    the backward) on the card.  "fused" too for a stack they decline that
-    the JAX package would run on Pallas (`jax_runs_pallas`): on the card the
-    fused wrapper then raises naming ROADMAP B6 before any launch.
+    """"fused" for an fp32 Euler stack of 3x3 kernels (the dense stack's own
+    shape) without batch norm, of any kernel type, within the JAX kernel
+    gate's reach: one B1 launch (and one B2 launch in the backward) on the
+    card.  Of those, a stack whose shape needs a wide variant (of B1, or of
+    B2 where a gradient will be needed; `kernel_variant`) takes
+    `wide_route` unless the JAX package would run it on Pallas
+    (`jax_runs_pallas`).
     "per_layer" for every other stack, as the JAX package runs it on XLA's
-    convolutions.  Decided from shapes and the config, before anything is
-    launched."""
+    convolutions.  Decided from shapes, dtype and the config, before
+    anything is launched."""
     if (config.use_batch_norm or config.integrator != "euler"
-            or tuple(dense.kernel.shape[1:3]) != (3, 3)):
+            or tuple(dense.kernel.shape[1:3]) != (3, 3) or not fused_euler_eligible(x, dense)):
         return "per_layer"
+    if jax_runs_pallas(config, x):
+        return "fused"
     grad = needs_gradient(x, dense.kernel, dense.bias)
-    takes = fused_euler_eligible(x, dense) and (not grad or fused_euler_bwd_eligible(x, dense))
-    return "fused" if takes or jax_runs_pallas(config, x) else "per_layer"
+    wide = kernel_variant(x.shape) == "wide" or (
+        grad and kernel_variant(x.shape, backward=True) == "wide")
+    return wide_route(x.shape[-1]) if wide else "fused"
 
 
 def _batch_norm_stack(x, dense: ConvParams, bn_params, bn_state, config, train: bool):
@@ -467,12 +507,13 @@ def _apply_identity_blocks(x: torch.Tensor, sp: dict, ss: dict,
 
 
 def normalize_input(x: torch.Tensor, config) -> torch.Tensor:
-    """fp32 images less ``subtract_mean``, over ``divide_by_stddev``."""
-    x = x.to(torch.float32)
+    """The images cast to the config's compute dtype, less
+    ``subtract_mean``, over ``divide_by_stddev``, both in that dtype."""
+    x = x.to(compute_dtype_of(config))
     if config.subtract_mean is not None:
-        x = x - _input_constant(config.subtract_mean, x.device)
+        x = x - _input_constant(config.subtract_mean, x.device, x.dtype)
     if config.divide_by_stddev is not None:
-        x = x / _input_constant(config.divide_by_stddev, x.device)
+        x = x / _input_constant(config.divide_by_stddev, x.device, x.dtype)
     return x
 
 
@@ -506,7 +547,7 @@ def apply_single_block_resnet(
             stage_ss.update(blocks_ss)
         new_state["stages"].append(stage_ss)
     if config.include_top:
-        x = dense(global_average_pool(x), params["head"])
+        x = dense(global_average_pool(x).to(torch.float32), params["head"])
         if not return_logits:
             x = apply_fc_activation(x, config.fc_activation)
     return x, (new_state if config.use_batch_norm else state)

@@ -21,7 +21,11 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"fused_euler_fwd": "fused_euler_fwd.cu", "fused_euler_bwd": "fused_euler_bwd.cu"}
+SOURCES = {
+    "fused_euler_fwd": "fused_euler_fwd.cu",
+    "fused_euler_bwd": "fused_euler_bwd.cu",
+    "fused_euler_wide": "fused_euler_wide.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

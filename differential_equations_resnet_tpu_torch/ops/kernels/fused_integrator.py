@@ -18,25 +18,29 @@ to `fused_euler_dense` itself.
 
 `fused_euler_dense` is the entry point.  On CPU tensors it runs the plain
 versions (`reference_euler_dense`, `reference_euler_dense_bwd`); on CUDA
-tensors it launches the kernels of ``csrc/fused_euler_fwd.cu`` (B1) and
-``csrc/fused_euler_bwd.cu`` (B2) or raises: there is no fallback.  Each kernel
-runs an image as a thread-block cluster of n blocks, each holding a band of
-rows of the zero-padded state in shared memory (`band_plan` chooses n), so
-its gate is the card's shared memory, not the TPU's VMEM
-(`fused_euler_eligible`, `fused_euler_bwd_eligible`), and it takes less than
-the JAX gate's reach (`in_reference_reach`): at 32x32, B1 C <= 64 and B2 C
-<= 56, against C <= 128.  On the card a shape that a kernel declines raises
-`NotImplementedError` naming ROADMAP B6 (the kernels widened); where a
-gradient will be needed (`needs_gradient`), a shape that B2 declines raises
-before B1 is launched.  The model sends such a stack here only where the JAX
-package would run its Pallas kernel (``use_pallas``, antisymmetric, within
-that reach); every other stack the kernels decline runs layer by layer on
-cuDNN (`models.single_block_resnet.identity_route`).
+tensors it launches the forward kernel B1 and, in the backward, B2, or
+raises: there is no fallback.  Both take every shape the JAX gate takes (a
+4-D contiguous fp32 state with C <= 128 and H*W <= 4096, any batch:
+`fused_euler_eligible`, `fused_euler_bwd_eligible`, `in_reference_reach`),
+each in one of two variants chosen from the shape alone before anything is
+launched (`kernel_variant`):
 
-Each wrapper counts its kernel's launches on the card in ``launches``.
-Under a CUDA-graph capture the kernel is recorded into the graph, not
-launched: the wrapper counts it in ``captured`` instead, and each replay of
-the graph adds the launches it holds (`count_replay`).
+- "band" (``csrc/fused_euler_fwd.cu``, ``csrc/fused_euler_bwd.cu``): an
+  image is a thread-block cluster of n blocks, each holding a band of rows
+  of the zero-padded state and a layer's kernel in shared memory for all L
+  layers (`band_plan` chooses n).  It takes the shapes whose band fits one
+  block's shared memory in some band count (`min_bands`): at 32x32, B1 C <=
+  64 and B2 C <= 56;
+- "wide" (``csrc/fused_euler_wide.cu``), every other shape of the reach: the
+  state stays in device memory between layers and each layer is a tiled
+  implicit GEMM (`wide_plan`).
+
+Each wrapper counts its kernel's launches on the card in ``launches`` (a
+call of either variant is one launch of B1 or B2), and the wide variants'
+calls also in ``WIDE_FWD.launches`` / ``WIDE_BWD.launches``.  Under a
+CUDA-graph capture the kernel is recorded into the graph, not launched: the
+wrapper counts it in ``captured`` instead, and each replay of the graph adds
+the launches it holds (`count_replay`).
 """
 
 from __future__ import annotations
@@ -159,9 +163,10 @@ def band_plan(batch: int, height: int, fewest: int = 1, sms: int = SM_COUNT):
     return tuple((r * height // bands, (r + 1) * height // bands) for r in range(bands))
 
 
-def _declined(x: torch.Tensor, smem_bytes=state_smem_bytes) -> str:
-    """Why a kernel whose block of an image in n bands needs ``smem_bytes(H,
-    W, C, n)`` of shared memory cannot take ``x``, or "" where it can."""
+def _declined(x: torch.Tensor) -> str:
+    """Why the kernels cannot take ``x``, or "" where they can: what the JAX
+    gate refuses (not a 4-D contiguous fp32 NHWC state, C > 128, H*W >
+    4096), nothing more."""
     if x.dim() != 4:
         return f"x must be 4-D NHWC, got shape {tuple(x.shape)}"
     if x.dtype != torch.float32:
@@ -173,14 +178,85 @@ def _declined(x: torch.Tensor, smem_bytes=state_smem_bytes) -> str:
         return f"C={channels} > {MAX_CHANNELS}"
     if height * width > MAX_PIXELS:
         return f"H*W={height * width} > {MAX_PIXELS}"
-    if min_bands(height, width, channels, smem_bytes) is None:
-        bands = min(MAX_BANDS, height)
-        return (
-            f"even in {bands} bands one block needs "
-            f"{smem_bytes(height, width, channels, bands)} bytes of shared memory for a "
-            f"{height}x{width}x{channels} image, over the {SMEM_LIMIT_BYTES} one block may use"
-        )
     return ""
+
+
+def kernel_variant(x_shape, backward: bool = False) -> str:
+    """The variant of B1 (or B2 with ``backward=True``) that runs a (B, H, W,
+    C) state of the reach: "band" where a band of rows fits one block's
+    shared memory in some band count (`min_bands`), else "wide"."""
+    _, height, width, channels = x_shape
+    smem_bytes = bwd_smem_bytes if backward else state_smem_bytes
+    return "band" if min_bands(height, width, channels, smem_bytes) is not None else "wide"
+
+
+# The wide variants' tiles (``csrc/fused_euler_wide.cu``): a block of 256
+# threads computes 128 pixels (or, in the dK pass, 128 (tap, input) rows) x
+# 64 output channels, or 128 where Cp > 64, from two shared-memory stages of
+# 16 reduction steps.
+WIDE_THREADS = 256
+WIDE_TILE_ROWS = 128
+WIDE_STAGE = 16
+
+
+def _wide_cols(padded: int) -> int:
+    return 128 if padded > 64 else 64
+
+
+def wide_smem_bytes(channels: int) -> int:
+    """Static shared memory of a wide block at C channels: two stages of a
+    (16, 128 + 4) and a (16, 64 or 128) fp32 tile."""
+    padded = _ceil(channels, 4) * 4
+    return 4 * 2 * WIDE_STAGE * (WIDE_TILE_ROWS + 4 + _wide_cols(padded))
+
+
+def wide_splits(x_shape, sms: int = SM_COUNT) -> Tuple[int, int]:
+    """(S, chunk) of the wide B2's weight-gradient pass: its sum over the
+    B*H*W pixels runs in S chunks of ``chunk`` pixels (a multiple of 16),
+    one block each a (9Cp, Cp) tile, as many as two blocks a streaming
+    multiprocessor hold at once (one wave), and the chunks' partials are
+    summed in a fixed order.  Decided from the shape (and the default SM
+    count) alone, so two calls sum in the same order."""
+    batch, height, width, channels = x_shape
+    padded = _ceil(channels, 4) * 4
+    pixels = max(1, batch * height * width)
+    tiles = _ceil(9 * padded, WIDE_TILE_ROWS) * _ceil(padded, _wide_cols(padded))
+    splits = max(1, min(2 * sms // tiles, _ceil(pixels, 256)))
+    chunk = _ceil(_ceil(pixels, splits), WIDE_STAGE) * WIDE_STAGE
+    return _ceil(pixels, chunk), chunk
+
+
+def wide_plan(x_shape, backward: bool = False) -> dict:
+    """The wide variant's launches at a (B, H, W, C) state: the grid of a
+    layer's conv step (pixel tiles x channel tiles), its threads and
+    shared memory a block, and in the backward the dK pass's grid and its
+    (S, chunk) split."""
+    batch, height, width, channels = x_shape
+    padded = _ceil(channels, 4) * 4
+    cols = _wide_cols(padded)
+    plan = {"variant": "wide", "threads": WIDE_THREADS, "smem_bytes": wide_smem_bytes(channels),
+            "conv_grid": (_ceil(batch * height * width, WIDE_TILE_ROWS), _ceil(padded, cols))}
+    if backward:
+        splits, chunk = wide_splits(x_shape)
+        plan.update(splits=splits, chunk=chunk,
+                    dk_grid=(_ceil(9 * padded, WIDE_TILE_ROWS), _ceil(padded, cols), splits))
+    return plan
+
+
+def launch_plan(x_shape, backward: bool = False, sms: int = SM_COUNT) -> dict:
+    """How B1 (or B2) runs a (B, H, W, C) state of the reach: the band
+    variant's band count, threads and shared memory a block, or the wide
+    variant's `wide_plan`."""
+    batch, height, width, channels = x_shape
+    if kernel_variant(x_shape, backward) == "wide":
+        return wide_plan(x_shape, backward)
+    bands = kernel_bands(x_shape, backward, sms)
+    smem_bytes = bwd_smem_bytes if backward else state_smem_bytes
+    cp, _, rows, _ = _band_geometry(height, width, channels, bands)
+    items = rows * _ceil(width, 4) * (cp // 4)
+    return {"variant": "band", "bands": bands, "blocks": batch * bands,
+            "threads": min(32 * _ceil(items, 32), 512),
+            "smem_bytes": smem_bytes(height, width, channels, bands)}
 
 
 def in_reference_reach(x_shape) -> bool:
@@ -213,29 +289,17 @@ def needs_gradient(*tensors: torch.Tensor) -> bool:
 
 def fused_euler_eligible(x: torch.Tensor, blocks) -> bool:
     """Whether the forward kernel B1 takes this (shape, dtype, params)
-    combination: a 4-D fp32 contiguous NHWC input; a stacked 3x3 stack with
-    a bias (`Antisym3x3Params`, or dense ``ConvParams`` (L, 3, 3, C, C) of
-    any kernel type); C <= 128, H*W <= 4096, and
-    some band count n (a power of two <= min(16, H)) whose block fits one
-    block's shared memory on sm_90 (`state_smem_bytes(H, W, C, n) <=
-    232,448`).
-
-    At 32x32 this admits C <= 64 (the one-block-per-image kernel took C <=
-    38), and it admits 64x64x16 (in 4 bands), as the JAX gate does.  Of the
-    shapes that kernel took, it declines only images of a few rows with
-    wide rows or C >= 53 (at most 18 rows within 64x64): a band holds two
-    states where that kernel updated one in place, and rows cannot be split
-    below one a band."""
+    combination, as the JAX gate does: a 4-D fp32 contiguous NHWC input, C
+    <= 128 and H*W <= 4096, any batch; a stacked 3x3 stack with a bias
+    (`Antisym3x3Params`, or dense ``ConvParams`` (L, 3, 3, C, C) of any
+    kernel type).  The shape picks the variant (`kernel_variant`)."""
     return _stack_with_bias(blocks) and not _declined(x)
 
 
 def fused_euler_bwd_eligible(x: torch.Tensor, blocks) -> bool:
-    """Whether the backward kernel B2 takes this combination: B1's gate with
-    `bwd_smem_bytes(H, W, C, n) <= 232,448` for some band count n.  At 32x32
-    this admits C <= 56 (the one-block-per-image kernel took C <= 21), and
-    it admits 64x64x16 (in 8 bands).  Of the shapes that kernel took, it
-    declines only images of a few rows with wide rows or C >= 41."""
-    return _stack_with_bias(blocks) and not _declined(x, bwd_smem_bytes)
+    """Whether the backward kernel B2 takes this combination: B1's gate,
+    the JAX gate."""
+    return fused_euler_eligible(x, blocks)
 
 
 def kernel_bands(x_shape, backward: bool = False, sms: int = SM_COUNT):
@@ -316,6 +380,12 @@ _SIGNATURES = {
         "deqres_euler_bwd_max_clusters": ([_I32] * 5, _I32),
         "deqres_cuda_error_string": ([_I32], ctypes.c_char_p),
     },
+    "fused_euler_wide": {
+        "deqres_euler_wide_smem": ([_I32], ctypes.c_longlong),
+        "deqres_euler_wide_fwd": ([_PTR] * 6 + [_I32] * 5 + [_F32, _I32, _PTR], _I32),
+        "deqres_euler_wide_bwd": ([_PTR] * 11 + [_I32] * 7 + [_F32, _I32, _PTR], _I32),
+        "deqres_cuda_error_string": ([_I32], ctypes.c_char_p),
+    },
 }
 
 
@@ -343,6 +413,13 @@ def library_smem_bytes(height: int, width: int, channels: int, bands: int,
     return getattr(_library(name), f"deqres_euler_{short}_smem")(height, width, channels, bands)
 
 
+def wide_library_smem_bytes(channels: int) -> int:
+    """The static shared memory a block of the built wide library uses at C
+    channels: what `wide_smem_bytes` counts, from the C side.  Builds the
+    library."""
+    return _library("fused_euler_wide").deqres_euler_wide_smem(channels)
+
+
 def max_active_clusters(height: int, width: int, channels: int, bands: int,
                         backward: bool = False, bf16: bool = False) -> int:
     """``cudaOccupancyMaxActiveClusters`` of B1 (or B2) on the current
@@ -363,13 +440,11 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _check_operands(x, kernels, biases, matmul_dtype, reason, which):
+def _check_operands(x, kernels, biases, matmul_dtype, which):
+    reason = _declined(x)
     if reason:
-        raise NotImplementedError(
-            f"{which} on CUDA declines this input: {reason}. Kernels that take "
-            "every shape of the JAX gate's reach, and a tiled variant past it, are "
-            "later work (ROADMAP B6)."
-        )
+        raise ValueError(f"{which} on CUDA takes what the JAX kernel gate takes; not this "
+                         f"input: {reason}")
     channels, num_layers = x.shape[-1], kernels.shape[0]
     if tuple(kernels.shape) != (num_layers, 3, 3, channels, channels):
         raise ValueError(f"kernels must be (L, 3, 3, {channels}, {channels}), got {tuple(kernels.shape)}")
@@ -383,10 +458,10 @@ def _check_operands(x, kernels, biases, matmul_dtype, reason, which):
 
 
 def _kernel_operands(kernels, biases, padded, matmul_dtype):
-    """(L, 3, 3, C, C) kernels and (L, C) biases as the kernels copy them into
-    shared memory: zero-padded from C to Cp channels, the kernels' operands
-    rounded as ``matmul_dtype`` says, contiguous and 16-byte aligned.  At C =
-    Cp in fp32 the inputs themselves, where aligned."""
+    """(L, 3, 3, C, C) kernels and (L, C) biases as the kernels read them:
+    zero-padded from C to Cp channels, the kernels' operands rounded as
+    ``matmul_dtype`` says, contiguous and 16-byte aligned.  At C = Cp in
+    fp32 the inputs themselves, where aligned."""
     channels = kernels.shape[-1]
     kernels = round_operand(kernels, matmul_dtype)
     if padded != channels:
@@ -401,6 +476,18 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _padded_state(t: torch.Tensor, padded: int) -> torch.Tensor:
+    """A contiguous, 16-byte aligned (B, H, W, Cp) copy of t zero-padded
+    from C to Cp channels, or t itself where C = Cp and it is aligned."""
+    if padded == t.shape[-1]:
+        return _aligned(t.contiguous())
+    return F.pad(t, (0, padded - t.shape[-1])).contiguous()
+
+
+def _unpadded(t: torch.Tensor, channels: int) -> torch.Tensor:
+    return t if t.shape[-1] == channels else t[..., :channels].contiguous()
+
+
 def _raise_on_error(lib, err, which):
     if err != 0:
         raise RuntimeError(
@@ -409,19 +496,40 @@ def _raise_on_error(lib, err, which):
         )
 
 
-def _count_launch(wrapper) -> None:
-    """One launch of ``wrapper``'s kernel, or one recorded into the CUDA
+class LaunchCounter:
+    """Launches of one kernel variant on the card (``launches``), and those
+    recorded into CUDA graphs being captured (``captured``)."""
+
+    def __init__(self):
+        self.launches = self.captured = 0
+
+
+# The wide variants' calls; each also counts as a launch of B1 or B2.
+WIDE_FWD = LaunchCounter()
+WIDE_BWD = LaunchCounter()
+
+
+def _count_launch(*counters) -> None:
+    """One launch of each counter's kernel, or one recorded into the CUDA
     graph being captured on the current stream."""
-    if torch.cuda.is_current_stream_capturing():
-        wrapper.captured += 1
-    else:
-        wrapper.launches += 1
+    capturing = torch.cuda.is_current_stream_capturing()
+    for counter in counters:
+        if capturing:
+            counter.captured += 1
+        else:
+            counter.launches += 1
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _launch(x, kernels, biases, h, matmul_dtype, bands=None) -> torch.Tensor:
-    """B1 on CUDA tensors; ``bands`` overrides the band plan (for
-    measurements)."""
-    _check_operands(x, kernels, biases, matmul_dtype, _declined(x), "fused_euler_dense")
+    """B1 on CUDA tensors, in the variant the shape takes (`kernel_variant`);
+    ``bands`` overrides the band plan (for measurements)."""
+    _check_operands(x, kernels, biases, matmul_dtype, "fused_euler_dense")
+    if bands is None and kernel_variant(x.shape) == "wide":
+        return _launch_wide(x, kernels, biases, h, matmul_dtype)
     batch, height, width, channels = x.shape
     if bands is None:
         bands = kernel_bands(x.shape, sms=_sm_count(x.device.index or 0))
@@ -430,36 +538,66 @@ def _launch(x, kernels, biases, h, matmul_dtype, bands=None) -> torch.Tensor:
     out = torch.empty_like(x)
     lib = _library("fused_euler_fwd")
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.deqres_euler_fwd(
             x.data_ptr(), kernels.data_ptr(), biases.data_ptr(), out.data_ptr(),
             batch, height, width, channels, kernels.shape[0], bands, float(h),
-            int(matmul_dtype == torch.bfloat16), stream,
+            int(matmul_dtype == torch.bfloat16), _stream(x),
         )
     _raise_on_error(lib, err, "fused_euler_fwd")
     _count_launch(fused_euler_dense)
     return out
 
 
-def _launch_bwd(x, kernels, biases, g, h, matmul_dtype, bands=None):
-    """B2 on CUDA tensors; ``bands`` overrides the band plan (for
-    measurements)."""
-    _check_operands(x, kernels, biases, matmul_dtype, _declined(x, bwd_smem_bytes),
-                    "fused_euler_dense_bwd")
+def _launch_wide(x, kernels, biases, h, matmul_dtype) -> torch.Tensor:
+    """The wide B1: L layer launches of ``csrc/fused_euler_wide.cu`` on the
+    current stream, the state in two scratch buffers between layers."""
     batch, height, width, channels = x.shape
     num_layers = kernels.shape[0]
-    if num_layers < 1:
+    if num_layers == 0:
+        return x.clone()
+    padded = _ceil(channels, 4) * 4
+    kernels, biases = _kernel_operands(kernels, biases, padded, matmul_dtype)
+    xp = _padded_state(x, padded)
+    out = x.new_empty((batch, height, width, padded))
+    # Two states between layers; at L = 1 the library reads neither.
+    scratch = out[None].expand(2, *out.shape)
+    if num_layers > 1:
+        scratch = x.new_empty((2,) + tuple(out.shape))
+    lib = _library("fused_euler_wide")
+    with torch.cuda.device(x.device):
+        err = lib.deqres_euler_wide_fwd(
+            xp.data_ptr(), kernels.data_ptr(), biases.data_ptr(), scratch[0].data_ptr(),
+            scratch[1].data_ptr(), out.data_ptr(), batch, height, width, channels, num_layers,
+            float(h), int(matmul_dtype == torch.bfloat16), _stream(x),
+        )
+    _raise_on_error(lib, err, "fused_euler_fwd (wide)")
+    _count_launch(fused_euler_dense, WIDE_FWD)
+    return _unpadded(out, channels)
+
+
+def _transposed(kernels):
+    """The conv-transpose kernels: rot180 in (dh, dw), c_in and c_out swapped."""
+    return kernels.flip(1, 2).transpose(3, 4)
+
+
+def _launch_bwd(x, kernels, biases, g, h, matmul_dtype, bands=None):
+    """B2 on CUDA tensors, in the variant the shape takes (`kernel_variant`);
+    ``bands`` overrides the band plan (for measurements)."""
+    _check_operands(x, kernels, biases, matmul_dtype, "fused_euler_dense_bwd")
+    if kernels.shape[0] < 1:
         raise ValueError("the backward kernel needs at least one layer")
     if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
         raise ValueError(f"g must be float32 {tuple(x.shape)} on {x.device}, got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    if bands is None and kernel_variant(x.shape, backward=True) == "wide":
+        return _launch_bwd_wide(x, kernels, biases, g, h, matmul_dtype)
+    batch, height, width, channels = x.shape
+    num_layers = kernels.shape[0]
     if bands is None:
         bands = kernel_bands(x.shape, backward=True, sms=_sm_count(x.device.index or 0))
     padded, _, _, words = _band_geometry(height, width, channels, bands)
     g = g.contiguous()
-    # Conv-transpose kernel: rot180 in (dh, dw), swap (c_in, c_out).
-    kernels_t, _ = _kernel_operands(kernels.flip(1, 2).transpose(3, 4), biases, padded,
-                                    matmul_dtype)
+    kernels_t, _ = _kernel_operands(_transposed(kernels), biases, padded, matmul_dtype)
     kernels, biases = _kernel_operands(kernels, biases, padded, matmul_dtype)
     gx = torch.empty_like(x)
     gk = x.new_empty((batch * bands, num_layers, 9, channels, channels))
@@ -469,18 +607,53 @@ def _launch_bwd(x, kernels, biases, g, h, matmul_dtype, bands=None):
                        device=x.device)
     lib = _library("fused_euler_bwd")
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.deqres_euler_bwd(
             x.data_ptr(), kernels.data_ptr(), biases.data_ptr(), kernels_t.data_ptr(),
             g.data_ptr(), gx.data_ptr(), gk.data_ptr(), gb.data_ptr(),
             trajectory.data_ptr(), mask.data_ptr(), batch, height, width, channels,
-            num_layers, bands, float(h), int(matmul_dtype == torch.bfloat16), stream,
+            num_layers, bands, float(h), int(matmul_dtype == torch.bfloat16), _stream(x),
         )
     _raise_on_error(lib, err, "fused_euler_bwd")
     _count_launch(fused_euler_dense_bwd)
     # Per-band partials summed here, in a fixed order, where the JAX wrapper
     # sums its tiles'.
     return gx, gk.sum(dim=0).reshape(num_layers, 3, 3, channels, channels), gb.sum(dim=0)
+
+
+def _launch_bwd_wide(x, kernels, biases, g, h, matmul_dtype):
+    """The wide B2: the forward recompute into a (L, B, H, W, Cp)
+    trajectory with its relu-mask words, then 4 launches a layer in
+    reverse, all on the current stream (``csrc/fused_euler_wide.cu``)."""
+    batch, height, width, channels = x.shape
+    num_layers = kernels.shape[0]
+    padded = _ceil(channels, 4) * 4
+    splits, chunk = wide_splits(x.shape)
+    kernels_t, _ = _kernel_operands(_transposed(kernels), biases, padded, matmul_dtype)
+    kernels, biases = _kernel_operands(kernels, biases, padded, matmul_dtype)
+    trajectory = x.new_empty((num_layers, batch, height, width, padded))
+    trajectory[0].copy_(_padded_state(x, padded))
+    mask = torch.zeros((num_layers, batch, height, width, _ceil(padded, 32)), dtype=torch.int32,
+                       device=x.device)
+    g_state = _padded_state(g, padded)  # gx is computed in place, over a copy of g
+    if g_state.data_ptr() == g.data_ptr():
+        g_state = g_state.clone()
+    g_z = torch.empty_like(g_state)
+    partials = x.new_empty((splits, 9 * padded, padded))
+    bias_partials = x.new_empty((splits, padded))
+    gk = x.new_empty((num_layers, 3, 3, channels, channels))
+    gb = x.new_empty((num_layers, channels))
+    lib = _library("fused_euler_wide")
+    with torch.cuda.device(x.device):
+        err = lib.deqres_euler_wide_bwd(
+            kernels.data_ptr(), biases.data_ptr(), kernels_t.data_ptr(), trajectory.data_ptr(),
+            mask.data_ptr(), g_state.data_ptr(), g_z.data_ptr(), partials.data_ptr(),
+            bias_partials.data_ptr(), gk.data_ptr(), gb.data_ptr(), batch, height, width,
+            channels, num_layers, splits, chunk, float(h), int(matmul_dtype == torch.bfloat16),
+            _stream(x),
+        )
+    _raise_on_error(lib, err, "fused_euler_bwd (wide)")
+    _count_launch(fused_euler_dense_bwd, WIDE_BWD)
+    return _unpadded(g_state, channels), gk, gb
 
 
 def _device_type(x: torch.Tensor) -> str:
@@ -504,8 +677,9 @@ def fused_euler_dense_bwd(
     matmul_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(gx, gk, gb) of `fused_euler_dense` at the cotangent g of y_L.  CPU
-    tensors take `reference_euler_dense_bwd`; CUDA tensors launch B2,
-    counted in ``fused_euler_dense_bwd.launches``, or raise."""
+    tensors take `reference_euler_dense_bwd`; CUDA tensors launch B2 in the
+    variant the shape takes, counted in ``fused_euler_dense_bwd.launches``,
+    or raise `ValueError` outside the JAX gate's reach."""
     if _device_type(x) == "cpu":
         return reference_euler_dense_bwd(x, kernels, biases, g, h, matmul_dtype)
     return _launch_bwd(x, kernels, biases, g, h, matmul_dtype)
@@ -519,15 +693,6 @@ class FusedEulerDense(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, kernels, biases, h, matmul_dtype):
-        if x.device.type == "cuda" and any(ctx.needs_input_grad[:3]):
-            reason = _declined(x, bwd_smem_bytes)
-            if reason:
-                raise NotImplementedError(
-                    "fused_euler_dense on CUDA cannot differentiate this input: "
-                    f"its backward kernel B2 declines it ({reason}); a B2 that takes "
-                    "it is later work (ROADMAP B6). Run under torch.no_grad() for "
-                    "the forward alone."
-                )
         ctx.save_for_backward(x, kernels, biases)
         ctx.h, ctx.matmul_dtype = h, matmul_dtype
         return _forward(x, kernels, biases, h, matmul_dtype)
@@ -550,8 +715,9 @@ def fused_euler_dense(
     """y_L of L fused Euler steps with dense (L, 3, 3, C, C) kernels.
 
     CPU tensors take the plain versions.  CUDA tensors launch B1, counted in
-    ``fused_euler_dense.launches`` (and B2 in the backward), or raise
-    `NotImplementedError` for a shape a kernel declines that this call needs.
+    ``fused_euler_dense.launches`` (and B2 in the backward), each in the
+    variant the shape takes, or raise `ValueError` outside the JAX gate's
+    reach (`in_reference_reach`).
     ``matmul_dtype=torch.bfloat16`` rounds the conv operands to bf16 and
     keeps fp32 sums; the state y stays fp32 throughout."""
     if needs_gradient(x, kernels, biases):
@@ -561,21 +727,28 @@ def fused_euler_dense(
 
 fused_euler_dense.launches = fused_euler_dense.captured = 0
 
-# The wrappers that count their launches, in the order of `captured_launches`.
-COUNTED_WRAPPERS = (fused_euler_dense, fused_euler_dense_bwd)
+# What counts launches, in the order of `captured_launches`: the wrappers
+# (every call of B1 and B2) and the wide variants.
+COUNTED_WRAPPERS = (fused_euler_dense, fused_euler_dense_bwd, WIDE_FWD, WIDE_BWD)
 
 
 def captured_launches() -> Tuple[int, ...]:
-    """Each counted wrapper's launches recorded into captured graphs so far."""
+    """Each counter's launches recorded into captured graphs so far."""
     return tuple(w.captured for w in COUNTED_WRAPPERS)
 
 
 def count_replay(in_graph: Tuple[int, ...]) -> None:
     """Count one replay of a graph that holds ``in_graph`` launches of each
-    counted wrapper's kernel (the difference of `captured_launches` across
-    its capture)."""
+    counter's kernel (the difference of `captured_launches` across its
+    capture)."""
     for wrapper, n in zip(COUNTED_WRAPPERS, in_graph):
         wrapper.launches += n
+
+
+def reset_launch_counts() -> None:
+    """Every counter's launches set to 0."""
+    for wrapper in COUNTED_WRAPPERS:
+        wrapper.launches = 0
 
 
 def fused_euler_3x3(

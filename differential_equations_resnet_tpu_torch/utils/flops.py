@@ -6,8 +6,9 @@ convolution), not what an implementation executes.  MFU = model FLOPs /
 wall time / the card's peak.
 
 The peaks are an NVIDIA H100 SXM's (NVIDIA's data sheet, dense, at its 700 W
-limit).  The port trains in fp32 on the CUDA cores, so `mfu` defaults to the
-fp32 peak outside the tensor cores.
+limit).  MFU is taken against the peak of the dtype a model computes in
+(`peak_of`): fp32 outside the tensor cores, or bf16 (and fp16) on them.
+`mfu` defaults to the fp32 peak.
 """
 
 from __future__ import annotations
@@ -99,6 +100,19 @@ PEAK_FLOPS = {
     "h100_sxm_bf16": 989e12,
     "h100_sxm_fp8": 1979e12,
 }
+
+
+# The peak of each compute dtype, by its name: (PEAK_FLOPS key, FLOP/s).
+_PEAK_OF_DTYPE = {"float32": "h100_sxm_fp32", "bfloat16": "h100_sxm_bf16",
+                  "float16": "h100_sxm_bf16"}
+
+
+def peak_of(dtype) -> tuple:
+    """(name, FLOP/s) of the peak that MFU is taken against for a model
+    computing in ``dtype`` (a torch dtype or its name): "fp32" or "bf16"
+    (fp16 runs at the bf16 rate)."""
+    key = _PEAK_OF_DTYPE[str(dtype).replace("torch.", "")]
+    return key.rsplit("_", 1)[1], PEAK_FLOPS[key]
 
 
 def mfu(flops_per_step: float, steps_per_sec: float,

@@ -107,12 +107,13 @@ def test_shared_memory_formulas():
 ])
 def test_gates_keep_what_one_block_per_image_took(shape):
     """The shapes the one-block-per-image kernels sent to their staged
-    variants stay eligible for both kernels."""
+    variants stay eligible for both kernels, in their band variants."""
     height, width, channels = shape
     x = torch.zeros(1, height, width, channels)
-    for smem in (fi.state_smem_bytes, fi.bwd_smem_bytes):
+    assert fi._declined(x) == ""
+    for backward, smem in ((False, fi.state_smem_bytes), (True, fi.bwd_smem_bytes)):
         assert fi.min_bands(height, width, channels, smem) is not None
-        assert fi._declined(x, smem) == ""
+        assert fi.kernel_variant(x.shape, backward) == "band"
 
 
 @pytest.mark.parametrize("channels", range(1, 39))

@@ -254,16 +254,34 @@ def test_full_width_resnet50_eval_forward_matches_jax():
 
 
 def test_unsupported_options_raise():
-    """int8 and reduced precision wait for their ROADMAP items; the config
-    validates as the JAX package's does."""
-    for fields, item in ((dict(int8_forward=True), "A13"), (dict(compute_dtype="bfloat16"), "A5"),
-                         (dict(compute_dtype=torch.float16), "A5")):
-        config = dataclasses.replace(bottleneck.resnet_preset("resnet50", 10), **fields)
-        with pytest.raises(NotImplementedError, match=item):
-            bottleneck.build_resnet(config, generator=torch.Generator(), device="cpu")
+    """int8 waits for its ROADMAP item (reduced precision runs:
+    `test_reduced_precision_matches_jax_apply`); the config validates as the
+    JAX package's does."""
+    config = dataclasses.replace(bottleneck.resnet_preset("resnet50", 10), int8_forward=True)
+    with pytest.raises(NotImplementedError, match="A13"):
+        bottleneck.build_resnet(config, generator=torch.Generator(), device="cpu")
     with pytest.raises(ValueError, match="version"):
         bottleneck.BottleneckResNetConfig(num_classes=3, version=2)
     with pytest.raises(ValueError, match="num_classes"):
         bottleneck.BottleneckResNetConfig()
     with pytest.raises(TypeError):
         bottleneck.build_resnet(bottleneck.resnet_preset("resnet50", 10), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float16], ids=["bf16", "fp16"])
+def test_reduced_precision_matches_jax_apply(dtype):
+    """bf16 and fp16 compute (which raised naming ROADMAP A5 before the port
+    had them): the narrow v1 antisymmetric model's eval-mode logits at batch
+    2 against JAX apply in the same dtype, to 2e-2 norm-relative (both
+    round to the compute dtype after every layer, but sum in fp32 in other
+    orders: tests/test_torch_bf16.py); its parameters stay fp32."""
+    config = narrow_config(1, True, compute_dtype=dtype)
+    jax_model = jax_bottleneck.build_resnet(config)
+    params, state = drawn_bottleneck_trees(config, 14)
+    model = port_model(config, params, state)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    x = np.random.default_rng(15).uniform(0, 255, (2, 32, 32, 3)).astype(np.float32)
+    want, _ = jax_forward(jax_model)(params, state, x)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), return_logits=True)
+    assert got.dtype == torch.float32 and norm_rel(got, want) <= 2e-2

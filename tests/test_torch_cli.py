@@ -1,6 +1,7 @@
 """The port's command line on the CPU (``--device cpu``): train, analyze,
-evaluate and predict as a user runs them, and the flags the port cannot run
-yet, for either model family (the research subcommands:
+evaluate and predict as a user runs them, ``--bf16`` against the JAX
+package's CLI, and the flags the port cannot run yet, for either model
+family (the research subcommands:
 tests/test_torch_cli_research.py; ``--model resnet50``:
 tests/test_torch_bottleneck_training.py)."""
 
@@ -78,8 +79,6 @@ def test_resume_continues_from_the_latest_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model", "resnet50", "--bf16"], "A5"),
-    (["--bf16"], "bfloat16"),
     (["--int8-forward"], "int8"),
     (["--model", "resnet152", "--int8-forward"], "A13"),
     (["--int8-forward", "--int8-backward", "wgrad"], "A13"),
@@ -87,6 +86,28 @@ def test_resume_continues_from_the_latest_checkpoint(tmp_path, capsys):
 def test_flags_the_port_cannot_run_raise(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["evaluate", *MODEL, *flags, "--synthetic-val-size", "8"])
+
+
+@pytest.mark.parametrize("flags", [["--model", "resnet50", "--bf16"], ["--bf16"]],
+                         ids=["resnet50-bf16", "bf16"])
+def test_bf16_flag_runs_as_the_jax_cli_builds_it(capsys, monkeypatch, flags):
+    """``--bf16`` (which raised naming ROADMAP A5 before the port computed in
+    bf16) builds the model the JAX package's CLI builds from the same flags,
+    config for config, in bf16, and evaluates it (finite loss)."""
+    from differential_equations_resnet_tpu import cli as jax_cli
+    from differential_equations_resnet_tpu.utils.serving import _config_to_json
+    from differential_equations_resnet_tpu_torch.utils.serving import config_from_json
+
+    built = []
+    build = cli._build_model
+    monkeypatch.setattr(cli, "_build_model", lambda args: built.append(args) or build(args))
+    metrics = run(capsys, "evaluate", *MODEL, *flags, "--synthetic-val-size", "8")
+    assert np.isfinite(metrics["mean_loss"])
+    (args,) = built
+    model = build(args)
+    family = "single_block" if args.model == "single_block" else "bottleneck"
+    want = config_from_json(_config_to_json(jax_cli._build_model(args).config), family)
+    assert model.config == want and model.config.compute_dtype == torch.bfloat16
 
 
 def test_predict_takes_npy_only_and_other_subcommands_are_not_registered(tmp_path):

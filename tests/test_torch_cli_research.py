@@ -3,8 +3,9 @@ CPU (``--device cpu``) at tiny sizes: benchmark, deep-stability, sweep,
 reproduce --synthetic, and export --checkpoint followed by load_exported.
 Each prints the JSON keys the JAX package's command prints
 (`differential_equations_resnet_tpu/cli.py`), except the MFU key, which
-names the card's fp32 peak (``mfu_vs_fp32_peak``) where the JAX package's
-names a TPU's bf16 peak."""
+names the card's peak for the compute dtype (``mfu_vs_fp32_peak``, or
+``mfu_vs_bf16_peak`` with ``--bf16``) where the JAX package's names a
+TPU's bf16 peak."""
 
 import json
 import os
@@ -85,8 +86,14 @@ def test_sweep():
     assert set(out) == {"4x1", "4x2"}
     for row in out.values():
         assert set(row) == SWEEP_KEYS and all(np.isfinite(v) for v in row.values())
-    proc = cli("sweep", "--bf16", "--widths", "4", "--depths", "1", "--device", "cpu", check=False)
-    assert proc.returncode != 0 and "A5" in proc.stderr
+    # --bf16 (which raised naming ROADMAP A5 before the port computed in
+    # bf16): MFU against the bf16 peak.
+    out = cli("sweep", "--bf16", "--widths", "4", "--depths", "1", "--batch-size", "2",
+              "--num-classes", "10", "--steps", "2", "--device", "cpu")
+    assert set(out) == {"4x1"}
+    row = out["4x1"]
+    assert set(row) == SWEEP_KEYS - {"mfu_vs_fp32_peak"} | {"mfu_vs_bf16_peak"}
+    assert all(np.isfinite(v) for v in row.values())
 
 
 def test_reproduce_synthetic_and_its_refusal_without_data(tmp_path):

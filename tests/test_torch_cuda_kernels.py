@@ -1,5 +1,7 @@
 """The hand-written kernels B1 (`csrc/fused_euler_fwd.cu`) and B2
-(`csrc/fused_euler_bwd.cu`) against their plain PyTorch versions on the card.
+(`csrc/fused_euler_bwd.cu`), and their wide variants
+(`csrc/fused_euler_wide.cu`), against their plain PyTorch versions on the
+card.
 
 Every test here needs a CUDA device and skips itself without one.  The file
 imports neither JAX nor the JAX package (nor the test helpers that do), so it
@@ -10,11 +12,12 @@ runs on a machine with the card and no JAX:
 Inputs are made with NumPy from a seed.  The band-edge cases cover what the
 banded kernels split: batch 1 and 7, a height the band count does not divide,
 fewer rows than the plan's usual count, one band an image, and 64x64x16,
-which needs bands to fit at all.  Unstructured (regular) kernels at 16 and 8
-filters, a regular-kernel train step against the CPU, widths the kernels
-decline running layer by layer (or raising where the JAX package would run
-Pallas), and a captured remat midpoint step against the eager one cover the
-other kernel types and the per-layer route; ResNet-50's eval forward against
+which needs bands to fit at all.  The wide variants take the widths the
+band kernels decline, up to the JAX gate's C = 128 and 64x64.  Unstructured
+(regular) kernels at 16 and 8 filters, a regular-kernel train step against
+the CPU, the widths the band kernels decline training on the wide variants,
+and a captured remat midpoint step against the eager one cover the other
+kernel types and the per-layer route; ResNet-50's eval forward against
 the CPU and a captured ResNet-50 step against eager steps (the batch-norm
 buffers) cover the bottleneck family, which runs no hand-written kernel.
 chip_smoke.py holds both kernels at the main path's 64-layer shapes.
@@ -78,15 +81,27 @@ def test_kernel_matches_plain_version_on_cuda(card):
     want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
-    # B1 takes 32x32x60, B2 does not: raises before B1 launches.
-    with pytest.raises(NotImplementedError, match="B2 declines"):
-        fi.fused_euler_dense(torch.zeros(1, 32, 32, 60, device="cuda"),
-                             torch.zeros(1, 3, 3, 60, 60, device="cuda", requires_grad=True),
-                             torch.zeros(1, 60, device="cuda"), 0.125)
-    with pytest.raises(NotImplementedError):
-        fi.fused_euler_dense(torch.zeros(1, 1, 1, 100, device="cuda"),
-                             torch.zeros(1, 3, 3, 100, 100, device="cuda"),
-                             torch.zeros(1, 100, device="cuda"), 0.125)
+    # The band B1 takes 32x32x60 and the band B2 does not: the wide B2 does
+    # (it raised before it); 1x1x100 takes the wide B1; C = 129 is past the
+    # JAX gate's reach and raises before any launch.
+    x, kernels, bias, g = case(1, 32, 32, 60, 2, seed=9)  # no |z| within 1e-5 of 0
+    leaves = [t.clone().requires_grad_() for t in (x, kernels, bias)]
+    wide = fi.WIDE_BWD.launches
+    got = torch.autograd.grad((fi.fused_euler_dense(*leaves, 0.125) * g).sum(), leaves)
+    assert fi.WIDE_BWD.launches == wide + 1
+    want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
+    x, kernels, bias, _ = case(1, 1, 1, 100, 2, seed=10)
+    torch.testing.assert_close(fi.fused_euler_dense(x, kernels, bias, 0.125),
+                               fi.reference_euler_dense(x, kernels, bias, 0.125),
+                               rtol=TOL, atol=TOL)
+    launched = fi.fused_euler_dense.launches
+    with pytest.raises(ValueError, match="JAX kernel gate"):
+        fi.fused_euler_dense(torch.zeros(1, 2, 2, 129, device="cuda"),
+                             torch.zeros(1, 3, 3, 129, 129, device="cuda"),
+                             torch.zeros(1, 129, device="cuda"), 0.125)
+    assert fi.fused_euler_dense.launches == launched
 
 
 @pytest.mark.parametrize("shape", [(3, 8, 8, 8, 3), (3, 16, 16, 6, 3)])  # C = 8, C = 6
@@ -208,7 +223,7 @@ def test_graph_replayed_train_step_equals_the_eager_step(card):
     torch.cuda.synchronize()
     counted = (fi.fused_euler_dense.launches - before[0], fi.fused_euler_dense_bwd.launches - before[1])
     assert counted == (WARMUP_CALLS + 3, WARMUP_CALLS + 3)
-    assert [a - b for a, b in zip(fi.captured_launches(), captured_before)] == [1, 1]
+    assert [a - b for a, b in zip(fi.captured_launches(), captured_before)] == [1, 1, 0, 0]
     eager = make_train_step(models[1], optimizers[1])
     for i in range(3):
         m, n = eager(images[i], labels[i], lrs[i])
@@ -296,19 +311,20 @@ def test_regular_train_step_on_the_card_equals_the_cpu(card):
 
 
 def test_a_width_the_kernels_decline_raises_on_the_card(card):
-    """An Euler 3x3 stack within the JAX gate's reach that a kernel declines
-    runs layer by layer on cuDNN, as the JAX package runs it on XLA, and
-    agrees with the CPU: a regular train step at 64 filters (B2 takes C <=
-    56 at 32x32) and a forward at 72 (B1 takes C <= 64), with no launch.
-    Where the JAX package would run Pallas (use_pallas, antisymmetric) the
-    train step at 64 filters raises NotImplementedError naming ROADMAP B6
-    before any launch, and its forward runs on B1 and agrees with the CPU."""
+    """The Euler 3x3 stacks within the JAX gate's reach that the band
+    kernels decline (which raised, or ran layer by layer, before the wide
+    variants) run on the wide variants and agree with the CPU: a regular
+    train step at 64 filters (the band B2 takes C <= 56 at 32x32) on the
+    route `wide_route` names, a forward at 72 (the band B1 takes C <= 64),
+    and, where the JAX package would run Pallas (use_pallas,
+    antisymmetric), a train step at 64 filters on B1 and the wide B2."""
     import dataclasses
 
     from differential_equations_resnet_tpu_torch.models import (
         build_single_block_resnet,
         cifar10_single_block_config,
     )
+    from differential_equations_resnet_tpu_torch.models import single_block_resnet as sbr
     from differential_equations_resnet_tpu_torch.train import make_adam, make_train_step
 
     rng = np.random.default_rng(8)
@@ -316,33 +332,66 @@ def test_a_width_the_kernels_decline_raises_on_the_card(card):
     labels = torch.from_numpy(rng.integers(0, 10, 2))
     config = cifar10_single_block_config(num_layers=2, num_filters=64, kernel_type="regular",
                                          final_time=0.25)
-    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
-    on_card = _card_model(config)
-    on_cpu = build_single_block_resnet(config, params=on_card.params(), device="cpu")
-    steps = [make_train_step(m, make_adam(m.parameters())) for m in (on_card, on_cpu)]
-    (m_card, n_card), (m_cpu, n_cpu) = [s(images.to(d), labels.to(d), 1e-3)
-                                        for s, d in zip(steps, ("cuda", "cpu"))]
-    torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"], rtol=1e-5, atol=0)
-    torch.testing.assert_close(n_card.cpu(), n_cpu, rtol=1e-4, atol=0)
-    for p, q in zip(on_card.parameters(), on_cpu.parameters()):
-        torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=0, atol=1e-5)
+    pallas = dataclasses.replace(config, kernel_type="antisymmetric", use_pallas=True)
+    for cfg, fused in ((config, sbr.wide_route(64) == "fused"), (pallas, True)):
+        before = (fi.fused_euler_dense.launches, fi.WIDE_BWD.launches)
+        on_card = _card_model(cfg)
+        on_cpu = build_single_block_resnet(cfg, params=on_card.params(), device="cpu")
+        steps = [make_train_step(m, make_adam(m.parameters())) for m in (on_card, on_cpu)]
+        (m_card, n_card), (m_cpu, n_cpu) = [s(images.to(d), labels.to(d), 1e-3)
+                                            for s, d in zip(steps, ("cuda", "cpu"))]
+        torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"], rtol=1e-5, atol=0)
+        torch.testing.assert_close(n_card.cpu(), n_cpu, rtol=1e-4, atol=0)
+        for p, q in zip(on_card.parameters(), on_cpu.parameters()):
+            torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=0, atol=1e-5)
+        launched = (fi.fused_euler_dense.launches - before[0], fi.WIDE_BWD.launches - before[1])
+        assert launched == ((1, 1) if fused else (0, 0)), cfg.kernel_type
     wide = dataclasses.replace(config, filters_per_block=(72,))
     wide_card = _card_model(wide)
     wide_cpu = build_single_block_resnet(wide, params=wide_card.params(), device="cpu")
+    before = fi.WIDE_FWD.launches
     with torch.no_grad():
         torch.testing.assert_close(wide_card(images.cuda()).cpu(), wide_cpu(images),
                                    rtol=TOL, atol=TOL)
-    assert (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches) == before
-    pallas = _card_model(dataclasses.replace(config, kernel_type="antisymmetric", use_pallas=True))
-    with pytest.raises(NotImplementedError, match="B2 declines.*ROADMAP B6"):
-        make_train_step(pallas, make_adam(pallas.parameters()))(images.cuda(), labels.cuda(), 1e-3)
-    assert (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches) == before
-    pallas_cpu = build_single_block_resnet(pallas.config, params=pallas.params(), device="cpu")
-    with torch.no_grad():
-        torch.testing.assert_close(pallas(images.cuda()).cpu(), pallas_cpu(images),
-                                   rtol=TOL, atol=TOL)
-    assert (fi.fused_euler_dense.launches - before[0],
-            fi.fused_euler_dense_bwd.launches - before[1]) == (1, 0)
+    assert fi.WIDE_FWD.launches - before == (1 if sbr.wide_route(72) == "fused" else 0)
+
+
+# (batch, H, W, C, L), seed: each seed leaves no |z| within 5e-6 of 0
+# (float64, both modes) in any layer, so no relu-mask element sits where an
+# fp32 recompute could flip it (see test_band_edges_on_cuda).
+WIDE_CASES = {
+    "32x32x72": ((2, 32, 32, 72, 3), 45),
+    "32x32x128": ((2, 32, 32, 128, 2), 37),
+    "8x8x128": ((4, 8, 8, 128, 3), 32),
+    "64x64x48": ((1, 64, 64, 48, 2), 32),
+    "7x9x57": ((3, 7, 9, 57, 3), 31),
+    "1x1x100": ((2, 1, 1, 100, 2), 31),
+}
+
+
+@pytest.mark.parametrize("shape,seed", WIDE_CASES.values(), ids=WIDE_CASES.keys())
+def test_wide_variants_match_plain_versions_on_cuda(card, shape, seed):
+    """The wide B1 and B2 against their plain versions, fp32 and bf16
+    operands: B1 to 1e-4 (1e-2 in bf16, as in test_band_edges_on_cuda), B2
+    judged by a float64 run of the plain version (2x its distance +
+    1e-5); dK and db bit-identical across two calls; the library's shared
+    memory is what `wide_smem_bytes` counts."""
+    x, kernels, bias, g = case(*shape, seed=seed)
+    assert fi.wide_library_smem_bytes(shape[3]) == fi.wide_smem_bytes(shape[3])
+    before = (fi.WIDE_FWD.launches, fi.WIDE_BWD.launches)
+    for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 1e-2)):
+        got = fi._launch_wide(x, kernels, bias, 0.125, dtype)
+        want = fi.reference_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        got = fi._launch_bwd_wide(x, kernels, bias, g, 0.125, dtype)
+        want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
+        judge = fi.reference_euler_dense_bwd(*[t.double() for t in (x, kernels, bias, g)],
+                                             0.125, dtype)
+        for name, a, w, j in zip(("gx", "gk", "gb"), got, want, judge):
+            assert norm_rel(a, j) <= 2 * norm_rel(w, j) + 1e-5, (dtype, name)
+        again = fi._launch_bwd_wide(x, kernels, bias, g, 0.125, dtype)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (fi.WIDE_FWD.launches - before[0], fi.WIDE_BWD.launches - before[1]) == (2, 4)
 
 
 def test_captured_remat_midpoint_step_equals_the_eager_step(card):

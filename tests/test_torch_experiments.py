@@ -14,6 +14,7 @@ from differential_equations_resnet_tpu.utils.serving import _config_to_json
 from differential_equations_resnet_tpu_torch import experiments
 from differential_equations_resnet_tpu_torch.experiments import deep_stability
 from differential_equations_resnet_tpu_torch.utils.serving import config_from_json
+from differential_equations_resnet_tpu_torch.utils.flops import PEAK_FLOPS
 
 from torch_parity import both_packed, euler_case, packed_leaves
 
@@ -120,27 +121,35 @@ def test_tiny_gamma_sweep_on_the_cpu():
 
 
 def test_imagenet32_config():
-    """The JAX package's workload in fp32 (its bf16 default is a TPU
-    choice); bf16 waits for ROADMAP A5."""
-    want = jax_experiments.imagenet32_config(num_layers=8, num_filters=32, compute_dtype=jnp.float32)
+    """The JAX package's workload, in its default bf16 compute (which raised
+    naming ROADMAP A5 before the port computed in bf16), and in fp32 when
+    asked."""
+    want = jax_experiments.imagenet32_config(num_layers=8, num_filters=32)
     got = experiments.imagenet32_config(num_layers=8, num_filters=32)
     assert got == config_from_json(_config_to_json(want))
-    assert got.compute_dtype == torch.float32 and got.num_classes == 1000 and got.h == 1.0
-    with pytest.raises(NotImplementedError, match="A5"):
-        experiments.imagenet32_config(compute_dtype=torch.bfloat16)
+    assert got.compute_dtype == torch.bfloat16 and got.num_classes == 1000 and got.h == 1.0
+    want = jax_experiments.imagenet32_config(num_layers=8, num_filters=32, compute_dtype=jnp.float32)
+    got = experiments.imagenet32_config(num_layers=8, num_filters=32, compute_dtype=torch.float32)
+    assert got == config_from_json(_config_to_json(want))
 
 
 def test_tiny_width_depth_sweep_on_the_cpu():
-    """Every grid point's throughput row, its MFU against the fp32 peak;
-    mesh= waits for ROADMAP A15."""
+    """Every grid point's throughput row, in bf16 by default as the JAX
+    package's sweep, its MFU against the bf16 peak (against the fp32 peak
+    for an fp32 sweep); mesh= waits for ROADMAP A15."""
+    keys = {"steps_per_sec", "images_per_sec", "step_ms", "model_tflops"}
     got = experiments.width_depth_sweep(widths=(4,), depths=(1, 2), batch_size=2, num_classes=10,
                                         steps=2, device="cpu")
     assert list(got) == [(4, 1), (4, 2)]
     for row in got.values():
-        assert set(row) == {"steps_per_sec", "images_per_sec", "step_ms", "model_tflops",
-                            "mfu_vs_fp32_peak"}
+        assert set(row) == keys | {"mfu_vs_bf16_peak"}
         assert all(np.isfinite(v) and v > 0 for v in row.values())
         assert row["images_per_sec"] == pytest.approx(2 * row["steps_per_sec"])
+        assert row["mfu_vs_bf16_peak"] == pytest.approx(
+            row["model_tflops"] * 1e12 / PEAK_FLOPS["h100_sxm_bf16"])
+    fp32 = experiments.width_depth_sweep(widths=(4,), depths=(1,), batch_size=2, num_classes=10,
+                                         steps=2, compute_dtype=torch.float32, device="cpu")
+    assert set(fp32[(4, 1)]) == keys | {"mfu_vs_fp32_peak"}
     with pytest.raises(NotImplementedError, match="A15"):
         experiments.width_depth_sweep(mesh="mesh")
     with pytest.raises(NotImplementedError, match="A15"):

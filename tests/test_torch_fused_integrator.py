@@ -184,8 +184,11 @@ def test_eligibility_gate():
     # 32x32 (in 16 bands); one block per image held C <= 38.
     assert fi.fused_euler_eligible(zeros(32, 32, 32, 16), blocks)
     assert fi.fused_euler_eligible(zeros(1, 32, 32, 38), blocks)
-    assert fi.fused_euler_eligible(zeros(1, 32, 32, 64), blocks)
-    assert not fi.fused_euler_eligible(zeros(1, 32, 32, 65), blocks)
+    assert fi.kernel_variant((1, 32, 32, 64)) == "band"
+    # Past the band's reach the wide variant takes it, as the JAX gate does.
+    assert fi.kernel_variant((1, 32, 32, 65)) == "wide"
+    assert fi.fused_euler_eligible(zeros(1, 32, 32, 65), blocks)
+    assert fi.fused_euler_eligible(zeros(1, 32, 32, 128), blocks)
     # The JAX gate takes 64x64x16: its padded state (279 KB) does not fit one
     # block, but a band of 16 rows does.
     assert fi.state_smem_bytes(64, 64, 16) > fi.SMEM_LIMIT_BYTES
@@ -207,44 +210,62 @@ def test_backward_eligibility_gate():
     assert fi.bwd_smem_bytes(32, 32, 16, 4) == 105_920
     assert fi.bwd_smem_bytes(32, 32, 16) > fi.SMEM_LIMIT_BYTES
     assert fi.fused_euler_bwd_eligible(zeros(32, 32, 32, 16), blocks)
-    # At 32x32 B2 now takes C <= 56 (it took C <= 21), B1 C <= 64.
+    # At 32x32 the band B2 takes C <= 56 (it took C <= 21), B1 C <= 64; the
+    # wide B2 takes the rest of the reach.
     assert fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 21), blocks)
     assert fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 22), blocks)
-    assert fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 56), blocks)
-    assert not fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 57), blocks)
-    assert fi.fused_euler_eligible(zeros(1, 32, 32, 57), blocks)
+    assert fi.kernel_variant((1, 32, 32, 56), backward=True) == "band"
+    assert fi.kernel_variant((1, 32, 32, 57), backward=True) == "wide"
+    assert fi.kernel_variant((1, 32, 32, 57)) == "band"
+    assert fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 57), blocks)
     assert fi.fused_euler_bwd_eligible(zeros(1, 64, 64, 16), blocks)
     assert not fi.fused_euler_bwd_eligible(zeros(1, 2, 2, 129), blocks)
 
 
 def test_declined_shape_raises_before_any_launch():
-    """The CUDA wrappers refuse what a kernel cannot take, with
-    NotImplementedError, before they build or launch anything."""
-    x = torch.zeros(1, 1, 1, 100)  # one layer's kernel alone is 360 KB
-    kernels, biases = torch.zeros(2, 3, 3, 100, 100), torch.zeros(2, 100)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        fi._launch(x, kernels, biases, 0.1, torch.float32)
-    x = torch.zeros(1, 32, 32, 60)
-    kernels, biases = torch.zeros(2, 3, 3, 60, 60), torch.zeros(2, 60)
-    with pytest.raises(NotImplementedError, match="shared memory"):
+    """The CUDA wrappers refuse what the JAX gate refuses, with ValueError,
+    before they build or launch anything (C = 129, H*W = 4160); the shapes
+    the band variant declines (C = 100 at 1x1, C = 60 at 32x32 in the
+    backward) go to the wide variant."""
+    for shape in ((1, 2, 2, 129), (1, 65, 64, 4)):
+        channels = shape[-1]
+        x = torch.zeros(shape)
+        kernels, biases = torch.zeros(2, 3, 3, channels, channels), torch.zeros(2, channels)
+        with pytest.raises(ValueError, match="JAX kernel gate"):
+            fi._launch(x, kernels, biases, 0.1, torch.float32)
+        with pytest.raises(ValueError, match="JAX kernel gate"):
+            fi._launch_bwd(x, kernels, biases, x, 0.1, torch.float32)
+    launched = []
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(fi, "_launch_wide", lambda *args: launched.append("fwd") or args[0])
+        patch.setattr(fi, "_launch_bwd_wide", lambda *args: launched.append("bwd") or args[:3])
+        x = torch.zeros(1, 1, 1, 100)  # one layer's kernel alone is 360 KB
+        fi._launch(x, torch.zeros(2, 3, 3, 100, 100), torch.zeros(2, 100), 0.1, torch.float32)
+        x = torch.zeros(1, 32, 32, 60)
+        kernels, biases = torch.zeros(2, 3, 3, 60, 60), torch.zeros(2, 60)
         fi._launch_bwd(x, kernels, biases, x, 0.1, torch.float32)
+    assert launched == ["fwd", "bwd"]
 
 
 def test_function_declines_before_the_forward_launch(monkeypatch):
-    """A CUDA input that B1 takes and B2 declines raises in the Function's
-    forward when a gradient will be needed, before B1 is launched; under
-    no_grad the forward alone runs."""
+    """A CUDA input that the band B1 takes and the band B2 declines (C = 60
+    at 32x32) trains: the forward launches the band B1 and the backward the
+    wide B2, with no raise; under no_grad the forward alone runs.  A shape
+    past the JAX reach raises before any launch."""
     launched = []
-    monkeypatch.setattr(fi, "_launch", lambda *args: launched.append(args) or args[0])
+    monkeypatch.setattr(fi, "_launch", lambda *args: launched.append("fwd") or args[0])
+    monkeypatch.setattr(fi, "_launch_bwd", lambda x, k, b, g, *rest: launched.append("bwd") or (
+        g, torch.zeros_like(k), torch.zeros_like(b)))
     x = torch.zeros(1, 32, 32, 60)
     monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda", 0)))
     kernels = torch.zeros(1, 3, 3, 60, 60, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="B2 declines"):
-        fi.FusedEulerDense.apply(x, kernels, torch.zeros(1, 60), 0.1, torch.float32)
-    assert not launched
+    y = fi.FusedEulerDense.apply(x, kernels, torch.zeros(1, 60), 0.1, torch.float32)
+    y.sum().backward()
+    assert launched == ["fwd", "bwd"] and kernels.grad is not None
+    assert fi.kernel_variant(x.shape) == "band" and fi.kernel_variant(x.shape, True) == "wide"
     with torch.no_grad():
         fi.fused_euler_dense(x, kernels, torch.zeros(1, 60), 0.1)
-    assert len(launched) == 1
+    assert launched == ["fwd", "bwd", "fwd"]
 
 
 def test_other_devices_are_refused():

@@ -161,15 +161,18 @@ def _route(kernel_type, k=3, integrator="euler", channels=8, grad=True, **fields
 def test_routes():
     """The route is decided from the dense stack's shapes and the config,
     with or without a gradient: fused for every kernel type's 3x3 Euler
-    stack that B1 takes and, where a gradient is needed, B2 too; the
-    per-layer route for k = 5, midpoint, RK4, a width the kernels decline
-    (C = 60 at 32x32 with a gradient, 72 without) and C > 128, as the JAX
-    package runs all of them on XLA's convolutions."""
+    stack that the band B1 takes and, where a gradient is needed, the band
+    B2 too; `wide_route` where a wide variant is needed (C = 60 at 32x32
+    with a gradient, 72 and 128 without); the per-layer route for k = 5, midpoint,
+    RK4 and C > 128, as the JAX package runs all of them on XLA's
+    convolutions."""
     for kernel_type in ("antisymmetric", "regular", "centrosymmetric"):
         for grad in (True, False):
             assert _route(kernel_type, grad=grad) == "fused"
-            assert _route(kernel_type, channels=60, grad=grad) == ("per_layer" if grad else "fused")
-            assert _route(kernel_type, channels=72, grad=grad) == "per_layer"
+            assert _route(kernel_type, channels=60, grad=grad) == (
+                sbr.wide_route(60) if grad else "fused")
+            assert _route(kernel_type, channels=72, grad=grad) == sbr.wide_route(72)
+            assert _route(kernel_type, channels=128, grad=grad) == sbr.wide_route(128)
         for integrator in ("midpoint", "rk4"):
             assert _route(kernel_type, integrator=integrator) == "per_layer"
     assert _route("regular", channels=136) == "per_layer"
@@ -179,9 +182,9 @@ def test_routes():
 
 def test_declined_stacks_follow_the_jax_decision():
     """Batch norm always takes the per-layer route (JAX skips Pallas with
-    it); a stack the kernels decline keeps the fused route, whose wrapper
-    raises on the card, only where the JAX package would run Pallas:
-    use_pallas, antisymmetric, within its gate's reach (C <= 128)."""
+    it); a stack that needs a wide kernel variant takes the fused route
+    where the JAX package would run Pallas (use_pallas, antisymmetric,
+    within its gate's reach: C <= 128), else `wide_route`."""
     for kernel_type in ("antisymmetric", "regular"):
         for grad in (True, False):
             assert _route(kernel_type, grad=grad, use_batch_norm=True) == "per_layer"
@@ -189,26 +192,31 @@ def test_declined_stacks_follow_the_jax_decision():
                           use_pallas=True) == "per_layer"
     for grad in (True, False):
         assert _route("antisymmetric", channels=72, grad=grad, use_pallas=True) == "fused"
-        assert _route("regular", channels=72, grad=grad, use_pallas=True) == "per_layer"
-        assert _route("centrosymmetric", channels=72, grad=grad, use_pallas=True) == "per_layer"
+        assert _route("antisymmetric", channels=128, grad=grad, use_pallas=True) == "fused"
+        assert _route("regular", channels=72, grad=grad, use_pallas=True) == sbr.wide_route(72)
+        assert _route("regular", channels=128, grad=grad,
+                      use_pallas=True) == sbr.wide_route(128)
+        assert _route("centrosymmetric", channels=72, grad=grad,
+                      use_pallas=True) == sbr.wide_route(72)
     assert _route("antisymmetric", channels=60, use_pallas=True) == "fused"
-    assert _route("antisymmetric", channels=60, use_pallas=False) == "per_layer"
+    assert _route("antisymmetric", channels=60, use_pallas=False) == sbr.wide_route(60)
     assert _route("antisymmetric", channels=136, use_pallas=True) == "per_layer"
     assert _route("antisymmetric", integrator="rk4", use_pallas=True) == "per_layer"
 
 
 def test_a_width_b2_declines_raises_on_the_card(monkeypatch):
-    """On the card an Euler 3x3 stack at a width B2 declines (C = 60 at
-    32x32) where a gradient is needed runs layer by layer when it is
-    regular, as the JAX package runs it on XLA; with use_pallas and
-    antisymmetric kernels, where the JAX package runs Pallas, it raises
-    `NotImplementedError` naming ROADMAP B6 before B1 launches, and under
-    no_grad B1 takes it.  CUDA-looking CPU tensors stand in for the card,
-    with B1's launch recorded instead of made."""
+    """On the card an Euler 3x3 stack at a width the band B2 declines (C =
+    60 at 32x32), where a gradient is needed, no longer raises: with
+    use_pallas and antisymmetric kernels, where the JAX package runs Pallas,
+    it trains on B1 (band) and B2 (wide); a regular one takes `wide_route`;
+    under no_grad B1 alone runs.  CUDA-looking CPU tensors stand in for the
+    card, with the kernels' launches recorded instead of made."""
     from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
 
     launched = []
-    monkeypatch.setattr(fi, "_launch", lambda *args: launched.append(args) or args[0])
+    monkeypatch.setattr(fi, "_launch", lambda *args: launched.append("B1") or args[0])
+    monkeypatch.setattr(fi, "_launch_bwd", lambda x, k, b, g, *rest: launched.append("B2") or (
+        g, torch.zeros_like(k), torch.zeros_like(b)))
 
     def stage(kernel_type, **fields):
         config = config_from_json(_config_to_json(
@@ -221,18 +229,23 @@ def test_a_width_b2_declines_raises_on_the_card(monkeypatch):
     regular, regular_stage = stage("regular")
     pallas, pallas_stage = stage("antisymmetric", use_pallas=True)
     x = torch.zeros(2, 32, 32, 60)
+    assert fi.kernel_variant(x.shape) == "band" and fi.kernel_variant(x.shape, True) == "wide"
     sbr.route_counts.update(fused=0, per_layer=0)
     with monkeypatch.context() as card:
         card.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda", 0)))
         y, _ = sbr._apply_identity_blocks(x, regular_stage, {}, regular, True)
-        assert y.requires_grad and not launched
-        with pytest.raises(NotImplementedError, match="B2 declines.*ROADMAP B6"):
-            sbr._apply_identity_blocks(x, pallas_stage, {}, pallas, True)
-        assert not launched
+        y.sum().backward()
+        assert launched == (["B1", "B2"] if sbr.wide_route(60) == "fused" else [])
+        launched.clear()
+        y, _ = sbr._apply_identity_blocks(x, pallas_stage, {}, pallas, True)
+        y.sum().backward()
+        assert launched == ["B1", "B2"]
+        assert pallas_stage["blocks"].kernel.grad is not None
         with torch.no_grad():
             sbr._apply_identity_blocks(x, pallas_stage, {}, pallas, False)
-    assert len(launched) == 1
-    assert sbr.route_counts == {"fused": 1, "per_layer": 1}
+    assert launched == ["B1", "B2", "B1"]
+    fused = 3 if sbr.wide_route(60) == "fused" else 2
+    assert sbr.route_counts == {"fused": fused, "per_layer": 3 - fused}
 
 
 @pytest.mark.parametrize("kernel_type,k,integrator,route", [

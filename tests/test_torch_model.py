@@ -129,27 +129,50 @@ def test_port_config_matches_the_jax_keyword_surface():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(use_batch_norm=True, compute_dtype="bfloat16"), "A5"),
     (dict(use_batch_norm=True, kernel_type="regular", int8_forward=True), "A13"),
     (dict(int8_forward=True, integrator="rk4"), "A13"),
-    (dict(compute_dtype=torch.float16), "A5"),
-    (dict(compute_dtype="bfloat16", kernel_type="centrosymmetric"), "A5"),
     (dict(int8_forward=True), "A13"),
-    (dict(compute_dtype=torch.bfloat16), "A5"),
     (dict(pp_mesh="mesh"), "A15"),
     (dict(tp_mesh="mesh"), "A15"),
 ])
 def test_features_outside_the_slice_raise(overrides, item):
-    """What the port does not run yet (reduced precision, int8, the meshes)
-    raises naming its ROADMAP item, whatever the kernel type, integrator or
-    batch norm; every kernel type and integrator runs otherwise
-    (tests/test_torch_kernel_types.py), batch norm too
-    (tests/test_torch_batch_norm.py)."""
+    """What the port does not run yet (int8, the meshes) raises naming its
+    ROADMAP item, whatever the kernel type, integrator or batch norm; every
+    kernel type and integrator runs otherwise
+    (tests/test_torch_kernel_types.py), batch norm (tests/test_torch_batch_norm.py)
+    and reduced-precision compute too (below, and tests/test_torch_bf16.py)."""
     config = dataclasses.replace(
         cifar10_single_block_config(num_layers=2, num_filters=4), **overrides
     )
     with pytest.raises(NotImplementedError, match=item):
         build_single_block_resnet(config, generator=torch.Generator(), device="cpu")
+
+
+@pytest.mark.parametrize("fields", [
+    dict(use_batch_norm=True, compute_dtype=jnp.bfloat16),
+    dict(compute_dtype=jnp.float16),
+    dict(compute_dtype=jnp.bfloat16, kernel_type="centrosymmetric"),
+    dict(compute_dtype=jnp.bfloat16),
+], ids=["bf16-bn", "fp16", "bf16-centrosymmetric", "bf16"])
+def test_reduced_precision_matches_jax_apply(fields):
+    """bf16 and fp16 compute (which raised naming ROADMAP A5 before the port
+    had them) build and run as the JAX package's: eval-mode logits at 2L x
+    4F, batch 2, against JAX apply in the same dtype, to 2e-2 norm-relative
+    (both round to the compute dtype after every layer, but sum in fp32 in
+    other orders: tests/test_torch_bf16.py)."""
+    config = dataclasses.replace(
+        jax_cifar10_config(num_layers=2, final_time=0.25, num_filters=4, s2d_block=0), **fields)
+    jax_model = jax_build(config)
+    params, state = jax_params_with_biases(jax_model, 4)
+    model = port_model(config, params)
+    assert model.config.compute_dtype == {"bfloat16": torch.bfloat16,
+                                          "float16": torch.float16}[jnp.dtype(fields["compute_dtype"]).name]
+    x = np.random.default_rng(4).uniform(0, 255, (2, 32, 32, 3)).astype(np.float32)
+    want, _ = jax_model.apply(params, state, jnp.asarray(x), return_logits=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), return_logits=True)
+    assert got.dtype == torch.float32
+    assert np.linalg.norm(got.numpy() - np.asarray(want)) <= 2e-2 * np.linalg.norm(want)
 
 
 def test_build_needs_params_or_generator():

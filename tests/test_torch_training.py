@@ -508,7 +508,7 @@ def test_capture_safe_constants_are_bit_identical(monkeypatch):
     for previous in (False, True):
         if previous:
             monkeypatch.setattr(single_block_resnet, "_input_constant",
-                                lambda v, d: torch.as_tensor(v, dtype=torch.float32, device=d))
+                                lambda v, d, dtype: torch.as_tensor(v, dtype=dtype, device=d))
             monkeypatch.setattr(antisymmetric, "_cross_index_tensors", lambda c, d: tuple(
                 torch.as_tensor(a, dtype=torch.long, device=d)
                 for a in antisymmetric.cross_pair_indices(c)))

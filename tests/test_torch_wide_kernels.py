@@ -1,0 +1,182 @@
+"""B1 and B2 over the JAX kernel gate's whole reach (C <= 128, H*W <= 4096):
+every shape of the reach gets a kernel variant and a launch plan that fits
+the card; the plain versions, which the wide variants are held against on
+the card, agree with the JAX package's Pallas kernels (interpret mode on
+the CPU, as tests/test_pallas.py runs them) at the widths the band variant
+declines; and the model routes the ``use_pallas`` stacks at those widths to
+the kernels.  The wide variants themselves run on the card
+(tests/test_torch_cuda_kernels.py and chip_smoke.py)."""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from differential_equations_resnet_tpu.ops.antisymmetric import materialize_3x3
+from differential_equations_resnet_tpu.ops.pallas import fused_integrator as jax_fi
+from differential_equations_resnet_tpu_torch.models import cifar10_single_block_config
+from differential_equations_resnet_tpu_torch.models import single_block_resnet as sbr
+from differential_equations_resnet_tpu_torch.models.blocks import ConvParams
+from differential_equations_resnet_tpu_torch.ops.antisymmetric import materialize_3x3_stacked
+from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
+
+from torch_parity import assert_close, euler_case
+
+CHANNELS = [1, 17, 33, 56, 57, 64, 65, 72, 96, 127, 128]
+IMAGES = [(1, 1), (7, 9), (8, 8), (16, 16), (28, 28), (32, 32), (48, 48), (64, 64)]
+
+
+@pytest.mark.parametrize("image", IMAGES, ids=[f"{h}x{w}" for h, w in IMAGES])
+@pytest.mark.parametrize("channels", CHANNELS)
+def test_every_shape_of_the_reach_has_a_plan_that_fits(channels, image):
+    """Both kernels take every (H, W, C) of the reach at batch 1, 32 and 256:
+    a variant, and a launch plan whose block fits one block's 232,448 bytes
+    of shared memory and 512 threads; the band variant where its band fits,
+    the wide one elsewhere, and both where the JAX gate says so."""
+    height, width = image
+    for batch in (1, 32, 256):
+        shape = (batch, height, width, channels)
+        x = torch.zeros(shape)
+        assert fi.in_reference_reach(shape) and fi._declined(x) == ""
+        for backward, smem in ((False, fi.state_smem_bytes), (True, fi.bwd_smem_bytes)):
+            plan = fi.launch_plan(shape, backward)
+            assert plan["variant"] == fi.kernel_variant(shape, backward)
+            assert (plan["variant"] == "band") == (
+                fi.min_bands(height, width, channels, smem) is not None)
+            assert 0 < plan["smem_bytes"] <= fi.SMEM_LIMIT_BYTES
+            assert 32 <= plan["threads"] <= 512 and plan["threads"] % 32 == 0
+            if plan["variant"] == "band":
+                assert plan["blocks"] == batch * plan["bands"]
+                assert plan["smem_bytes"] == smem(height, width, channels, plan["bands"])
+            else:
+                rows, cols = plan["conv_grid"]
+                assert rows * fi.WIDE_TILE_ROWS >= batch * height * width > (
+                    rows - 1) * fi.WIDE_TILE_ROWS
+                assert cols == 1  # one tile holds every output channel
+                if backward:
+                    splits, chunk = plan["splits"], plan["chunk"]
+                    assert splits * chunk >= batch * height * width > (splits - 1) * chunk
+                    assert chunk % fi.WIDE_STAGE == 0
+                    assert plan["dk_grid"][2] == splits
+                    assert np.prod(plan["dk_grid"]) <= 2 * fi.SM_COUNT or splits == 1
+
+
+def test_the_wide_variant_takes_what_the_band_variant_declined():
+    """The widths the band kernels declined (at 32x32 the band B1 took
+    C <= 64 and B2 C <= 56) now take the wide variant, and the gates are the
+    JAX gate's: C = 129 and H*W = 4160 are still declined."""
+    for shape, fwd, bwd in (((32, 32, 32, 64), "band", "wide"), ((32, 32, 32, 65), "wide", "wide"),
+                            ((32, 32, 32, 56), "band", "band"), ((1, 64, 64, 44), "band", "wide"),
+                            ((1, 64, 64, 32), "band", "band"),
+                            ((1, 64, 64, 48), "wide", "wide"), ((2, 8, 8, 76), "band", "wide"),
+                            ((2, 8, 8, 128), "wide", "wide")):
+        assert (fi.kernel_variant(shape), fi.kernel_variant(shape, True)) == (fwd, bwd), shape
+    blocks = ConvParams(torch.zeros(1, 3, 3, 4, 4), torch.zeros(1, 4))
+    for shape in ((1, 32, 32, 128), (1, 64, 64, 128), (3, 1, 4096, 96)):
+        assert fi.fused_euler_eligible(torch.zeros(shape), blocks)
+        assert fi.fused_euler_bwd_eligible(torch.zeros(shape), blocks)
+    for shape in ((1, 2, 2, 129), (1, 65, 64, 4), (1, 1, 4160, 8)):
+        assert not fi.fused_euler_eligible(torch.zeros(shape), blocks)
+        assert not fi.fused_euler_bwd_eligible(torch.zeros(shape), blocks)
+        assert not fi.in_reference_reach(shape)
+
+
+def test_the_dk_split_is_fixed_by_the_shape():
+    """The wide B2 sums dK over the same pixel chunks whatever the call (so
+    two calls are bit-identical on the card), at most one wave of blocks."""
+    for shape in ((32, 32, 32, 64), (32, 32, 32, 128), (8, 64, 64, 128), (2, 8, 8, 72)):
+        assert fi.wide_splits(shape) == fi.wide_splits(shape)
+        assert fi.wide_plan(shape, backward=True)["splits"] == fi.wide_splits(shape)[0]
+    assert fi.wide_splits((32, 32, 32, 128)) == (29, 1136)
+    assert fi.wide_smem_bytes(64) == 4 * 2 * 16 * (132 + 64)
+    assert fi.wide_smem_bytes(128) == 4 * 2 * 16 * (132 + 128)
+
+
+def jax_grads(case, h, w, matmul_dtype):
+    """jax.grad of <y_L, w> through the Pallas custom VJP (interpret mode)."""
+    (x_j, blocks_j), _ = case
+    kernels_j = jax.vmap(lambda p: materialize_3x3(p, gamma=0.0))(blocks_j)
+    loss = lambda x, k, b: jnp.vdot(jax_fi.fused_euler_dense(x, k, b, 0.125, matmul_dtype),
+                                    jnp.asarray(w))
+    with pltpu.force_tpu_interpret_mode():
+        y = jax_fi.fused_euler_dense(x_j, kernels_j, blocks_j.bias, 0.125, matmul_dtype)
+        grads = jax.grad(loss, argnums=(0, 1, 2))(x_j, kernels_j, blocks_j.bias)
+    return y, grads
+
+
+@pytest.mark.parametrize("matmul_dtype", [jnp.float32, jnp.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("size", [4, 8])
+@pytest.mark.parametrize("channels", [72, 128])
+def test_plain_versions_match_pallas_at_the_wide_widths(channels, size, matmul_dtype):
+    """The plain forward and backward (the wide variants' yardstick on the
+    card) against the JAX Pallas kernels in interpret mode at C = 72 and
+    128, 4x4 and 8x8, L = 2, in fp32 and bf16-operand mode: y, gx, gK and
+    gb to 1e-5 (fp32 sums in another order; both round the same operands
+    in bf16 mode)."""
+    case = euler_case(batch=2, height=size, width=size, channels=channels, layers=2,
+                      seed=channels + size)
+    _, (x_t, blocks_t) = case
+    w = np.random.default_rng(size).standard_normal(x_t.shape).astype(np.float32)
+    want_y, want = jax_grads(case, 0.125, w, matmul_dtype)
+    torch_dtype = torch.bfloat16 if matmul_dtype == jnp.bfloat16 else torch.float32
+    leaves = [x_t.clone().requires_grad_(),
+              materialize_3x3_stacked(blocks_t).detach().requires_grad_(),
+              blocks_t.bias.clone().requires_grad_()]
+    y = fi.fused_euler_dense(*leaves, 0.125, matmul_dtype=torch_dtype)
+    assert_close(y, want_y, atol=1e-5, rtol=1e-5)
+    got = torch.autograd.grad((y * torch.from_numpy(w)).sum(), leaves)
+    for g, p in zip(got, want):
+        assert_close(g, p, atol=1e-5, rtol=1e-5)
+
+
+def stage_of(kernel_type, filters, **fields):
+    """A 2-layer stage's config and dense stack, its leaves requiring
+    gradients."""
+    config = dataclasses.replace(
+        cifar10_single_block_config(num_layers=2, num_filters=filters, kernel_type=kernel_type),
+        **fields)
+    blocks = sbr.init_single_block_resnet(config, torch.Generator().manual_seed(0))
+    dense = sbr._dense_blocks(blocks["stages"][0]["blocks"], config)
+    return config, ConvParams(*[t.detach().requires_grad_() for t in dense])
+
+
+@pytest.mark.parametrize("filters", [64, 72, 128])
+def test_use_pallas_stacks_at_the_wide_widths_are_routed_to_the_kernels(filters):
+    """With use_pallas, the antisymmetric Euler stacks at 64, 72 and 128
+    filters (which the band kernels declined in training) take the fused
+    route, in training and in a forward, as the JAX package runs them on
+    Pallas; bf16 compute, batch norm and C past the reach take the
+    per-layer route."""
+    config, dense = stage_of("antisymmetric", filters, use_pallas=True)
+    x = torch.zeros(8, 32, 32, filters)
+    assert sbr.jax_runs_pallas(config, x)
+    assert sbr.identity_route(config, x, dense) == "fused"
+    with torch.no_grad():
+        assert sbr.identity_route(config, x, dense) == "fused"
+    assert sbr.identity_route(config, x.to(torch.bfloat16), dense) == "per_layer"
+    bn, bn_dense = stage_of("antisymmetric", filters, use_pallas=True, use_batch_norm=True)
+    assert sbr.identity_route(bn, x, bn_dense) == "per_layer"
+    past, past_dense = stage_of("antisymmetric", 132, use_pallas=True)
+    assert sbr.identity_route(past, torch.zeros(8, 32, 32, 132), past_dense) == "per_layer"
+
+
+@pytest.mark.parametrize("filters", [64, 72, 128])
+def test_other_stacks_at_the_wide_widths_follow_the_wide_route(filters):
+    """Without use_pallas (or with regular kernels) a stack whose shape needs
+    a wide variant takes `wide_route`: the fused route up to the widest C
+    measured faster there, the per-layer one past it; one the band variant
+    runs takes the fused route."""
+    config, dense = stage_of("regular", filters)
+    x = torch.zeros(8, 32, 32, filters)
+    assert not sbr.jax_runs_pallas(config, x)
+    assert sbr.identity_route(config, x, dense) == sbr.wide_route(filters)
+    assert sbr.wide_route(filters) == ("fused" if filters <= sbr.WIDE_FUSED_MAX_CHANNELS
+                                       else "per_layer")
+    narrow = torch.zeros(8, 32, 32, filters)
+    with torch.no_grad():
+        want = "fused" if fi.kernel_variant(narrow.shape) == "band" else sbr.wide_route(filters)
+        assert sbr.identity_route(config, narrow, dense) == want
