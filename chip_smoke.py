@@ -78,7 +78,22 @@ Phases, each of which raises on failure (exit code != 0):
    (export, load, latency at batch 1 and 32), ResNet-50 v1.5, ResNet-101
    and ResNet-152 forwards against the CPU, the single-block model with
    batch norm against the CPU, and ``train --model resnet50`` then
-   ``export --checkpoint`` in subprocesses; none launches a kernel.
+   ``export --checkpoint`` in subprocesses; none launches a kernel;
+15. int8 ops (`phase_int8_ops`): the dynamic-w8a8 conv at the trunk's
+   32x32x128 (batch 32) and ResNet-50 stage 3's strided 3x3 and 1x1 convs,
+   then the int8 dgrad and wgrad at the trunk shape: int8 operands and
+   int32 accumulators equal to the CPU's, outputs within 1e-6, each timed
+   beside the fp32 and bf16 cuDNN call;
+16. int8 serving (`phase_int8_serve`): the 64L x 128F model and ResNet-50
+   at 224x224 x 257 classes exported with ``quantize="int8"``, loaded and
+   asked for a batch of 256, held against the CPU's quantized forward, and
+   timed beside the fp32 and bf16 forwards (images/s, the int8 GEMMs'
+   TOPS against the int8 peak);
+17. int8 training (`phase_int8_train`): 64L x 128F in 'ste' and 'wgrad'
+   and ResNet-50 at 32x32 in 'wgrad', the first step against the CPU, then
+   replayed steps at batch 32 (a CUDA graph) whose loss must fall, timed;
+18. s2d (`phase_s2d`): midpoint and RK4 64L x 16F packed against direct,
+   logits within 1e-5, forwards and replayed train steps timed.
 
 A kernel's launches are those on the card: its wrapper counts each launch
 outside a CUDA-graph capture, and each replay of a graph counts the
@@ -114,6 +129,9 @@ from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     init_antisym_3x3,
     materialize_3x3_stacked,
 )
+from differential_equations_resnet_tpu_torch.models.quantized import make_quantized_forward
+from differential_equations_resnet_tpu_torch.ops import quantize as q
+from differential_equations_resnet_tpu_torch.ops.conv import conv2d_same, conv2d_same_vjp
 from differential_equations_resnet_tpu_torch.ops.kernels import _build
 from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
 from differential_equations_resnet_tpu_torch.data import synthetic_cifar10
@@ -126,6 +144,7 @@ from differential_equations_resnet_tpu_torch.train import (
     gradient_metric_names,
     make_adam,
     make_multi_step,
+    make_predict_step,
     make_train_step,
 )
 from differential_equations_resnet_tpu_torch.train.train_step import TrainState, WARMUP_CALLS, pack_row
@@ -1067,6 +1086,7 @@ def reset_counts():
     """Every kernel's launch count and every route's count set to 0."""
     fi.reset_launch_counts()
     sbr.route_counts.update(fused=0, per_layer=0)
+    sbr.per_layer_counts.update(int8=0, s2d=0, direct=0)
 
 
 def image_batch(rng, n, size=32, classes=10):
@@ -1955,6 +1975,382 @@ def phase_bf16(smi):
     log(f"[bf16] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
 
 
+# --- int8 (ROADMAP A13) and space-to-depth (A10) ----------------------------
+#
+# No hand-written kernel runs here: the JAX package runs int8 and s2d on
+# XLA's ops, and the port on torch._int_mm (cuBLASLt's int8 GEMM) and cuDNN.
+
+INT8_OUT_TOL = 1e-6     # a rescaled int8 conv output, card against CPU, norm-relative
+# Quantized logits, card against CPU, norm-relative: the fp32 stem (and
+# batch norm) differ in the last bit between cuDNN and the CPU, which can
+# move an activation across a rounding boundary, one int8 step.
+INT8_SERVE_TOL = 1e-2
+INT8_LOSS_TOL = 1e-3    # the first int8 train step, card against CPU, relative
+INT8_GRAD_TOL = 1e-2    # its grad-norm row, relative
+S2D_TOL = 1e-5          # s2d logits against the direct stack's, norm-relative
+INT8_BATCH = 256        # the serving batch of the JAX package's int8 measurements
+INT8_OP_SHAPES = (  # (label, batch, H, W, C_in, C_out, k, stride)
+    ("64L x 128F trunk 3x3", 32, 32, 32, 128, 128, 3, 1),
+    ("ResNet-50 stage 3 3x3 stride 2 (v1.5)", 32, 28, 28, 256, 256, 3, 2),
+    ("ResNet-50 stage 3 1x1 (identity conv1)", 32, 14, 14, 1024, 256, 1, 1),
+    ("ResNet-50 stage 3 1x1 stride 2 (v1 conv1)", 32, 28, 28, 512, 256, 1, 2),
+)
+
+
+def per_layer_counts():
+    return dict(sbr.per_layer_counts)
+
+
+def int8_rate(ops, ms):
+    """'x TOPS, y% of the int8 peak' for ``ops`` integer operations in
+    ``ms``."""
+    peak = PEAK_FLOPS["h100_sxm_int8"]
+    return f"{ops / ms / 1e9:.2f} TOPS, {ops / ms * 1e3 / peak:.2%} of the {peak / 1e12:g} TOPS int8 peak"
+
+
+def card_equals_cpu(pairs):
+    """Whether every (card tensor, CPU tensor) pair is equal bit for bit."""
+    return all(torch.equal(a.cpu(), b) for a, b in pairs)
+
+
+def phase_int8_ops(smi):
+    """The dynamic-w8a8 conv (`ops.quantize`) at the trunk's 32x32x128
+    shape at batch 32 and at ResNet-50 stage 3's strided 3x3 and 1x1 convs
+    (224x224 input): the int8 operands (weights per c_out, activations per
+    tensor) and the int32 accumulator equal to the CPU's, the rescaled
+    output within INT8_OUT_TOL; then the int8 data-gradient conv and the
+    weight-gradient correlation at the trunk shape (per-tensor weights), the
+    same way.  Each is timed (CUDA events) beside the fp32 (TF32 off) and
+    bf16 cuDNN call of the same shape."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(40)
+    with torch.no_grad():
+        for label, b, hh, ww, cin, cout, k, s in INT8_OP_SHAPES:
+            strides = (s, s)
+            x = torch.randn(b, hh, ww, cin, generator=gen)
+            kern = torch.randn(k, k, cin, cout, generator=gen) * (2.0 / (k * k * cin)) ** 0.5
+            bias = 0.05 * torch.randn(cout, generator=gen)
+            xc, kc, bc = x.cuda(), kern.cuda(), bias.cuda()
+            qp, qp_card = q.quantize_kernel_per_cout(kern, bias), q.quantize_kernel_per_cout(kc, bc)
+            z, yq, s_y = q._dynamic_int8_conv_parts(x, qp, strides)
+            z_card, yq_card, s_card = q._dynamic_int8_conv_parts(xc, qp_card, strides)
+            acc_card = q.int8_conv_same(yq_card, qp_card.kernel_q, strides)
+            operands = card_equals_cpu(((qp_card.kernel_q, qp.kernel_q), (qp_card.scale, qp.scale),
+                                        (yq_card, yq), (s_card, s_y)))
+            accumulators = card_equals_cpu(((acc_card, q.int8_conv_same(yq, qp.kernel_q, strides)),))
+            err = norm_rel(z_card.cpu(), z)
+            ok = operands and accumulators and err <= INT8_OUT_TOL
+            rows = acc_card.shape[0] * acc_card.shape[1] * acc_card.shape[2]
+            ops = 2 * rows * k * k * cin * cout
+            xbf, kbf, bbf = xc.bfloat16(), kc.bfloat16(), bc.bfloat16()
+            patches = q._patches(yq_card, k, k, strides)
+            b_t = qp_card.kernel_q.reshape(k * k * cin, cout).t().contiguous()
+            # The GEMM's least time: each operand read once and the int32
+            # result written once over HBM, or its operations at the int8 peak.
+            gemm_bound = max((patches.numel() + b_t.numel() + 4 * rows * cout) / HBM_BYTES_PER_S,
+                             ops / PEAK_FLOPS["h100_sxm_int8"]) * 1e3
+            times = {
+                "int8 (quantize, im2col, GEMM, rescale)":
+                    cuda_time_ms(lambda: q.dynamic_int8_conv_same(xc, qp_card, strides)),
+                "int8 GEMM part (im2col + torch._int_mm)":
+                    cuda_time_ms(lambda: q.int8_conv_same(yq_card, qp_card.kernel_q, strides)),
+                "torch._int_mm alone": cuda_time_ms(lambda: q.int8_matmul(patches, b_t)),
+                "fp32 cuDNN": cuda_time_ms(lambda: conv2d_same(xc, kc, strides, bc)),
+                "bf16 cuDNN": cuda_time_ms(lambda: conv2d_same(xbf, kbf, strides, bbf)),
+            }
+            log(f"[int8_ops] {label}, x {b}x{hh}x{ww}x{cin}, kernel {k}x{k}x{cin}x{cout}, stride "
+                f"{s}: card vs cpu int8 operands equal {operands}, int32 accumulators equal "
+                f"{accumulators}, output norm-rel {err:.2e} (tol {INT8_OUT_TOL:g}): "
+                f"{'ok' if ok else 'FAIL'}; times "
+                + ", ".join(f"{name} {ms:.4f} ms" for name, ms in times.items())
+                + f"; the whole int8 conv {int8_rate(ops, times[next(iter(times))])} "
+                f"({ops / 1e9:.3f} GOP); torch._int_mm alone against its bound "
+                f"{gemm_bound:.4f} ms ({smi})")
+            if not ok:
+                raise AssertionError(f"int8 conv {label}: the card disagrees with the CPU")
+        # The backward's int8 convs at the trunk shape, per-tensor weights.
+        label, b, hh, ww, cin, cout, k, _ = INT8_OP_SHAPES[0]
+        y = torch.randn(b, hh, ww, cin, generator=gen)
+        g = torch.randn(b, hh, ww, cout, generator=gen)
+        kern = torch.randn(k, k, cin, cout, generator=gen) * (2.0 / (k * k * cin)) ** 0.5
+        yc, gc, kc = y.cuda(), g.cuda(), kern.cuda()
+        qt, qt_card = q.quantize_kernel_per_tensor(kern), q.quantize_kernel_per_tensor(kc)
+        yq, s_y = q.quantize_activations_per_tensor(y)
+        yq_card, _ = q.quantize_activations_per_tensor(yc)
+        dy, g_q, s_g = q._int8_dgrad(g, qt.kernel_q, qt.scale[..., 0], torch.float32)
+        dy_card, g_q_card, s_g_card = q._int8_dgrad(gc, qt_card.kernel_q, qt_card.scale[..., 0],
+                                                     torch.float32)
+        k_t, k_t_card = q.transpose_int8_kernel(qt.kernel_q), q.transpose_int8_kernel(qt_card.kernel_q)
+        dgrad_equal = card_equals_cpu(((g_q_card, g_q), (s_g_card, s_g), (
+            q.int8_conv_same(g_q_card, k_t_card), q.int8_conv_same(g_q, k_t))))
+        dgrad_err = norm_rel(dy_card.cpu(), dy)
+        wgrad_card = q._int8_wgrad(yq_card, g_q_card, (k, k))
+        wgrad_equal = card_equals_cpu(((yq_card, yq), (wgrad_card, q._int8_wgrad(yq, g_q, (k, k)))))
+        ok = dgrad_equal and wgrad_equal and dgrad_err <= INT8_OUT_TOL
+        ops = 2 * b * hh * ww * k * k * cin * cout
+        ybf, gbf, kbf = yc.bfloat16(), gc.bfloat16(), kc.bfloat16()
+        times = {
+            "int8 dgrad": cuda_time_ms(lambda: q._int8_dgrad(gc, qt_card.kernel_q,
+                                                             qt_card.scale[..., 0], torch.float32)),
+            "fp32 cuDNN dgrad": cuda_time_ms(lambda: conv2d_same_vjp(yc, kc, gc, need=(True, False))),
+            "bf16 cuDNN dgrad": cuda_time_ms(lambda: conv2d_same_vjp(ybf, kbf, gbf,
+                                                                     need=(True, False))),
+            "int8 wgrad (9 tap GEMMs)": cuda_time_ms(lambda: q._int8_wgrad(yq_card, g_q_card, (k, k))),
+            "fp32 cuDNN wgrad": cuda_time_ms(lambda: conv2d_same_vjp(yc, kc, gc, need=(False, True))),
+            "bf16 cuDNN wgrad": cuda_time_ms(lambda: conv2d_same_vjp(ybf, kbf, gbf,
+                                                                     need=(False, True))),
+        }
+    log(f"[int8_ops] {label} backward: int8 dgrad operands and accumulators equal {dgrad_equal}, "
+        f"dy norm-rel {dgrad_err:.2e} (tol {INT8_OUT_TOL:g}), int8 wgrad accumulators equal "
+        f"{wgrad_equal}: {'ok' if ok else 'FAIL'}; times "
+        + ", ".join(f"{name} {ms:.4f} ms" for name, ms in times.items())
+        + f"; int8 dgrad {int8_rate(ops, times['int8 dgrad'])}, int8 wgrad "
+        f"{int8_rate(ops, times['int8 wgrad (9 tap GEMMs)'])} ({smi})")
+    if not ok:
+        raise AssertionError("the int8 backward convs: the card disagrees with the CPU")
+    log(f"[int8_ops] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
+def counted_int8_ops(fn, x):
+    """``fn(x)`` once, and the integer operations (2 M K N a GEMM, before
+    padding) of the int8 GEMMs it ran."""
+    total, real = [0], q.int8_matmul
+
+    def counting(a, b_t):
+        total[0] += 2 * a.shape[0] * a.shape[1] * b_t.shape[0]
+        return real(a, b_t)
+
+    q.int8_matmul = counting
+    try:
+        out = fn(x)
+    finally:
+        q.int8_matmul = real
+    return out, total[0]
+
+
+def phase_int8_serve(tmp, smi):
+    """int8 serving at full width: the 64L x 128F single-block model at
+    32x32 and ResNet-50 at 224x224 x 257 classes (stages of mid width >=
+    256 quantized), random weights from a seed.  Each is exported with
+    ``quantize="int8"``, loaded on the card (`load_exported`) and asked for
+    a batch of 256: the served probabilities against the softmax of the
+    card's `make_quantized_forward` logits; the card's quantized logits of
+    the first few images, a batch of their own (the activation scales span
+    the batch), against the CPU's quantized forward of them; the int8
+    forward timed at batch 256 beside the fp32 and the bf16 forward
+    (CUDA events), with images/s and the int8 trunk's TOPS."""
+    t_phase = time.perf_counter()
+    cases = (
+        ("single-block 64L x 128F 32x32", cifar10_single_block_config(
+            num_layers=64, num_filters=128), build_single_block_resnet, 4),
+        ("ResNet-50 224x224 x 257 classes", resnet_preset(
+            "resnet50", 257, antisymmetric_mid=True, image_shape=(224, 224, 3)), build_resnet, 2),
+    )
+    for i, (label, config, build, cpu_batch) in enumerate(cases):
+        size, classes = config.image_shape[0], config.num_classes
+        card = build(config, generator=torch.Generator().manual_seed(50), device="cuda")
+        predict, manifest = load_exported(
+            export_model(card, os.path.join(tmp, f"int8_{i}"), batch_size=INT8_BATCH,
+                         quantize="int8"), device="cuda")
+        images = np.random.default_rng(51).uniform(0, 255, (INT8_BATCH, size, size, 3)).astype(
+            np.float32)
+        x = torch.from_numpy(images).cuda()
+        forward = make_quantized_forward(card, return_logits=True)
+        logits, trunk_ops = counted_int8_ops(forward, x)
+        served = predict(images)
+        served_err = norm_rel(torch.from_numpy(served), torch.softmax(logits, -1).cpu())
+        # The activation scales are per tensor, over the batch: compare like batches.
+        cpu = build(config, params=card.params(), state=card.state(), device="cpu")
+        want = make_quantized_forward(cpu, return_logits=True)(torch.from_numpy(images[:cpu_batch]))
+        got = forward(x[:cpu_batch]).cpu()
+        err = norm_rel(got, want)
+        with torch.inference_mode():
+            fp32_logits = card(x[:cpu_batch], return_logits=True).cpu()
+        ok = (manifest["quantize"] == "int8" and served.shape == (INT8_BATCH, classes)
+              and bool(np.isfinite(served).all()) and served_err <= PREDICT_TOL
+              and err <= INT8_SERVE_TOL)
+        log(f"[int8_serve] {label}: export -> load_exported -> predict at batch {INT8_BATCH} "
+            f"against softmax of make_quantized_forward norm-rel {served_err:.2e} (tol "
+            f"{PREDICT_TOL:g}); card int8 logits vs CPU int8 logits on {cpu_batch} images norm-rel "
+            f"{err:.2e} (tol {INT8_SERVE_TOL:g}); int8 against fp32 logits norm-rel "
+            f"{norm_rel(got, fp32_logits):.2e} (quantization error, no "
+            f"tolerance) ({smi}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"int8 serving {label}: the card disagrees")
+        del cpu
+        bf16_card = build(dataclasses.replace(config, compute_dtype=torch.bfloat16),
+                          params=card.params(), state=card.state(), device="cuda")
+        with torch.inference_mode():
+            times = {
+                "int8": cuda_time_ms(lambda: forward(x), runs=3, repeats=3, warmup=1),
+                "fp32": cuda_time_ms(lambda: card(x), runs=3, repeats=3, warmup=1),
+                "bf16": cuda_time_ms(lambda: bf16_card(x), runs=3, repeats=3, warmup=1),
+            }
+        t0 = time.perf_counter()
+        predict(images)
+        served_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[int8_serve] {label}: forward at batch {INT8_BATCH} "
+            + ", ".join(f"{name} {ms:.3f} ms ({INT8_BATCH / ms * 1e3:.1f} images/s)"
+                        for name, ms in times.items())
+            + f"; int8 over bf16 {times['bf16'] / times['int8']:.3f}x, over fp32 "
+            f"{times['fp32'] / times['int8']:.3f}x; int8 GEMMs {trunk_ops / 1e12:.4f} TOP a "
+            f"forward, {int8_rate(trunk_ops, times['int8'])} over the whole int8 forward; one "
+            f"served request (host to device, forward, device to host) {served_ms:.1f} ms; "
+            f"B1/B2 launches {launch_counts()} ({smi})")
+        del card, bf16_card, x, logits
+        torch.cuda.empty_cache()
+    log(f"[int8_serve] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
+def int8_bn_step_against_cpu(label, card, batch, size, classes, smi, seed=63):
+    """An int8 model with batch norm on the card against its CPU twins from
+    the same state: eval-mode logits within INT8_SERVE_TOL, then one train
+    step.  A rounding that flips one int8 step (the card's and the CPU's
+    fp32 convs differ in the last bit) moves an element by 1/127 of its
+    tensor's absmax, and train-mode batch norm over a small batch (1x1
+    spatial in ResNet-50's last stage at 32x32) divides that by a spread
+    that can be small.  So the step is judged as the bf16 phase judges
+    bf16: the loss (INT8_LOSS_TOL), the grad-norm row and the running
+    statistics (INT8_GRAD_TOL) as the CPU's int8 step, or no farther from
+    the CPU's fp32 step (the exact judge) than twice the CPU's int8 step is
+    plus that tolerance; the parameters after Adam within BN_STEP_BOUND
+    lr."""
+    config = card.config
+    cpu = build_resnet(config, params=card.params(), state=card.state(), device="cpu")
+    exact = build_resnet(dataclasses.replace(config, int8_forward=False, int8_backward="ste"),
+                         params=card.params(), state=card.state(), device="cpu")
+    images, labels = image_batch(np.random.default_rng(seed), batch, size, classes)
+    with torch.no_grad():
+        err = norm_rel(card(images.cuda(), return_logits=True).cpu(),
+                       cpu(images, return_logits=True))
+    twins = ((card, "cuda"), (cpu, "cpu"), (exact, "cpu"))
+    out = [make_train_step(m, make_adam(m.parameters()))(images.to(d), labels.to(d), LR)
+           for m, d in twins]
+    stats = [torch.cat([b.flatten().cpu() for b in m.buffers()]) for m, _ in twins]
+    results = {"loss": ([m["loss"].cpu().reshape(1) for m, _ in out], INT8_LOSS_TOL),
+               "grad norms": ([n.cpu() for _, n in out], INT8_GRAD_TOL),
+               "running statistics": (stats, INT8_GRAD_TOL)}
+    ok, parts = err <= INT8_SERVE_TOL, [f"eval logits {err:.2e} (tol {INT8_SERVE_TOL:g})"]
+    for name, ((a, b, j), tol) in results.items():
+        d, d_card, d_cpu = norm_rel(a, b), norm_rel(a, j), norm_rel(b, j)
+        ok = ok and (d <= tol or d_card <= 2 * d_cpu + tol)
+        parts.append(f"{name} {d:.2e} (to fp32: card {d_card:.2e}, cpu {d_cpu:.2e}; tol {tol:g})")
+    step_lr = max(float((a.detach().cpu() - b.detach()).abs().max()) / LR
+                  for a, b in zip(card.parameters(), cpu.parameters()))
+    ok = ok and step_lr <= BN_STEP_BOUND
+    log(f"[int8_train] {label} batch {batch}, card int8 against CPU int8, norm-rel "
+        + "; ".join(parts) + f"; params after Adam max |card-cpu| {step_lr:.3f} lr (tol "
+        f"{BN_STEP_BOUND:g}) ({smi}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the card's int8 step disagrees with the CPU's")
+
+
+def phase_int8_train(smi, steps=10):
+    """int8-forward training on the card: 64L x 128F single-block in 'ste'
+    and 'wgrad' and ResNet-50 at 32x32 in 'wgrad' (stages of mid width >=
+    256 int8), random weights from a seed.  The first step against the
+    CPU's from the same state (`compare_steps`, a small batch: the CPU
+    runs the same int8 ops; with batch norm `int8_bn_step_against_cpu`),
+    then ``steps`` steps at batch 32 on one batch,
+    each a replay of one captured step (CUDA graph), whose loss must fall,
+    timed on the host clock."""
+    t_phase = time.perf_counter()
+    single = dict(num_layers=64, num_filters=128, int8_forward=True)
+    cases = (
+        ("64L x 128F int8 ste", cifar10_single_block_config(**single, int8_backward="ste"),
+         build_single_block_resnet, 4),
+        ("64L x 128F int8 wgrad", cifar10_single_block_config(**single, int8_backward="wgrad"),
+         build_single_block_resnet, 4),
+        ("ResNet-50 32x32 int8 wgrad", resnet_preset(
+            "resnet50", 10, antisymmetric_mid=True, image_shape=(32, 32, 3), int8_forward=True,
+            int8_backward="wgrad"), build_resnet, 8),
+    )
+    for label, config, build, cpu_batch in cases:
+        card = build(config, generator=torch.Generator().manual_seed(60), device="cuda")
+        reset_counts()
+        bn = config.use_batch_norm
+        if bn:
+            int8_bn_step_against_cpu(label, card, cpu_batch, 32, 10, smi)
+        else:
+            cpu = build(config, params=card.params(), state=card.state(), device="cpu")
+            compare_steps("int8_train", label, card, cpu, steps=1, batch=cpu_batch,
+                          loss_tol=INT8_LOSS_TOL, grad_tol=INT8_GRAD_TOL)
+            del cpu
+        with torch.no_grad():
+            _, ops = counted_int8_ops(lambda v: card(v, return_logits=True),
+                                      image_batch(np.random.default_rng(62), 2)[0].cuda())
+        multi = make_multi_step(card, make_adam(card.parameters()))
+        images, labels = [t.cuda() for t in image_batch(np.random.default_rng(61), HARNESS_BATCH)]
+        stack = lambda n: (images.expand(n, *images.shape), labels.expand(n, *labels.shape))
+        multi(*stack(1), [LR])  # the warm-up calls and the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, _ = multi(*stack(steps), [LR] * steps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        losses = metrics["loss"].cpu()
+        ok = bool(torch.isfinite(losses).all()) and float(losses[-1]) < float(losses[0])
+        log(f"[int8_train] {label}: {steps} replayed steps at batch {HARNESS_BATCH} on one batch, "
+            f"loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f} (must fall), {ms:.3f} ms a "
+            f"step, {HARNESS_BATCH / ms * 1e3:.1f} images/s; int8 GEMMs of a forward at batch 2 "
+            f"{ops / 1e9:.3f} GOP, per-layer stacks by form {per_layer_counts()}, B1/B2 launches "
+            f"{launch_counts()} ({smi}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: the replayed int8 steps did not lower the loss")
+        if ops == 0 or launch_counts() != (0, 0) or (not bn and per_layer_counts()["int8"] == 0):
+            raise AssertionError(f"{label}: the model did not run its int8 convs")
+        del card, multi
+        torch.cuda.empty_cache()
+    log(f"[int8_train] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
+def phase_s2d(smi, steps=20):
+    """Space-to-depth on the card: the midpoint and RK4 64L x 16F stacks
+    with ``s2d_force`` against the same parameters without, logits at
+    batch 32 within S2D_TOL, each form asserted; the forward, replayed
+    from a captured CUDA graph (`make_predict_step`), timed at batch 8, 32
+    and 128 (8192, 32768 and 131072 input rows) and ``steps``
+    replayed train steps at batch 32, the two forms in turns (direct,
+    s2d, s2d, direct).  The card's own answer to whether an s2d row gate
+    should turn on: nothing is packed by default."""
+    t_phase = time.perf_counter()
+    for integrator in ("midpoint", "rk4"):
+        base = cifar10_single_block_config(num_layers=64, num_filters=16, integrator=integrator,
+                                           s2d_block=2)
+        direct = build_single_block_resnet(base, generator=torch.Generator().manual_seed(70),
+                                           device="cuda")
+        packed = build_single_block_resnet(dataclasses.replace(base, s2d_force=True),
+                                           params=direct.params(), device="cuda")
+        images, _ = image_batch(np.random.default_rng(71), 128)
+        x = images.cuda()
+        reset_counts()
+        with torch.inference_mode():
+            err = norm_rel(packed(x[:32], return_logits=True), direct(x[:32], return_logits=True))
+        forms = per_layer_counts()
+        predict = {"direct": make_predict_step(direct), "s2d": make_predict_step(packed)}
+        fwd = {(name, n): cuda_time_ms(lambda: predict[name](x[:n]), runs=10, repeats=3)
+               for n in (8, 32, 128) for name in ("direct", "s2d")}
+        ok = err <= S2D_TOL and forms == {"int8": 0, "s2d": 1, "direct": 1}
+        train = {"direct": [], "s2d": []}
+        for name, model in (("direct", direct), ("s2d", packed), ("s2d", packed),
+                            ("direct", direct)):
+            train[name].append(replayed_steps_ms(model, steps=steps))
+        log(f"[s2d] {integrator} 64L x 16F: s2d logits vs direct at batch 32 norm-rel {err:.2e} "
+            f"(tol {S2D_TOL:g}), per-layer forms {forms}: {'ok' if ok else 'FAIL'}; forward "
+            f"(a replayed CUDA graph a batch) "
+            + ", ".join(f"batch {n} direct {fwd[('direct', n)]:.3f} ms s2d {fwd[('s2d', n)]:.3f} ms "
+                        f"({fwd[('direct', n)] / fwd[('s2d', n)]:.3f}x)" for n in (8, 32, 128))
+            + f"; {steps} replayed train steps at batch 32, in turns: direct "
+            f"{'/'.join(f'{ms:.3f}' for ms in train['direct'])} ms, s2d "
+            f"{'/'.join(f'{ms:.3f}' for ms in train['s2d'])} ms a step; B1/B2 launches "
+            f"{launch_counts()} ({smi})")
+        if not ok:
+            raise AssertionError(f"s2d {integrator}: the packed stack disagrees with the direct one")
+        del direct, packed
+        torch.cuda.empty_cache()
+    log(f"[s2d] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
 def cifar_arrays():
     """Synthetic CIFAR-10 of the real size and dtype: (train images,
     train labels, val images, val labels)."""
@@ -1994,6 +2390,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_subcommands(tmp, smi)
         phase_bottleneck(tmp, smi)
+        phase_int8_ops(smi)
+        phase_int8_serve(tmp, smi)
+    phase_int8_train(smi)
+    phase_s2d(smi)
     source = "differential_equations_resnet_tpu_torch/csrc/"
     replaces = "differential_equations_resnet_tpu/ops/pallas/fused_integrator.py:"
     kernels = [

@@ -29,10 +29,14 @@ Module map (each module names its JAX counterpart):
   `conv2d_valid`, `antisym_conv2d_3x3`, `euler_relu_step`, `conv_relu_field`)
 - `ops.kernels.fused_integrator` <- `ops/pallas/fused_integrator.py` (forward
   kernel B1, backward kernel B2, their autograd Function)
+- `ops.quantize`               <- `ops/quantize.py` (dynamic w8a8 int8 convs
+  on `torch._int_mm`, the int8 training steps)
+- `ops.s2d`                    <- `ops/s2d.py` (space-to-depth transforms)
 - `models.blocks`              <- `models/blocks.py` (batch norm, pooling,
   `l2_kernel_penalty`)
 - `models.single_block_resnet` <- `models/single_block_resnet.py`
 - `models.bottleneck_resnet`   <- `models/bottleneck_resnet.py`
+- `models.quantized`           <- `models/quantized.py` (int8 serving)
 - `train.train_step`           <- `train/train_step.py` (Adam, loss, train and
   eval steps)
 - `train.telemetry`            <- `train/telemetry.py` (gradient mean norms,

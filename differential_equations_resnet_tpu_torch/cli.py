@@ -22,8 +22,10 @@ integrator, and ``--model resnet50|resnet101|resnet152`` (with
 ``--resnet-version``, ``--image-size``, ``--num-classes`` and ``--gamma``;
 ``--kernel-type antisymmetric`` gives the antisymmetric mid-convs), in every
 subcommand that builds a model, in fp32 or, with ``--bf16``, in bf16
-compute.  A model flag the port cannot run yet (``--int8-forward``) raises
-`NotImplementedError` when the model is built.  ``predict`` takes only a .npy array: image
+compute, and with ``--int8-forward`` (``--int8-backward
+ste|dgrad|wgrad|full``) with int8 forward convs; ``export --int8`` writes an
+export that `utils.serving.load_exported` serves with int8 convs.
+``predict`` takes only a .npy array: image
 directories need the host preprocessors and records (ROADMAP A8), as
 ``convert-records`` and ``fetch-cifar10`` do, which are not registered yet.
 The MFU that ``benchmark`` and ``sweep`` print is against the card's peak
@@ -72,11 +74,18 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
                         "reach (C <= 128, H*W <= 4096) runs on the hand-written kernels B1/B2, "
                         "as the JAX package runs it on its Pallas kernel")
     p.add_argument("--s2d-block", type=int, default=2,
-                   help="accepted and ignored: space-to-depth stays off on CUDA")
+                   help="space-to-depth block of the per-layer route; it packs only with the "
+                        "config's s2d_force or s2d_max_rows, which no flag sets, so it stays off")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (every layer on cuDNN; parameters stay fp32)")
-    p.add_argument("--int8-forward", action="store_true", help="int8 convolutions (ROADMAP A13)")
-    p.add_argument("--int8-backward", choices=["ste", "dgrad", "wgrad", "full"], default="ste")
+    p.add_argument("--int8-forward", action="store_true",
+                   help="dynamic-w8a8 int8 forward convs in the trunk (single-block identity "
+                        "stacks; bottleneck blocks of mid width >= 256)")
+    p.add_argument("--int8-backward", choices=["ste", "dgrad", "wgrad", "full"], default="ste",
+                   help="with --int8-forward: 'ste' fp backward; 'wgrad' the weight gradient "
+                        "in int8 from int8 saved activations; 'dgrad'/'full' also quantize the "
+                        "residual-stream cotangent (diverged in training in the JAX package's "
+                        "measurements)")
     _add_device_arg(p)
 
 
@@ -521,7 +530,7 @@ def cmd_export(args) -> int:
     """Serving export: the model's config and parameters (from
     ``--checkpoint`` when given, else its seeded init).  The JAX package's
     StableHLO artifact has no counterpart here, so ``--no-stablehlo``
-    changes nothing; ``--int8`` waits for ROADMAP A13."""
+    changes nothing; ``--int8`` marks the export for int8 serving."""
     from differential_equations_resnet_tpu_torch.utils.serving import export_model
 
     model = _build_model(args)
@@ -686,7 +695,9 @@ def main(argv=None) -> int:
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--no-stablehlo", action="store_true",
                    help="accepted; the port writes no compiled artifact")
-    p.add_argument("--int8", action="store_true", help="int8 serving (ROADMAP A13)")
+    p.add_argument("--int8", action="store_true",
+                   help="serve with dynamic-w8a8 int8 convs (single-block trunks >= 128 wide, "
+                        "bottleneck stages of mid width >= 256)")
     p.set_defaults(fn=cmd_export)
 
     args = parser.parse_args(argv)

@@ -23,8 +23,13 @@ and the batch-norm running statistics its buffers (`TreeModel`), and its
 forward takes ``train`` as JAX ``apply`` does.  ``compute_dtype`` is the
 JAX package's, as in the single-block family: the input cast to it, every
 convolution and batch norm in its input's dtype, the head on an fp32
-input, the parameters fp32.  ``int8_forward`` raises naming ROADMAP A13
-when the model is built.
+input, the parameters fp32.  With ``int8_forward`` the stride-1 convs of
+the main path of every block whose mid width is at least
+``int8_min_mid_channels`` (256, the JAX package's gate: it decides which
+convs are quantized, so it is part of the function) run dynamic w8a8
+(`ops.quantize.conv_int8_same`, per-tensor weight scales, the backward as
+``int8_backward`` says); strided convs and the shortcuts stay fp.
+`models.quantized` serves either family with int8 convs.
 """
 
 from __future__ import annotations
@@ -37,10 +42,7 @@ import torch.nn.functional as F
 
 from differential_equations_resnet_tpu_torch import resolve_device
 from differential_equations_resnet_tpu_torch.models.blocks import (
-    apply_fc_activation,
     batch_norm,
-    dense,
-    global_average_pool,
     init_batch_norm,
     init_conv,
     init_dense,
@@ -49,6 +51,7 @@ from differential_equations_resnet_tpu_torch.models.blocks import (
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
     TreeModel,
     dtype_reason,
+    head,
     normalize_input,
     stack_trees,
 )
@@ -59,6 +62,7 @@ from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
 )
 from differential_equations_resnet_tpu_torch.ops.conv import conv2d_same, conv2d_valid
 from differential_equations_resnet_tpu_torch.ops.integrators import layer_slice, num_layers
+from differential_equations_resnet_tpu_torch.ops.quantize import conv_int8_same
 
 Filters = Tuple[int, Optional[int], int]
 
@@ -147,10 +151,8 @@ def resnet_preset(
 
 
 def unsupported_reason(config: BottleneckResNetConfig) -> str:
-    """What of ``config`` the port does not run yet, with the ROADMAP item
-    it waits on, or "" where the whole config is covered."""
-    if config.int8_forward:
-        return "int8_forward=True (int8 convolutions, ROADMAP A13)"
+    """What of ``config`` the port does not run, or "" where the whole
+    config is covered."""
     return dtype_reason(config)
 
 
@@ -244,26 +246,57 @@ def mid_kernel(conv2, gamma: float) -> torch.Tensor:
     return conv2.kernel
 
 
+def _block_int8(config: BottleneckResNetConfig, mid_width: int) -> bool:
+    """Whether a block's stride-1 main-path convs run int8: the flag is on
+    and the block's mid width clears ``int8_min_mid_channels``."""
+    return config.int8_forward and mid_width >= config.int8_min_mid_channels
+
+
+def _conv_or_int8(y, kernel, bias, strides, q: bool, backward: str):
+    """A stride-1 conv of an int8 block in dynamic w8a8; every other conv
+    fp (the int8 backward's transposed-kernel adjoint is stride-1 SAME
+    only)."""
+    if q and tuple(strides) == (1, 1):
+        b = bias if bias is not None else torch.zeros(kernel.shape[-1], device=kernel.device)
+        return conv_int8_same(y, kernel, b, "per_tensor", backward)
+    return conv2d_same(y, kernel, strides=strides, bias=bias)
+
+
 def _apply_bottleneck_main(x, p, s, kernel, config, strides, train):
     """Main path of a bottleneck block, 1x1 -> 3x3 (``kernel``, dense) ->
-    1x1 with batch norm and relu, striding as ``config.version`` says.
-    Returns (y, the block's new batch-norm state)."""
+    1x1 with batch norm and relu, striding as ``config.version`` says, the
+    stride-1 convs int8 where `_block_int8` says so.  Returns (y, the
+    block's new batch-norm state)."""
     if config.version == 1:
         strides_1x1, strides_3x3 = strides, (1, 1)
     else:
         strides_1x1, strides_3x3 = (1, 1), strides
+    q, backward = _block_int8(config, kernel.shape[-1]), config.int8_backward
     bn = config.use_batch_norm
     new_s = {}
-    y = conv2d_same(x, p["conv1"].kernel, strides=strides_1x1, bias=p["conv1"].bias)
+    y = _conv_or_int8(x, p["conv1"].kernel, p["conv1"].bias, strides_1x1, q, backward)
     if bn:
         y, new_s["bn1"] = batch_norm(y, p["bn1"], s["bn1"], train)
-    y = conv2d_same(torch.relu(y), kernel, strides=strides_3x3, bias=p["conv2"].bias)
+    y = _conv_or_int8(torch.relu(y), kernel, p["conv2"].bias, strides_3x3, q, backward)
     if bn:
         y, new_s["bn2"] = batch_norm(y, p["bn2"], s["bn2"], train)
-    y = conv2d_same(torch.relu(y), p["conv3"].kernel, bias=p["conv3"].bias)
+    y = _conv_or_int8(torch.relu(y), p["conv3"].kernel, p["conv3"].bias, (1, 1), q, backward)
     if bn:
         y, new_s["bn3"] = batch_norm(y, p["bn3"], s["bn3"], train)
     return y, new_s
+
+
+def _stem(params: dict, state: dict, x: torch.Tensor, config: BottleneckResNetConfig,
+          train: bool, new_state: dict) -> torch.Tensor:
+    """The normalized input through the stem: zero pad 3, 7x7 stride-2 VALID
+    conv, batch norm (its new running statistics into ``new_state``), relu,
+    zero pad 1 and 3x3 stride-2 max pool."""
+    x = F.pad(normalize_input(x, config), (0, 0, 3, 3, 3, 3))
+    x = conv2d_valid(x, params["stem"].kernel, strides=(2, 2), bias=params["stem"].bias)
+    if config.use_batch_norm:
+        x, new_state["stem_bn"] = batch_norm(x, params["stem_bn"], state["stem_bn"], train)
+    x = F.pad(torch.relu(x), (0, 0, 1, 1, 1, 1))
+    return max_pool(x, (3, 3), (2, 2))
 
 
 def apply_resnet(
@@ -276,15 +309,9 @@ def apply_resnet(
 ):
     """Forward pass on NHWC images, the JAX ``apply``: returns (output,
     new_state), new_state ``state`` itself without batch norm."""
-    x = normalize_input(x, config)
     bn = config.use_batch_norm
     new_state = {"stages": []}
-    x = F.pad(x, (0, 0, 3, 3, 3, 3))
-    x = conv2d_valid(x, params["stem"].kernel, strides=(2, 2), bias=params["stem"].bias)
-    if bn:
-        x, new_state["stem_bn"] = batch_norm(x, params["stem_bn"], state["stem_bn"], train)
-    x = F.pad(torch.relu(x), (0, 0, 1, 1, 1, 1))
-    x = max_pool(x, (3, 3), (2, 2))
+    x = _stem(params, state, x, config, train, new_state)
 
     for stage, (sp, ss) in enumerate(zip(params["stages"], state["stages"])):
         strides = (1, 1) if stage == 0 else (2, 2)
@@ -312,11 +339,7 @@ def apply_resnet(
             stage_ss["identity_blocks"] = stack_trees(block_states)
         new_state["stages"].append(stage_ss)
 
-    if config.include_top:
-        x = dense(global_average_pool(x).to(torch.float32), params["head"])
-        if not return_logits:
-            x = apply_fc_activation(x, config.fc_activation)
-    return x, (new_state if bn else state)
+    return head(params, x, config, return_logits), (new_state if bn else state)
 
 
 class BottleneckResNet(TreeModel):

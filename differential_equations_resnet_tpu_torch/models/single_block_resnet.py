@@ -11,24 +11,31 @@ stack is first made dense, (L, k, k, C, C) kernels for all layers at once
 stack's shapes and the config before anything is launched
 (`identity_route`):
 
-- the fused route: an fp32 Euler stack of 3x3 kernels without batch norm,
-  any kernel type, within the JAX kernel gate's reach (C <= 128, H*W <=
-  4096) runs as the fused L-layer integrator `fused_euler_dense`: the
-  hand-written kernels B1 (forward) and B2 (backward) on the card, their
-  plain PyTorch versions on the CPU.  Every such stack that the JAX package
-  would run on its Pallas kernel (``use_pallas``, antisymmetric) takes it;
-  every other one takes it where the kernels' band variant runs it (B2's
-  too where a gradient will be needed), or, where the shape needs a wide
-  variant (`ops.kernels.fused_integrator.kernel_variant`), up to the width
-  where that was measured faster (`wide_route`);
-- the per-layer route, everything else: midpoint, RK4, k != 3, batch norm,
-  bf16 or fp16 compute (the JAX gate takes fp32 only), and the Euler 3x3
-  stacks left to it above, run layer by layer (`euler_relu_step`, the
-  integrator over `conv_relu_field`, or conv, batch norm and relu) on cuDNN
-  with TF32 off, each layer checkpointed where ``remat`` is set.
+- the fused route: an fp32 Euler stack of 3x3 kernels without batch norm
+  or ``int8_forward``, any kernel type, within the JAX kernel gate's reach
+  (C <= 128, H*W <= 4096) runs as the fused L-layer integrator
+  `fused_euler_dense`: the hand-written kernels B1 (forward) and B2
+  (backward) on the card, their plain PyTorch versions on the CPU.  Every
+  such stack that the JAX package would run on its Pallas kernel
+  (``use_pallas``, antisymmetric) takes it; every other one takes it where
+  the kernels' band variant runs it (B2's too where a gradient will be
+  needed), or, where the shape needs a wide variant
+  (`ops.kernels.fused_integrator.kernel_variant`), up to the width where
+  that was measured faster (`wide_route`);
+- the per-layer route, everything else: int8, midpoint, RK4, k != 3, batch
+  norm, bf16 or fp16 compute (the JAX gate takes fp32 only), and the Euler
+  3x3 stacks left to it above, run layer by layer on cuDNN with TF32 off,
+  each layer checkpointed where ``remat`` is set.  A stack without batch
+  norm runs there in one of three forms (`per_layer_form`), in this order:
+  "int8" with ``int8_forward`` (`ops.quantize.euler_relu_step_int8`, or the
+  integrator over `conv_relu_field_int8`, per-tensor weight scales, the
+  backward as ``int8_backward`` says), "s2d" where `_s2d_eligible` packs
+  it (`ops.s2d`: an exact relayout into (H/b, W/b, b*b*C), 3x3 only), else
+  "direct" (`euler_relu_step`, or the integrator over `conv_relu_field`);
+  with batch norm it is conv, batch norm and relu.
 
-`route_counts` counts the stacks each route ran (Python calls: a replayed
-CUDA graph adds none).  Gradients flow through every leaf, so the model
+`route_counts` counts the stacks each route ran, and `per_layer_counts` the
+per-layer stacks by form (Python calls: a replayed CUDA graph adds none).  Gradients flow through every leaf, so the model
 trains (`train.train_step`).  The forward takes ``train`` as the JAX
 ``apply`` does: with batch norm, train mode normalizes by the batch's
 statistics and updates the running ones (the model's buffers), eval mode
@@ -40,23 +47,29 @@ in its input's dtype (kernels and biases cast to it), the head runs on an
 fp32 input and the loss's log-softmax in fp32 (`train.train_step`); the
 parameters, Adam's slots, checkpoints and the gradient telemetry stay fp32.
 
-The config accepts every key of the JAX package's ``config.json``; what the
-port does not run yet raises `NotImplementedError` naming the ROADMAP item
-it waits on when the model is built: int8 (A13) and the meshes (A15).
-Accepted and ignored, because they do not change the numbers of a forward
-or backward pass:
+The config accepts every key of the JAX package's ``config.json``, with
+the JAX package's validation (``int8_forward`` excludes batch norm,
+``use_pallas`` and ``pp_mesh``); the meshes, which the port does not run
+yet, raise `NotImplementedError` naming ROADMAP A15 when the model is
+built.  Accepted and ignored, because they do not change the numbers of a
+forward or backward pass:
 
-- ``s2d_block``, ``s2d_force``, ``s2d_max_rows``: space-to-depth is an exact
-  layout transform whose gate stays off on CUDA until it is measured there;
 - ``remat`` on the fused route, which keeps only the stack's input anyway;
 - ``scan_unroll``, ``data_axis_size``, ``device_platform``, ``pp_axis``,
   ``pp_microbatches``, ``pp_batch_axis``, ``tp_axis``.
+
+The space-to-depth gate keeps the JAX rule except its default row count
+(`_s2d_eligible`): ``s2d_force`` packs on any device, an explicit
+``s2d_max_rows`` packs a stack of at most that many input rows on the card,
+and with neither nothing is packed (the JAX default, 32768 rows, was
+measured on a TPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Any, Optional, Tuple, Union
 
 import numpy as np
@@ -102,6 +115,16 @@ from differential_equations_resnet_tpu_torch.ops.kernels.fused_integrator import
     in_reference_reach,
     kernel_variant,
     needs_gradient,
+)
+from differential_equations_resnet_tpu_torch.ops.quantize import (
+    conv_relu_field_int8,
+    euler_relu_step_int8,
+)
+from differential_equations_resnet_tpu_torch.ops.s2d import (
+    depth_to_space,
+    pack_bias_s2d,
+    pack_kernel_s2d,
+    space_to_depth,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -172,6 +195,13 @@ class SingleBlockResNetConfig:
                 "midpoint/rk4 integrators require use_batch_norm=False (the "
                 "block must be a pure ODE field)."
             )
+        if self.int8_forward and (
+            self.use_batch_norm or self.use_pallas or self.pp_mesh is not None
+        ):
+            raise ValueError(
+                "int8_forward requires the plain integrator identity stack: "
+                "use_batch_norm=False, use_pallas=False, pp_mesh=None."
+            )
         if self.int8_backward not in ("ste", "dgrad", "wgrad", "full"):
             raise ValueError(
                 f"int8_backward must be 'ste', 'dgrad', 'wgrad', or 'full', "
@@ -179,7 +209,9 @@ class SingleBlockResNetConfig:
             )
         if self.int8_backward != "ste" and not self.int8_forward:
             raise ValueError(
-                "int8_backward='dgrad'/'wgrad'/'full' requires int8_forward=True."
+                "int8_backward='dgrad'/'wgrad'/'full' requires "
+                "int8_forward=True (the backward quantizes against the "
+                "forward's int8 kernel)."
             )
         if self.kernel_type == "antisymmetric" and self.kernel_size != 3:
             raise ValueError("The antisymmetric kernel path is specialized to 3x3.")
@@ -225,8 +257,6 @@ def cifar10_single_block_config(
 def unsupported_reason(config: SingleBlockResNetConfig) -> str:
     """What of ``config`` this slice does not run, with the ROADMAP item it
     waits on, or "" where the whole config is covered."""
-    if config.int8_forward:
-        return "int8_forward=True (int8 convolutions, ROADMAP A13)"
     if config.pp_mesh is not None or config.tp_mesh is not None:
         return "pp_mesh/tp_mesh (pipeline and tensor parallelism, ROADMAP A15)"
     return dtype_reason(config)
@@ -406,8 +436,10 @@ def _dense_blocks(blocks, config: SingleBlockResNetConfig) -> ConvParams:
     return blocks
 
 
-# Identity stacks run by each route since the counts were last set to 0.
+# Identity stacks run by each route since the counts were last set to 0,
+# and the per-layer ones by form (`per_layer_form`).
 route_counts = {"fused": 0, "per_layer": 0}
+per_layer_counts = {"int8": 0, "s2d": 0, "direct": 0}
 
 
 def jax_runs_pallas(config: SingleBlockResNetConfig, x: torch.Tensor) -> bool:
@@ -445,9 +477,9 @@ def identity_route(config: SingleBlockResNetConfig, x: torch.Tensor, dense: Conv
     `wide_route` unless the JAX package would run it on Pallas
     (`jax_runs_pallas`).
     "per_layer" for every other stack, as the JAX package runs it on XLA's
-    convolutions.  Decided from shapes, dtype and the config, before
-    anything is launched."""
-    if (config.use_batch_norm or config.integrator != "euler"
+    convolutions, an ``int8_forward`` stack first of all.  Decided from
+    shapes, dtype and the config, before anything is launched."""
+    if (config.int8_forward or config.use_batch_norm or config.integrator != "euler"
             or tuple(dense.kernel.shape[1:3]) != (3, 3) or not fused_euler_eligible(x, dense)):
         return "per_layer"
     if jax_runs_pallas(config, x):
@@ -456,6 +488,89 @@ def identity_route(config: SingleBlockResNetConfig, x: torch.Tensor, dense: Conv
     wide = kernel_variant(x.shape) == "wide" or (
         grad and kernel_variant(x.shape, backward=True) == "wide")
     return wide_route(x.shape[-1]) if wide else "fused"
+
+
+def _s2d_eligible(config: SingleBlockResNetConfig, x: torch.Tensor) -> bool:
+    """Whether a per-layer stack without batch norm runs space-to-depth
+    packed: a 3x3 kernel, a block b > 1 that divides H and W, and either
+    ``s2d_force`` (any device) or, on the card only, an explicit
+    ``s2d_max_rows`` of at least the stack's N*H*W input rows.  The JAX
+    rule, except its default: with ``s2d_max_rows=None`` the card packs
+    nothing (the JAX package's 32768 rows were measured on a TPU).  On the
+    CPU only ``s2d_force`` packs, as in the JAX package."""
+    b = config.s2d_block
+    rows = x.shape[0] * x.shape[1] * x.shape[2]
+    max_rows = config.s2d_max_rows
+    return (
+        b > 1
+        and config.kernel_size == 3
+        and x.shape[1] % b == 0
+        and x.shape[2] % b == 0
+        and (config.s2d_force or (x.is_cuda and max_rows is not None and rows <= max_rows))
+    )
+
+
+def per_layer_form(config: SingleBlockResNetConfig, x: torch.Tensor) -> str:
+    """The form a per-layer stack without batch norm runs in: "int8" with
+    ``int8_forward`` (which overrides s2d, as in the JAX package), "s2d"
+    where `_s2d_eligible`, else "direct"."""
+    if config.int8_forward:
+        return "int8"
+    return "s2d" if _s2d_eligible(config, x) else "direct"
+
+
+def _pack_params_s2d(dense: ConvParams, config: SingleBlockResNetConfig) -> ConvParams:
+    """Stacked dense (L, 3, 3, C, C) kernels and (L, C) biases in their
+    space-to-depth packed form, all layers in one gather (`ops.s2d`)."""
+    b = config.s2d_block
+    return ConvParams(pack_kernel_s2d(dense.kernel, b), pack_bias_s2d(dense.bias, b))
+
+
+def _per_layer_stack(x: torch.Tensor, dense: ConvParams, config: SingleBlockResNetConfig,
+                     form: str) -> torch.Tensor:
+    """A stack without batch norm, layer by layer, in ``form``
+    (`per_layer_form`): each layer an Euler step or the integrator's field
+    evaluations, with int8 convs for "int8", and for "s2d" in packed space
+    (activations packed once, every layer's kernel in one gather, unpacked
+    once; the JAX `_apply_identity_blocks_s2d` and the packed branch of
+    `_apply_identity_blocks_multieval`)."""
+    h = config.h
+    if form == "int8":
+        euler = functools.partial(euler_relu_step_int8, backward=config.int8_backward)
+        field_of = functools.partial(conv_relu_field_int8, backward=config.int8_backward)
+    else:
+        euler, field_of = euler_relu_step, conv_relu_field
+    if config.integrator == "euler":
+        step = lambda y, p: euler(y, p.kernel, p.bias, h)
+    else:
+        method = get_integrator(config.integrator)
+        field = lambda y, p: field_of(y, p.kernel, p.bias)
+        step = lambda y, p: method(field, y, h, p)
+    if form != "s2d":
+        return run_layers(step, x, dense, remat=config.remat)
+    b = config.s2d_block
+    y = run_layers(step, space_to_depth(x, b), _pack_params_s2d(dense, config),
+                   remat=config.remat)
+    return depth_to_space(y, b)
+
+
+def _warn_int8_divergent_backward(config: SingleBlockResNetConfig, x: torch.Tensor) -> None:
+    """int8_backward='dgrad'/'full' quantizes the cotangent on the residual
+    stream, and the JAX package measured such training diverge at trunk
+    widths >= 64 at every depth, rate and quantizer scheme it tried (the
+    rounding compounds ~exp(T*lambda) over the reverse sweep, a property of
+    the architecture, not of a device).  Warns at C >= 64; narrow stacks
+    stay silent."""
+    if config.int8_backward not in ("dgrad", "full") or x.shape[-1] < 64:
+        return
+    warnings.warn(
+        f"int8_backward={config.int8_backward!r} at trunk width C={x.shape[-1]} >= 64: "
+        "this mode diverged in training at lane-filling widths in the JAX "
+        "package's measurements, at every depth, rate and cotangent-quantizer "
+        "scheme tried.  It is kept for throughput measurement; train with "
+        "int8_backward='wgrad' (the same int8 residual memory) or 'ste'.",
+        stacklevel=3,
+    )
 
 
 def _batch_norm_stack(x, dense: ConvParams, bn_params, bn_state, config, train: bool):
@@ -485,23 +600,19 @@ def _apply_identity_blocks(x: torch.Tensor, sp: dict, ss: dict,
                            config: SingleBlockResNetConfig, train: bool):
     """A stage's identity stack on its route (`identity_route`).  Returns
     (y, the stage's new batch-norm state)."""
+    _warn_int8_divergent_backward(config, x)
     dense = _dense_blocks(sp["blocks"], config)
     route = identity_route(config, x, dense)
-    h = config.h
     new_ss = {}
     if route == "fused":
-        y = fused_euler_dense(x, dense.kernel, dense.bias, float(h))
+        y = fused_euler_dense(x, dense.kernel, dense.bias, float(config.h))
     elif config.use_batch_norm:
         y, new_ss["blocks_bn"] = _batch_norm_stack(x, dense, sp["blocks_bn"], ss["blocks_bn"],
                                                    config, train)
     else:
-        if config.integrator == "euler":
-            step = lambda y, p: euler_relu_step(y, p.kernel, p.bias, h)
-        else:
-            method = get_integrator(config.integrator)
-            field = lambda y, p: conv_relu_field(y, p.kernel, p.bias)
-            step = lambda y, p: method(field, y, h, p)
-        y = run_layers(step, x, dense, remat=config.remat)
+        form = per_layer_form(config, x)
+        y = _per_layer_stack(x, dense, config, form)
+        per_layer_counts[form] += 1
     route_counts[route] += 1
     return y, new_ss
 
@@ -517,6 +628,28 @@ def normalize_input(x: torch.Tensor, config) -> torch.Tensor:
     return x
 
 
+def _stem(params: dict, state: dict, x: torch.Tensor, config: SingleBlockResNetConfig,
+          train: bool, new_state: dict) -> torch.Tensor:
+    """The normalized input through the stem conv, batch norm (its new
+    running statistics into ``new_state``) and relu."""
+    x = normalize_input(x, config)
+    stem = params["stem"]
+    x = conv2d_same(x, stem.kernel, strides=tuple(config.strides[0]), bias=stem.bias)
+    if config.use_batch_norm:
+        x, new_state["stem_bn"] = batch_norm(x, params["stem_bn"], state["stem_bn"], train)
+    return torch.relu(x)
+
+
+def head(params: dict, x: torch.Tensor, config, return_logits: bool) -> torch.Tensor:
+    """Either family's top: global average pool, the dense layer on an fp32
+    input and, unless ``return_logits``, the fc activation (x itself
+    without ``include_top``)."""
+    if not config.include_top:
+        return x
+    x = dense(global_average_pool(x).to(torch.float32), params["head"])
+    return x if return_logits else apply_fc_activation(x, config.fc_activation)
+
+
 def apply_single_block_resnet(
     params: dict,
     state: dict,
@@ -528,13 +661,8 @@ def apply_single_block_resnet(
     """Forward pass on NHWC images, the JAX ``apply``: returns (output,
     new_state), new_state ``state`` itself without batch norm.
     ``return_logits=True`` skips the final fc_activation (softmax)."""
-    x = normalize_input(x, config)
     new_state = {"stages": []}
-    stem = params["stem"]
-    x = conv2d_same(x, stem.kernel, strides=tuple(config.strides[0]), bias=stem.bias)
-    if config.use_batch_norm:
-        x, new_state["stem_bn"] = batch_norm(x, params["stem_bn"], state["stem_bn"], train)
-    x = torch.relu(x)
+    x = _stem(params, state, x, config, train, new_state)
     for plan, sp, ss in zip(stage_plans(config), params["stages"], state["stages"]):
         stage_ss = {}
         if plan.pool:
@@ -546,11 +674,7 @@ def apply_single_block_resnet(
             x, blocks_ss = _apply_identity_blocks(x, sp, ss, config, train)
             stage_ss.update(blocks_ss)
         new_state["stages"].append(stage_ss)
-    if config.include_top:
-        x = dense(global_average_pool(x).to(torch.float32), params["head"])
-        if not return_logits:
-            x = apply_fc_activation(x, config.fc_activation)
-    return x, (new_state if config.use_batch_norm else state)
+    return head(params, x, config, return_logits), (new_state if config.use_batch_norm else state)
 
 
 def _named_leaves(tree, prefix=""):

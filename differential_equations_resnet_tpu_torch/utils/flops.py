@@ -99,6 +99,7 @@ PEAK_FLOPS = {
     "h100_sxm_tf32": 495e12,
     "h100_sxm_bf16": 989e12,
     "h100_sxm_fp8": 1979e12,
+    "h100_sxm_int8": 1979e12,   # int8 x int8 -> int32 ops/s on the tensor cores
 }
 
 

@@ -18,6 +18,11 @@ from NumPy's array reconstruction, so the port never imports the JAX
 package.  Both families and every kernel type are exported and served;
 ``export_model(..., checkpoint=...)`` exports the parameters and state of a
 training checkpoint (the port's `train.checkpoint` format).
+
+``quantize="int8"`` records ``"quantize": "int8"`` in ``config.json``, as
+the JAX package does; the parameters stay fp32 and the weights are
+quantized when the export is loaded.  `load_exported` serves an int8 export
+of either package through `models.quantized.make_quantized_forward`.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from differential_equations_resnet_tpu_torch.models.bottleneck_resnet import (
     BottleneckResNet,
     BottleneckResNetConfig,
 )
+from differential_equations_resnet_tpu_torch.models.quantized import make_quantized_forward
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
     DTYPES,
     SingleBlockResNet,
@@ -98,10 +104,9 @@ def export_model(
     train --save-dir``) its parameters and state are first restored into
     ``model``, which must have the checkpoint's structure.  ``batch_size``
     is recorded in the manifest as the JAX package records it; the port's
-    loader serves any batch size."""
-    if quantize == "int8":
-        raise NotImplementedError("int8 serving waits on ROADMAP item A13.")
-    if quantize is not None:
+    loader serves any batch size.  ``quantize="int8"`` marks the export for
+    int8 serving (module docstring)."""
+    if quantize not in (None, "int8"):
         raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
     if checkpoint is not None:
         from differential_equations_resnet_tpu_torch.train.checkpoint import Checkpointer
@@ -118,7 +123,7 @@ def export_model(
                 "family": next(name for name, (_, cls) in FAMILIES.items()
                                if isinstance(model, cls)),
                 "batch_size": int(batch_size),
-                "quantize": None,
+                "quantize": quantize,
                 "config": config_to_json(model.config),
             },
             f,
@@ -146,15 +151,15 @@ def load_exported(
     """Load a serving export (the port's or the JAX package's, either
     family).  Returns ``(predict, manifest)``: ``predict(images (B, H, W,
     C) float32) -> probabilities`` (eval mode: batch norm on the running
-    statistics) as a NumPy array, for any batch size B.
+    statistics) as a NumPy array, for any batch size B; for an export
+    marked ``"quantize": "int8"`` with int8 convs
+    (`models.quantized.make_quantized_forward`).
 
     Runs on CUDA unless ``device`` says otherwise; raises where CUDA is
     missing and the CPU was not asked for."""
     device = resolve_device(device)
     with open(os.path.join(export_dir, "config.json")) as f:
         manifest = json.load(f)
-    if manifest.get("quantize") == "int8":
-        raise NotImplementedError("int8 serving waits on ROADMAP item A13.")
     model_cls = _family(manifest.get("family"))[1]
     config = config_from_json(manifest["config"], manifest["family"])
     state_dict, params, state = _load_params(export_dir)
@@ -164,10 +169,11 @@ def load_exported(
     else:
         model = model_cls(config, params, state, device=device)
     model.eval()
+    forward = make_quantized_forward(model) if manifest.get("quantize") == "int8" else model
 
     def predict(images: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             x = torch.as_tensor(np.asarray(images, dtype=np.float32)).to(device)
-            return model(x).cpu().numpy()
+            return forward(x).cpu().numpy()
 
     return predict, manifest

@@ -254,12 +254,15 @@ def test_full_width_resnet50_eval_forward_matches_jax():
 
 
 def test_unsupported_options_raise():
-    """int8 waits for its ROADMAP item (reduced precision runs:
-    `test_reduced_precision_matches_jax_apply`); the config validates as the
-    JAX package's does."""
+    """The config validates as the JAX package's does.  int8 (which raised
+    naming ROADMAP A13 before the port had it) builds: its numbers are held
+    against the JAX package in tests/test_torch_quantized_model.py, reduced
+    precision in `test_reduced_precision_matches_jax_apply`."""
     config = dataclasses.replace(bottleneck.resnet_preset("resnet50", 10), int8_forward=True)
-    with pytest.raises(NotImplementedError, match="A13"):
-        bottleneck.build_resnet(config, generator=torch.Generator(), device="cpu")
+    assert bottleneck.build_resnet(config, generator=torch.Generator(),
+                                   device="cpu").config.int8_forward
+    with pytest.raises(ValueError, match="requires int8_forward=True"):
+        dataclasses.replace(config, int8_forward=False, int8_backward="wgrad")
     with pytest.raises(ValueError, match="version"):
         bottleneck.BottleneckResNetConfig(num_classes=3, version=2)
     with pytest.raises(ValueError, match="num_classes"):

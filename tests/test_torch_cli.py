@@ -1,6 +1,6 @@
 """The port's command line on the CPU (``--device cpu``): train, analyze,
-evaluate and predict as a user runs them, ``--bf16`` against the JAX
-package's CLI, and the flags the port cannot run yet, for either model
+evaluate and predict as a user runs them, ``--bf16`` and the int8 flags
+against the JAX package's CLI, for either model
 family (the research subcommands:
 tests/test_torch_cli_research.py; ``--model resnet50``:
 tests/test_torch_bottleneck_training.py)."""
@@ -80,12 +80,32 @@ def test_resume_continues_from_the_latest_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,match", [
     (["--int8-forward"], "int8"),
-    (["--model", "resnet152", "--int8-forward"], "A13"),
-    (["--int8-forward", "--int8-backward", "wgrad"], "A13"),
+    (["--model", "resnet50", "--int8-forward"], "int8"),
+    (["--int8-forward", "--int8-backward", "wgrad"], "wgrad"),
 ])
-def test_flags_the_port_cannot_run_raise(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["evaluate", *MODEL, *flags, "--synthetic-val-size", "8"])
+def test_flags_the_port_cannot_run_raise(capsys, monkeypatch, flags, match):
+    """The int8 flags, which raised naming ROADMAP A13 before the port had
+    int8, now evaluate (finite loss) with the config the JAX package's CLI
+    builds from them; ``match`` names the int8 field the flags set.  A
+    combination the JAX config refuses raises its ValueError."""
+    from differential_equations_resnet_tpu import cli as jax_cli
+    from differential_equations_resnet_tpu.utils.serving import _config_to_json
+    from differential_equations_resnet_tpu_torch.utils.serving import config_from_json
+
+    built = []
+    build = cli._build_model
+    monkeypatch.setattr(cli, "_build_model", lambda args: built.append(args) or build(args))
+    metrics = run(capsys, "evaluate", *MODEL, *flags, "--synthetic-val-size", "8")
+    assert np.isfinite(metrics["mean_loss"])
+    (args,) = built
+    family = "single_block" if args.model == "single_block" else "bottleneck"
+    want = config_from_json(_config_to_json(jax_cli._build_model(args).config), family)
+    config = build(args).config
+    assert config == want and config.int8_forward
+    assert config.int8_backward == ("wgrad" if match == "wgrad" else "ste")
+    with pytest.raises(ValueError, match="int8_forward requires"):
+        cli.main(["evaluate", *MODEL, "--int8-forward", "--use-pallas",
+                  "--synthetic-val-size", "8"])
 
 
 @pytest.mark.parametrize("flags", [["--model", "resnet50", "--bf16"], ["--bf16"]],

@@ -129,18 +129,15 @@ def test_port_config_matches_the_jax_keyword_surface():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(use_batch_norm=True, kernel_type="regular", int8_forward=True), "A13"),
-    (dict(int8_forward=True, integrator="rk4"), "A13"),
-    (dict(int8_forward=True), "A13"),
     (dict(pp_mesh="mesh"), "A15"),
     (dict(tp_mesh="mesh"), "A15"),
 ])
 def test_features_outside_the_slice_raise(overrides, item):
-    """What the port does not run yet (int8, the meshes) raises naming its
-    ROADMAP item, whatever the kernel type, integrator or batch norm; every
-    kernel type and integrator runs otherwise
-    (tests/test_torch_kernel_types.py), batch norm (tests/test_torch_batch_norm.py)
-    and reduced-precision compute too (below, and tests/test_torch_bf16.py)."""
+    """What the port does not run yet (the meshes) raises naming its
+    ROADMAP item; every kernel type and integrator runs otherwise
+    (tests/test_torch_kernel_types.py), batch norm (tests/test_torch_batch_norm.py),
+    reduced-precision compute (below, and tests/test_torch_bf16.py), int8
+    (tests/test_torch_quantized_model.py) and s2d (tests/test_torch_s2d.py)."""
     config = dataclasses.replace(
         cifar10_single_block_config(num_layers=2, num_filters=4), **overrides
     )
