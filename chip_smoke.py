@@ -93,7 +93,24 @@ Phases, each of which raises on failure (exit code != 0):
    and ResNet-50 at 32x32 in 'wgrad', the first step against the CPU, then
    replayed steps at batch 32 (a CUDA graph) whose loss must fall, timed;
 18. s2d (`phase_s2d`): midpoint and RK4 64L x 16F packed against direct,
-   logits within 1e-5, forwards and replayed train steps timed.
+   logits within 1e-5, forwards and replayed train steps timed;
+19. records (`phase_records`): the native record codec and loader built
+   with g++ into build/native/ (no fallback to Python), 1024 seeded
+   224x224x3 images with 257 labels written as records and read back bit
+   for bit through the Python reader, the C++ codec and the native loader,
+   feed rates (the native loader alone and into the card, the Python chain
+   with RandomCrop 256 -> 224 and RandomFlipLeftRight), then ResNet-50 at
+   224x224 x 257 classes fed by `create_native_dataset`: its first step
+   against the CPU on a loader batch, a timed and a profiled streaming
+   epoch of replayed steps (images/s end to end, idle share), an
+   evaluation over the records and export -> load -> predict; where Pillow
+   imports, ``convert-records`` and ``predict`` on an image directory, card
+   against CPU;
+20. MNIST (`phase_mnist`): B1 and B2 at 32x28x28x16, L = 8 (uneven bands)
+   against their plain versions and timed beside their bounds, the
+   `mnist_single_block_config()` model (8L x 16F) against the CPU on
+   seeded `synthetic_mnist` data, then an epoch of 1875 replayed steps,
+   a device evaluation and predict.
 
 A kernel's launches are those on the card: its wrapper counts each launch
 outside a CUDA-graph capture, and each replay of a graph counts the
@@ -112,6 +129,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -190,10 +208,12 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    seconds = _build.build()
+    seconds = _build.build()  # the CUDA kernels and the native record libraries at once
     log(f"[build] {json.dumps({k: round(v, 1) for k, v in seconds.items()})} "
         f"wall {time.perf_counter() - t0:.1f} s")
     for name in seconds:
+        if _build.SOURCES[name].compiler != "nvcc":
+            continue
         ptxas = _build.library_path(name).with_suffix(".so.log").read_text()
         regs = [int(line.split("Used ")[1].split()[0])
                 for line in ptxas.splitlines() if "Used " in line and "registers" in line]
@@ -1149,9 +1169,10 @@ def sync_twin(card, cpu, opt_card, opt_cpu):
 
 
 def compare_steps(tag, label, card, cpu, steps=2, batch=8, image_size=32, classes=10, seed=2,
-                  loss_tol=1e-5, grad_tol=TRAIN_GRAD_TOL, leaf_tol=TRAIN_GRAD_TOL):
+                  loss_tol=1e-5, grad_tol=TRAIN_GRAD_TOL, leaf_tol=TRAIN_GRAD_TOL, batches=None):
     """``steps`` train steps of ``card`` and its CPU twin on the same
-    batches, each from the same state: loss (relative, ``loss_tol``),
+    batches (``batches``, a list of (images, labels) on the CPU, or drawn
+    with `image_batch`), each from the same state: loss (relative, ``loss_tol``),
     correct count, grad-norm row (relative, ``grad_tol``), the parameters
     after Adam (norm-relative TRAIN_GRAD_TOL a leaf; with batch norm
     `bn_agreement`: BN_STEP_BOUND, and ``leaf_tol`` for each parameter's
@@ -1168,7 +1189,8 @@ def compare_steps(tag, label, card, cpu, steps=2, batch=8, image_size=32, classe
     rng = np.random.default_rng(seed)
     agree = True
     for n in range(1, steps + 1):
-        images, labels = image_batch(rng, batch, image_size, classes)
+        images, labels = (batches[n - 1] if batches is not None
+                          else image_batch(rng, batch, image_size, classes))
         (m_card, norms_card), (m_cpu, norms_cpu) = [
             train[m](images.to(dev), labels.to(dev), LR) for m, dev in ((card, "cuda"), (cpu, "cpu"))]
         loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
@@ -2351,6 +2373,408 @@ def phase_s2d(smi, steps=20):
     log(f"[s2d] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
 
 
+RECORDS_IMAGES = 1024      # seeded 224x224x3 images written as records (154 MB)
+RECORDS_SIZE = 224         # their side, the v6 notebook's
+RECORDS_CHAIN_SIZE = 256   # the side of the Python chain's shards, cropped to RECORDS_SIZE
+RECORDS_SHARD = 128        # records a shard
+RECORDS_CLASSES = 257      # the v6 notebook's Caltech-256 head
+RECORDS_STEPS = 20         # timed replayed steps of the records-fed epoch
+RECORDS_PROFILED = 8       # steps of its profiled window
+
+
+def records_signature(images, labels):
+    """Sorted (label, crc32 of the image) of a set of records: equal sets of
+    records, whatever their order."""
+    return sorted(zip(np.asarray(labels).tolist(),
+                      (zlib.crc32(np.ascontiguousarray(im).data) for im in images)))
+
+
+def feed_rate(batches, count):
+    """Images a second over the first ``count`` images of ``batches`` (an
+    iterator of (images, labels) batches), copies to the card that are still
+    in flight included."""
+    t0 = time.perf_counter()
+    seen = 0
+    for images, _ in batches:
+        seen += len(images)
+        if seen >= count:
+            break
+    torch.cuda.synchronize()
+    return seen / (time.perf_counter() - t0)
+
+
+def phase_records(tmp, smi):
+    """The v6 notebook's records workflow on the card:
+
+    1. both native libraries (the DERT codec and the threaded loader) built
+       with g++ from the checkout into build/native/; a failed build fails
+       the run, and neither may fall back to Python;
+    2. 1024 seeded 224x224x3 uint8 images with 257 labels written as 8
+       record shards by `RecordGenerator.write_arrays` (the C++ writer), then
+       read back bit for bit through the Python reader, the C++ codec and the
+       native loader (in order at one thread; as a set at four);
+    3. feed rates in images/s: the native loader alone (into NumPy buffers,
+       and into pinned ones), the same with each batch copied to the card,
+       and the Python chain alone (`RecordDatasetCreator.create_dataset`
+       with `RandomCrop` 256 -> 224 and `RandomFlipLeftRight` over a
+       256x256 shard set);
+    4. ResNet-50 (antisymmetric mid-convs, 224x224, 257 classes, full
+       width, random weights from seed 0) fed by `create_native_dataset`:
+       its first train step at batch 32 on a loader batch, card against
+       CPU from the same state (loss 1e-5, grad-norm row 5e-3, parameters
+       as `compare_steps` holds batch norm), then `Training`'s streaming
+       epoch of replayed steps, timed (images/s end to end) and profiled
+       (device idle share against the step's own device time), then an
+       evaluation over the records and `export_model` -> `load_exported`
+       -> predict against the model;
+    5. where Pillow imports, ``convert-records`` on a PNG tree and
+       ``predict`` on the image directory, card against CPU.
+
+    The bottleneck family launches no hand-written kernel: B1/B2 stay at 0.
+    Returns the launches of the main path (4), which must be (0, 0)."""
+    from differential_equations_resnet_tpu_torch import cli
+    from differential_equations_resnet_tpu_torch.data import (
+        NumpyDataset,
+        RandomCrop,
+        RandomFlipLeftRight,
+        RecordDatasetCreator,
+        RecordGenerator,
+        UnpackImagesLabels,
+    )
+    from differential_equations_resnet_tpu_torch.data.records import read_record_file
+    from differential_equations_resnet_tpu_torch.native import (
+        NativeRecordLoader,
+        native_codec_available,
+        native_loader_available,
+        read_raw_shard,
+    )
+
+    t_phase = time.perf_counter()
+    native = [name for name, source in _build.SOURCES.items() if source.compiler == "g++"]
+    seconds = _build.build(native)  # built by phase_build: 0.0 s here
+    for name in native:
+        log(f"[records] g++ {name}: {_build.library_path(name).relative_to(_build.BUILD_ROOT)} "
+            f"({seconds[name]:.1f} s)")
+    if not (native_codec_available() and native_loader_available()):
+        raise AssertionError("a native record library did not load")
+
+    size = RECORDS_SIZE
+    shape = (size, size, 3)
+    rng = np.random.default_rng(40)
+    images = rng.integers(0, 256, (RECORDS_IMAGES, *shape), dtype=np.uint8)
+    labels = rng.integers(0, RECORDS_CLASSES, RECORDS_IMAGES).astype(np.int64)
+    root = os.path.join(tmp, "records")
+    t0 = time.perf_counter()
+    paths = RecordGenerator().write_arrays(images, labels, root,
+                                           num_files_per_record=RECORDS_SHARD)
+    written = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    log(f"[records] write_arrays: {RECORDS_IMAGES} images {size}x{size}x3, {len(paths)} shards, "
+        f"{nbytes} bytes in {written:.3f} s ({nbytes / written / 1e6:.1f} MB/s)")
+
+    t0 = time.perf_counter()
+    python = [r for p in paths for r in read_record_file(p)]
+    python_s = time.perf_counter() - t0
+    ok = (np.array_equal(np.stack([r["image"] for r in python]), images)
+          and [r["label"] for r in python] == labels.tolist())
+    t0 = time.perf_counter()
+    shards = [read_raw_shard(p, shape) for p in paths]
+    codec_s = time.perf_counter() - t0
+    ok = ok and all(r is not None for r in shards)
+    ok = ok and (np.array_equal(np.concatenate([r[0] for r in shards]), images)
+                 and np.array_equal(np.concatenate([r[1] for r in shards]), labels))
+    in_order = NativeRecordLoader(paths, shape, batch_size=HARNESS_BATCH, repeat=False,
+                                  shuffle_files=False, num_threads=1)
+    t0 = time.perf_counter()
+    batches = list(in_order)
+    loader_s = time.perf_counter() - t0
+    in_order.close()
+    ok = ok and (np.array_equal(np.concatenate([b[0] for b in batches]), images)
+                 and np.array_equal(np.concatenate([b[1] for b in batches]), labels))
+    threaded = NativeRecordLoader(paths, shape, batch_size=HARNESS_BATCH, repeat=False,
+                                  shuffle_files=True, shuffle_buffer_size=256, num_threads=4,
+                                  seed=1)
+    shuffled = list(threaded)
+    threaded.close()
+    same_set = (records_signature([im for b in shuffled for im in b[0]],
+                                  np.concatenate([b[1] for b in shuffled]))
+                == records_signature(images, labels))
+    log(f"[records] read back bit for bit: Python reader {python_s:.3f} s, C++ codec "
+        f"{codec_s:.3f} s, native loader (1 thread, in order) {loader_s:.3f} s: "
+        f"{'ok' if ok else 'FAIL'}; native loader (4 threads, shuffled) the same set of "
+        f"records: {same_set}")
+    if not (ok and same_set):
+        raise AssertionError("records read back otherwise than they were written")
+    del python, shards, batches, shuffled
+
+    # Feed rates: the native loader at 4 threads with both shuffles (the
+    # training configuration), alone and with each batch copied to the card.
+    def to_card(loader, pinned):
+        """The loader's batches copied to the card as `Training` stages them:
+        into page-locked memory first, unless the loader filled it there."""
+        for x, y in loader:
+            staged = torch.from_numpy(x)
+            yield (staged if pinned else staged.pin_memory()).cuda(non_blocking=True), y
+
+    rates, pinned_seen = {}, None
+    for pinned in (False, True):
+        for copied in (False, True):
+            loader = NativeRecordLoader(paths, shape, batch_size=HARNESS_BATCH, repeat=True,
+                                        shuffle_files=True, shuffle_buffer_size=256,
+                                        num_threads=4, seed=2)
+            loader._pinned = pinned  # the loader pins on a CUDA machine; NumPy buffers to compare
+            feed = to_card(loader, pinned) if copied else loader
+            first = next(feed)  # the first batch waits for the workers' first shards
+            if pinned and not copied:
+                pinned_seen = torch.from_numpy(first[0]).is_pinned()
+            rates[pinned, copied] = feed_rate(feed, 2 * RECORDS_IMAGES)
+            loader.close()
+    need = HARNESS_BATCH * 1e3 / 77.5  # a replayed 224x224 step, H100 80GB HBM3 at 700 W (PERF.md §5)
+    log(f"[records] native loader, 4 threads, shuffled, {2 * RECORDS_IMAGES} images: alone "
+        f"{rates[False, False]:.1f} images/s into NumPy buffers, {rates[True, False]:.1f} into "
+        f"pinned ones; with each batch copied to the card {rates[False, True]:.1f} "
+        f"(pin_memory() then copy) and {rates[True, True]:.1f} (pinned, copied directly; "
+        f"torch sees the buffer as pinned: {pinned_seen}); a 77.5 ms step needs "
+        f"{need:.1f} images/s ({smi})")
+
+    side = RECORDS_CHAIN_SIZE
+    big = rng.integers(0, 256, (256, side, side, 3), dtype=np.uint8)
+    big_paths = RecordGenerator().write_arrays(big, labels[:256], os.path.join(tmp, "records256"),
+                                               num_files_per_record=64)
+    chain = RecordDatasetCreator(
+        big_paths, batch_size=HARNESS_BATCH, repeat=True, num_epochs=2, shuffle=True,
+        shuffle_buffer_size=256, seed=3,
+        preprocessors=[UnpackImagesLabels(), RandomCrop(scale=size / side, seed=4),
+                       RandomFlipLeftRight(seed=5)]).create_dataset()
+    chain_iter = iter(chain)
+    first, _ = next(chain_iter)
+    chain_rate = feed_rate(chain_iter, 2 * 256 - HARNESS_BATCH)
+    log(f"[records] Python chain (UnpackImagesLabels, RandomCrop {side} -> {first.shape[1]}, "
+        f"RandomFlipLeftRight, shuffle buffer 256) over 4 shards of {side}x{side}x3: "
+        f"{chain_rate:.1f} images/s, batches {tuple(first.shape)} {first.dtype} ({smi})")
+    if first.shape != (HARNESS_BATCH, size, size, 3):
+        raise AssertionError(f"the Python chain gave batches of {first.shape}")
+    del big, chain, chain_iter
+
+    config = resnet_preset("resnet50", RECORDS_CLASSES, antisymmetric_mid=True, image_shape=shape)
+    card = build_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda")
+    cpu = build_resnet(config, params=card.params(), state=card.state(), device="cpu")
+    creator = RecordDatasetCreator(paths, batch_size=HARNESS_BATCH, repeat=True, shuffle=True,
+                                   shuffle_buffer_size=256, seed=6)
+    fed = [0]
+
+    def counted():  # pinned buffers, as the loader fills them on a CUDA machine
+        for batch in creator.create_native_dataset(shape, num_threads=4):
+            if not torch.from_numpy(batch[0]).is_pinned():
+                raise AssertionError("the native loader's batch is not in pinned memory")
+            fed[0] += 1
+            yield batch
+
+    reset_counts()
+    stream = counted()
+    x, y = next(stream)
+    t0 = time.perf_counter()
+    compare_steps("records", describe_resnet(config) + ", a loader batch", card, cpu, steps=1,
+                  batch=len(x), loss_tol=1e-5, grad_tol=RESNET_GRAD_TOL,
+                  leaf_tol=RESNET_LEAF_TOL,
+                  batches=[(torch.from_numpy(x.astype(np.float32)), torch.from_numpy(y))])
+    log(f"[records] the first step, card and CPU, {time.perf_counter() - t0:.1f} s")
+    del cpu
+
+    val = RecordDatasetCreator(paths, batch_size=HARNESS_BATCH, repeat=True, shuffle=False)
+    trainer = Training(card, train_dataset=NumpyDataset.from_generator(lambda: stream),
+                       val_dataset=val.create_native_dataset(shape, num_threads=1),
+                       batch_size=HARNESS_BATCH, record_summaries=False)
+
+    def epoch(steps):
+        return trainer.train(epochs=1, steps_per_epoch=steps, learning_rate_schedule=lambda s: LR,
+                             eval_frequency=None, verbose=False)
+
+    epoch(2)  # the capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = epoch(RECORDS_STEPS)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    window, busy, ops, idle, _ = profile_window(lambda: epoch(RECORDS_PROFILED), 1,
+                                                "records_epoch")
+    loss = history["train"][-1]["mean_loss"]
+    rate = RECORDS_STEPS * HARNESS_BATCH / epoch_s
+    log(f"[records] {describe_resnet(config)} fed by create_native_dataset (4 threads, pinned): "
+        f"{RECORDS_STEPS} replayed steps at batch {HARNESS_BATCH} (after 1 compared and 2 "
+        f"warm-up) in {epoch_s:.4f} s: {epoch_s / RECORDS_STEPS * 1e3:.4f} ms a step, "
+        f"{rate:.1f} images/s end to end, mean loss {loss:.4f}; profiled epoch of "
+        f"{RECORDS_PROFILED} steps: host {window / RECORDS_PROFILED:.4f} ms a step, device busy "
+        f"{busy / RECORDS_PROFILED:.4f} ms a step ({ops / RECORDS_PROFILED:.1f} device "
+        f"operations), idle share {idle:.1%} ({smi})")
+    if not np.isfinite(loss):
+        raise AssertionError("the records-fed ResNet-50's loss is not finite")
+
+    metrics = trainer.evaluate("val", num_steps=RECORDS_IMAGES // HARNESS_BATCH)
+    exported = export_model(card, os.path.join(tmp, "records_resnet50"))
+    predict, manifest = load_exported(exported, device="cuda")
+    sample = images[:HARNESS_BATCH].astype(np.float32)
+    with torch.no_grad():
+        want = card(torch.from_numpy(sample).cuda()).cpu()
+    err = norm_rel(torch.from_numpy(predict(sample)), want)
+    launches = launch_counts()
+    ok = (np.isfinite(metrics["mean_loss"]) and manifest["family"] == "bottleneck"
+          and err <= PREDICT_TOL and launches == (0, 0) and fed[0] >= 1 + 2 + RECORDS_STEPS
+          + RECORDS_PROFILED)
+    log(f"[records] evaluation over the {RECORDS_IMAGES} records ({RECORDS_IMAGES // HARNESS_BATCH}"
+        f" replayed batches through the native loader): {json.dumps(metrics)}; export_model -> "
+        f"load_exported -> predict at batch {HARNESS_BATCH} against the model norm-rel "
+        f"{err:.2e} (tol {PREDICT_TOL:g}); {fed[0]} training batches came from the native "
+        f"loader; B1/B2 launches {launches} (want (0, 0)): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the records-fed ResNet-50 went wrong")
+    stream.close()
+    del trainer, predict, card
+    torch.cuda.empty_cache()
+
+    try:
+        from PIL import Image
+    except ImportError:
+        log("[records] Pillow leg: not run (Pillow is not installed here); convert-records and "
+            "predict on an image directory are held against the JAX package's CLI by the CPU tests")
+    else:
+        tree = os.path.join(tmp, "png_tree")
+        os.makedirs(tree)
+        pngs = rng.integers(0, 256, (8, 40, 48, 3), dtype=np.uint8)
+        for i, png in enumerate(pngs):
+            Image.fromarray(png).save(os.path.join(tree, f"{i % 3}_{i}.png"))
+        cli.main(["convert-records", tree, os.path.join(tmp, "png_records"), "--shard-size", "4"])
+        converted = [r for p in sorted(os.listdir(os.path.join(tmp, "png_records")))
+                     for r in read_record_file(os.path.join(tmp, "png_records", p))]
+        probs = {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"png_{device}.npy")
+            finish(run_cli("predict", tree, "--device", device, "--batch-size", "8",
+                           "--output", out), f"predict {device}")
+            probs[device] = np.load(out)
+        err = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+        ok = len(converted) == 8 and probs["cuda"].shape == (8, 10) and err <= 1e-4
+        log(f"[records] Pillow leg ran: convert-records wrote {len(converted)} records; predict "
+            f"on the image directory (64L x 16F, 8 PNGs resized 40x48 -> 32x32) card vs cpu "
+            f"max|diff| {err:.2e} (tol 1e-4): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("convert-records or predict on an image directory went wrong")
+    log(f"[records] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
+MNIST_SHAPE = (32, 28, 28, 16)  # batch, H, W, C of the MNIST model's identity stack
+MNIST_LAYERS = 8
+MNIST_SIZES = (60000, 10000)    # synthetic_mnist's train and test images, MNIST's own
+
+
+def phase_mnist(smi):
+    """The MNIST smoke workflow (`mnist_single_block_config()`: 8L x 16F at
+    28x28, full width) on the card:
+
+    1. B1 and B2 at its stack's shape, 32x28x28x16, L = 8 (28 rows make
+       uneven bands), against their plain versions (B2 judged by a float64
+       run, as `phase_kernels_bwd`), then timed beside their bounds;
+    2. the model from seed 0 against its CPU twin on seeded
+       `synthetic_mnist` data: logits at batch 32, then 2 train steps at
+       batch 32 each from the same state (`compare_steps`);
+    3. an epoch's worth of replayed steps (60,000 images, 1875 steps at
+       batch 32, device-resident) through `Training`, a device evaluation
+       of the 10,000 test images, and `predict`.
+
+    Returns the B1 and B2 launches of steps 2-3 (the main path)."""
+    from differential_equations_resnet_tpu_torch.data.mnist import (
+        mnist_single_block_config,
+        synthetic_mnist,
+    )
+
+    t_phase = time.perf_counter()
+    b, hh, ww, c = MNIST_SHAPE
+    h = 1.0 / MNIST_LAYERS
+    x, kernels, biases, g = make_case(b, hh, ww, c, MNIST_LAYERS, 300)
+    got = fi.fused_euler_dense(x, kernels, biases, h)
+    want = fi.reference_euler_dense(x, kernels, biases, h)
+    fwd_err, fwd_ok = max_violation(got, want, FP32_TOL)
+    grads = fi.fused_euler_dense_bwd(x, kernels, biases, g, h)
+    plain = fi.reference_euler_dense_bwd(x, kernels, biases, g, h)
+    judge = fi.reference_euler_dense_bwd(*[t.double() for t in (x, kernels, biases, g)], h)
+    bwd_err = max(float((a - w).abs().max()) for a, w in zip(grads, plain))
+    bwd_ok = all(norm_rel(a, j) <= 2 * norm_rel(w, j) + 1e-5 for a, w, j in zip(grads, plain, judge))
+    log(f"[mnist] B1 {'x'.join(map(str, MNIST_SHAPE))} L={MNIST_LAYERS} "
+        f"({describe_bands(x.shape)[1]}, {fi.kernel_variant(x.shape)} variant): max|kernel-plain| "
+        f"{fwd_err:.3e} (tol rtol=atol={FP32_TOL:g}); B2 ({describe_bands(x.shape, True)[1]}, "
+        f"{fi.kernel_variant(x.shape, True)} variant): max|B2-plain| {bwd_err:.3e}, as close to "
+        f"float64 as the plain version: {'ok' if fwd_ok and bwd_ok else 'FAIL'}")
+    if not (fwd_ok and bwd_ok):
+        raise AssertionError("B1 or B2 disagrees with its plain version at 28x28x16")
+    times = {}
+    for name, fn, backward in (
+            ("B1", lambda: fi.fused_euler_dense(x, kernels, biases, h), False),
+            ("B1 plain", lambda: fi.reference_euler_dense(x, kernels, biases, h), False),
+            ("B2", lambda: fi.fused_euler_dense_bwd(x, kernels, biases, g, h), True),
+            ("B2 plain", lambda: fi.reference_euler_dense_bwd(x, kernels, biases, g, h), True)):
+        times[name] = cuda_time_ms(fn)
+        if " " not in name:
+            bound = kernel_bounds(b, hh, ww, c, MNIST_LAYERS, backward)
+            log(f"[mnist] {name} at {'x'.join(map(str, MNIST_SHAPE))} L={MNIST_LAYERS}: "
+                f"{times[name]:.4f} ms, bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+                f"({bound['flops'] / 1e9:.3f} GFLOP, {bound['nbytes']} bytes), "
+                f"{bound['bound_ms'] / times[name]:.1%} of bound ({smi})")
+    log(f"[mnist] plain versions: B1 {times['B1 plain']:.4f} ms, B2 {times['B2 plain']:.4f} ms")
+
+    config = mnist_single_block_config()
+    tr_x, tr_y, te_x, te_y, _ = synthetic_mnist(*MNIST_SIZES, seed=0)
+    card = build_single_block_resnet(config, generator=torch.Generator().manual_seed(0),
+                                     device="cuda")
+    cpu = build_single_block_resnet(config, params=card.params(), device="cpu")
+    route = sbr.identity_route(config, torch.zeros(HARNESS_BATCH, hh, ww, c),
+                               sbr._dense_blocks(card.params()["stages"][0]["blocks"], config))
+    reset_counts()
+    images = torch.from_numpy(te_x[:HARNESS_BATCH].astype(np.float32))
+    with torch.no_grad():
+        got = card(images.cuda(), return_logits=True).cpu()
+        want = cpu(images, return_logits=True)
+    err, ok = max_violation(got, want, FP32_TOL)
+    log(f"[mnist] {MNIST_LAYERS}L x {c}F at 28x28x1 (route {route}): logits at batch "
+        f"{HARNESS_BATCH} max|card-cpu| {err:.3e} (max|cpu| {float(want.abs().max()):.3e}), tol "
+        f"rtol=atol={FP32_TOL:g}: {'ok' if ok else 'FAIL'}")
+    if not ok or route != "fused":
+        raise AssertionError("the MNIST model's logits disagree with the CPU's or left B1/B2")
+    batches = [(torch.from_numpy(tr_x[i * HARNESS_BATCH:(i + 1) * HARNESS_BATCH].astype(np.float32)),
+                torch.from_numpy(tr_y[i * HARNESS_BATCH:(i + 1) * HARNESS_BATCH])) for i in range(2)]
+    compare_steps("mnist", f"{MNIST_LAYERS}L x {c}F MNIST", card, cpu, steps=2,
+                  batch=HARNESS_BATCH, batches=batches)
+    del cpu
+
+    trainer = Training(card, train_features=tr_x, train_labels=tr_y, val_features=te_x,
+                       val_labels=te_y, batch_size=HARNESS_BATCH, record_summaries=False)
+    steps = len(tr_x) // HARNESS_BATCH
+    t0 = time.perf_counter()
+    history = trainer.train(epochs=1, steps_per_epoch=steps, learning_rate_schedule=lambda s: LR,
+                            device_data=True, verbose=False)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    probs = trainer.predict(te_x[:100].astype(np.float32))
+    launches = launch_counts()
+    wide = wide_counts()
+    train, evaluated = history["train"][-1], history["eval"][-1]
+    ok = (np.isfinite(train["mean_loss"]) and evaluated["accuracy"] > 0.15  # above chance
+          and probs.shape == (100, 10) and np.allclose(probs.sum(-1), 1, atol=1e-5)
+          and launches[0] > steps and launches[1] > steps and wide == (0, 0))
+    log(f"[mnist] a device-resident epoch of {steps} replayed steps at batch {HARNESS_BATCH} "
+        f"and a device evaluation of {len(te_x)} images (with capture) {epoch_s:.3f} s: train "
+        f"loss {train['mean_loss']:.4f} acc {train['accuracy']:.4f}, eval loss "
+        f"{evaluated['mean_loss']:.4f} acc {evaluated['accuracy']:.4f}; predict 100 images: "
+        f"probabilities {probs.shape}, argmax of the first 8 {probs[:8].argmax(-1).tolist()}; "
+        f"B1/B2 launches {launches} (wide {wide}) ({smi}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the MNIST workflow went wrong on the card")
+    del trainer, card
+    torch.cuda.empty_cache()
+    log(f"[mnist] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 def cifar_arrays():
     """Synthetic CIFAR-10 of the real size and dtype: (train images,
     train labels, val images, val labels)."""
@@ -2394,17 +2818,21 @@ def main() -> int:
         phase_int8_serve(tmp, smi)
     phase_int8_train(smi)
     phase_s2d(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        records_launches = phase_records(tmp, smi)
+    mnist_fwd, mnist_bwd = phase_mnist(smi)
     source = "differential_equations_resnet_tpu_torch/csrc/"
     replaces = "differential_equations_resnet_tpu/ops/pallas/fused_integrator.py:"
     kernels = [
         {"name": "fused_euler_fwd", "route": "cuda", "source": source + "fused_euler_fwd.cu",
          "replaces": replaces + "146",
          "launches": (serve_launches + train_fwd + harness_fwd + types_fwd + epochs_fwd
-                      + wide_fwd - wide_only_fwd),
+                      + wide_fwd - wide_only_fwd + records_launches[0] + mnist_fwd),
          "max_abs_err": fwd_err, **fwd_timing, "library_ms": None},
         {"name": "fused_euler_bwd", "route": "cuda", "source": source + "fused_euler_bwd.cu",
          "replaces": replaces + "216",
-         "launches": train_bwd + harness_bwd + types_bwd + epochs_bwd + wide_bwd - wide_only_bwd,
+         "launches": (train_bwd + harness_bwd + types_bwd + epochs_bwd + wide_bwd - wide_only_bwd
+                      + records_launches[1] + mnist_bwd),
          "max_abs_err": bwd_err, **bwd_timing, "library_ms": None},
         {"name": "fused_euler_fwd_wide", "route": "cuda", "source": source + "fused_euler_wide.cu",
          "replaces": replaces + "146", "launches": wide_only_fwd,

@@ -5,13 +5,15 @@ defaults:
 
     train            headline CIFAR-10 single-block runs (v7 notebook cells 1-8)
     evaluate         restore a checkpoint and evaluate
-    predict          batch inference from a .npy array
+    predict          batch inference from a .npy array or an image directory
     benchmark        train steps/s + batch-1 inference latency (v7 cells 19-25)
     analyze          TrainingHistory gradient-flow diagnostics (v7 cell 27)
     deep-stability   100-step gamma sweep + conv-matrix eigenvalue check
     sweep            width x depth train-throughput grid
     reproduce        the reference's three published 64-layer runs
     export           serving export (config + params) of a model or checkpoint
+    convert-records  image directory tree -> sharded binary records
+    fetch-cifar10    download, sha256-verify and extract CIFAR-10
 
     python -m differential_equations_resnet_tpu_torch.cli train --num-layers 64 --epochs 1
 
@@ -25,9 +27,8 @@ subcommand that builds a model, in fp32 or, with ``--bf16``, in bf16
 compute, and with ``--int8-forward`` (``--int8-backward
 ste|dgrad|wgrad|full``) with int8 forward convs; ``export --int8`` writes an
 export that `utils.serving.load_exported` serves with int8 convs.
-``predict`` takes only a .npy array: image
-directories need the host preprocessors and records (ROADMAP A8), as
-``convert-records`` and ``fetch-cifar10`` do, which are not registered yet.
+``predict`` on an image directory decodes
+each image (Pillow) and resizes it to the model's input as the JAX CLI does.
 The MFU that ``benchmark`` and ``sweep`` print is against the card's peak
 for the compute dtype (``mfu_vs_fp32_peak``, or ``mfu_vs_bf16_peak`` with
 ``--bf16``), where the JAX package prints it against a TPU's bf16 peak.
@@ -243,21 +244,32 @@ def cmd_evaluate(args) -> int:
 
 
 def cmd_predict(args) -> int:
-    """Batch inference: a .npy array of images -> class probabilities."""
+    """Batch inference: images (a .npy array, or a directory of JPEG/PNG
+    images decoded and resized bilinearly to the model's input) -> class
+    probabilities."""
     import numpy as np
 
     from differential_equations_resnet_tpu_torch.train import Training
 
-    if not args.input.endswith(".npy"):
-        raise NotImplementedError(
-            "predict takes a .npy array; image directories need the host preprocessors "
-            "and records (ROADMAP A8)."
-        )
     model = _build_model(args)
     trainer = Training(model, batch_size=args.batch_size, record_summaries=False)
     if args.checkpoint:
         trainer.load_variables(args.checkpoint)
-    images = np.load(args.input)
+    if args.input.endswith(".npy"):
+        images = np.load(args.input)
+    else:
+        from differential_equations_resnet_tpu_torch.data.preprocessors import (
+            _decode_image_bytes,
+            resize_bilinear,
+        )
+        from differential_equations_resnet_tpu_torch.data.records import get_image_paths
+
+        size = model.config.image_shape[:2]
+        images = []
+        for path in get_image_paths([args.input]):
+            with open(path, "rb") as f:
+                images.append(resize_bilinear(_decode_image_bytes(f.read(), 3), size))
+        images = np.stack(images)
     if images.ndim == 3:
         images = images[None]
     probs = trainer.predict(images.astype(np.float32))
@@ -540,6 +552,28 @@ def cmd_export(args) -> int:
     return 0
 
 
+def cmd_convert_records(args) -> int:
+    from differential_equations_resnet_tpu_torch.data.records import RecordGenerator
+
+    RecordGenerator().convert(
+        input_directory=args.input,
+        output_directory=args.output,
+        prefix=args.prefix,
+        num_files_per_record=args.shard_size,
+        train_val_split=args.val_split,
+        store_raw_arrays=args.raw,
+    )
+    return 0
+
+
+def cmd_fetch_cifar10(args) -> int:
+    from differential_equations_resnet_tpu_torch.data.cifar10 import fetch_cifar10
+
+    path = fetch_cifar10(args.dest, verify=not args.no_verify)
+    print(json.dumps({"cifar10_dir": path}))
+    return 0
+
+
 def _gradient_flow_diagnostics(th):
     """The reference's three gradient-flow diagnostics (v7 notebook cells
     30/34/38) from a TrainingHistory."""
@@ -617,7 +651,7 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("predict")
     _add_model_args(p)
-    p.add_argument("input", help=".npy image array (N,H,W,3)")
+    p.add_argument("input", help=".npy image array (N,H,W,3) or a directory of images")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--output", default=None, help="write probabilities .npy")
@@ -663,6 +697,22 @@ def main(argv=None) -> int:
                              help="rematerialization off (the default)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser("convert-records")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--prefix", default="")
+    p.add_argument("--shard-size", type=int, default=1000)
+    p.add_argument("--val-split", type=float, default=None)
+    p.add_argument("--raw", action="store_true")
+    p.set_defaults(fn=cmd_convert_records)
+
+    p = sub.add_parser("fetch-cifar10",
+                       help="download + sha256-verify + extract the official CIFAR-10 release "
+                            "(needs network access; see fetch_cifar10 for the manual fallback)")
+    p.add_argument("--dest", default="data")
+    p.add_argument("--no-verify", action="store_true")
+    p.set_defaults(fn=cmd_fetch_cifar10)
 
     p = sub.add_parser("reproduce",
                        help="run the reference's three 21-epoch CIFAR-10 configs and compare "

@@ -1,9 +1,17 @@
-"""Build the port's CUDA sources into plain-C shared libraries at first use.
+"""Build the port's native sources into plain-C shared libraries at first use.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
-``build/kernels/lib<name>-<hash>.so`` at the root of the checkout, keyed by
-a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, and
-loaded with `ctypes`.  Nothing is compiled when this module is imported.
+Each source is compiled into ``build/<subdir>/lib<name>-<hash>.so`` at the
+root of the checkout, keyed by a hash of the source, its shared headers and
+the flags, and loaded with `ctypes`:
+
+- the CUDA kernels under ``csrc/`` by ``nvcc`` for ``sm_90a`` into
+  ``build/kernels/`` (their headers are ``csrc/*.cuh``);
+- the record codec and loader under ``native/`` by ``g++`` into
+  ``build/native/``.
+
+A build goes to a temporary file that is renamed into place, so processes
+that build at once (test workers) never load a half-written library.
+Nothing is compiled when this module is imported.
 """
 
 from __future__ import annotations
@@ -17,71 +25,94 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, NamedTuple, Tuple
 
-CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {
-    "fused_euler_fwd": "fused_euler_fwd.cu",
-    "fused_euler_bwd": "fused_euler_bwd.cu",
-    "fused_euler_wide": "fused_euler_wide.cu",
-}
+PACKAGE = Path(__file__).resolve().parents[2]
+CSRC = PACKAGE / "csrc"
+NATIVE = PACKAGE / "native"
+BUILD_ROOT = PACKAGE.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-O3", "-shared", "-fPIC")
+
+
+class Source(NamedTuple):
+    path: Path  # the source file
+    compiler: str  # "nvcc" or "g++"
+    flags: Tuple[str, ...]
+    subdir: str  # the library goes to build/<subdir>/
+    headers: Tuple[str, ...] = ()  # globs beside the source whose bytes key the hash too
+
+
+def _cuda(file: str) -> Source:
+    return Source(CSRC / file, "nvcc", NVCC_FLAGS, "kernels", ("*.cuh",))
+
+
+SOURCES = {
+    "fused_euler_fwd": _cuda("fused_euler_fwd.cu"),
+    "fused_euler_bwd": _cuda("fused_euler_bwd.cu"),
+    "fused_euler_wide": _cuda("fused_euler_wide.cu"),
+    "dert_codec": Source(NATIVE / "dert_codec.cc", "g++", CXX_FLAGS, "native"),
+    "dert_loader": Source(NATIVE / "dert_loader.cc", "g++", CXX_FLAGS + ("-pthread",), "native"),
+}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _compiler(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.is_file():
+    default = Path("/usr/local/cuda/bin") / name
+    if name == "nvcc" and default.is_file():
         return str(default)
-    raise RuntimeError("nvcc was not found on PATH or under /usr/local/cuda/bin.")
+    raise RuntimeError(f"{name} was not found on PATH"
+                       + (" or under /usr/local/cuda/bin." if name == "nvcc" else "."))
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC / SOURCES[name]).read_bytes()
-    headers = b"".join(path.read_bytes() for path in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(source + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    source = SOURCES[name]
+    headers = b"".join(path.read_bytes() for pattern in source.headers
+                       for path in sorted(source.path.parent.glob(pattern)))
+    digest = hashlib.sha256(source.path.read_bytes() + headers
+                            + " ".join(source.flags).encode()).hexdigest()[:16]
+    return BUILD_ROOT / source.subdir / f"lib{name}-{digest}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
-    """Compile every named source that is not built yet, one ``nvcc`` each,
-    all started together.  Returns each build's seconds (0.0 where the
-    library already existed); raises `RuntimeError` with nvcc's output if
-    any build fails.  ptxas's register and shared-memory report is kept
-    beside each library as ``<library>.log``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    """Compile every named source that is not built yet, one compiler
+    process each, all started together.  Returns each build's seconds (0.0
+    where the library already existed); raises `RuntimeError` with the
+    compiler's output if any build fails or a compiler is missing.  The
+    compiler's output (for nvcc, ptxas's register and shared-memory report)
+    is kept beside each library as ``<library>.log``."""
+    todo = {name: library_path(name) for name in names}
+    seconds = {name: 0.0 for name, target in todo.items() if target.is_file()}
+    compilers = {name: _compiler(SOURCES[name].compiler) for name in todo if name not in seconds}
     started = {}
-    seconds = {}
-    for name in names:
-        target = library_path(name)
-        if target.is_file():
-            seconds[name] = 0.0
-            continue
-        nvcc = _nvcc()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    for name, compiler in compilers.items():
+        source, target = SOURCES[name], todo[name]
+        target.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / SOURCES[name])]
+        cmd = [compiler, *source.flags, "-o", tmp, str(source.path)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, tmp, target, time.perf_counter())
+        started[name] = (proc, tmp, time.perf_counter())
     failures = []
-    for name, (proc, tmp, target, t0) in started.items():
+    for name, (proc, tmp, t0) in started.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        source = SOURCES[name]
         if proc.returncode != 0:
             os.unlink(tmp)
-            failures.append(f"nvcc failed on {SOURCES[name]} (exit {proc.returncode}):\n{log}")
+            failures.append(f"{source.compiler} failed on {source.path.name} "
+                            f"(exit {proc.returncode}):\n{log}")
             continue
-        target.with_suffix(".so.log").write_text(log)
-        os.replace(tmp, target)
+        todo[name].with_suffix(".so.log").write_text(log)
+        os.replace(tmp, todo[name])
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds

@@ -271,8 +271,9 @@ class Training:
         if self._jit_augment is not None and not device_data:
             raise ValueError(
                 "jit_augment runs inside the device-resident epoch only; call "
-                "train(device_data=True).  Silently training unaugmented would "
-                "corrupt the experiment."
+                "train(device_data=True), or use the host preprocessors "
+                "(data/preprocessors.py) for the streaming paths.  Silently "
+                "training unaugmented would corrupt the experiment."
             )
         if steps_per_epoch < 1:
             raise ValueError(

@@ -143,7 +143,7 @@ C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_l
 def test_ctypes_signatures_match_the_sources(library, function):
     """Each C entry point's argument and return types, read from its source,
     are what the ctypes binding declares (any pointer is c_void_p)."""
-    source = (fi._build.CSRC / fi._build.SOURCES[library]).read_text()
+    source = fi._build.SOURCES[library].path.read_text()
     found = re.search(r"^(const char\*|long long|int) " + function + r"\(([^)]*)\)", source,
                       re.MULTILINE)
     assert found, function

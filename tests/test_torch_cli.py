@@ -130,11 +130,167 @@ def test_bf16_flag_runs_as_the_jax_cli_builds_it(capsys, monkeypatch, flags):
     assert model.config == want and model.config.compute_dtype == torch.bfloat16
 
 
-def test_predict_takes_npy_only_and_other_subcommands_are_not_registered(tmp_path):
-    """Image directories and the records and download subcommands wait
-    for the host data modules (ROADMAP A8)."""
-    with pytest.raises(NotImplementedError, match="A8"):
+def test_predict_takes_npy_only_and_other_subcommands_are_not_registered(tmp_path, capsys):
+    """Before the host data modules (ROADMAP A8) were ported, predict took
+    only a .npy array and ``convert-records`` and ``fetch-cifar10`` were not
+    registered.  Now a directory is read for its images (one without any
+    raises, as the JAX CLI does) and both subcommands are registered."""
+    with pytest.raises(ValueError, match="at least one array"):
         cli.main(["predict", str(tmp_path), *MODEL])
     for command in ("convert-records", "fetch-cifar10"):
-        with pytest.raises(SystemExit):
-            cli.main([command])
+        with pytest.raises(SystemExit) as exit_info:
+            cli.main([command, "--help"])
+        assert exit_info.value.code == 0
+        assert f"usage: deqres-torch {command}" in capsys.readouterr().out
+
+
+def write_png_tree(root, n=6, size=(20, 24), seed=0):
+    """PNGs named `<label>_<n>.png` in ``root`` and a subdirectory."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "sub"), exist_ok=True)
+    for i in range(n):
+        folder = root if i % 2 else os.path.join(root, "sub")
+        Image.fromarray(rng.integers(0, 256, (*size, 3), dtype=np.uint8)).save(
+            os.path.join(folder, f"{i % 3}_{i}.png"))
+
+
+def test_predict_on_an_image_directory_matches_the_jax_cli(tmp_path, capsys, monkeypatch):
+    """``predict <dir>``: each PNG of the directory (not of its
+    subdirectories, as in the JAX CLI) decoded and resized bilinearly to
+    32x32, then the model's probabilities, from the same parameters as the
+    JAX CLI's model (its `Training` draws them from seed 0): within 1e-5."""
+    import jax
+
+    from differential_equations_resnet_tpu import cli as jax_cli
+    from differential_equations_resnet_tpu.models import (
+        build_single_block_resnet as jax_build,
+        cifar10_single_block_config as jax_config,
+    )
+    from torch_parity import port_model
+
+    monkeypatch.setenv("DEQRES_COMPILE_CACHE", "0")
+    write_png_tree(str(tmp_path / "images"))
+    config = jax_config(num_layers=2, num_filters=4, s2d_block=0)
+    jax_model = jax_build(config)
+    params, _ = jax_model.init(jax.random.key(0))
+    monkeypatch.setattr(jax_cli, "_build_model", lambda args: jax_model)
+    monkeypatch.setattr(cli, "_build_model", lambda args: port_model(config, params))
+    outputs = {}
+    for name, module, flags in (("jax", jax_cli, []), ("torch", cli, ["--device", "cpu"])):
+        out = str(tmp_path / f"{name}.npy")
+        assert module.main(["predict", str(tmp_path / "images"), "--batch-size", "4",
+                            "--output", out, *flags]) == 0
+        outputs[name] = (json.loads(capsys.readouterr().out.strip().splitlines()[-1]), np.load(out))
+    (got_json, got), (want_json, want) = outputs["torch"], outputs["jax"]
+    assert got.shape == (3, 10) and got_json["num_images"] == 3
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert got_json["predictions"] == want_json["predictions"]
+
+
+def record_set(directory):
+    """({split directory: (sorted shard names, record count)}, sorted (label,
+    name, image bytes) of every record) of a converted tree."""
+    from differential_equations_resnet_tpu_torch.data.records import read_record_file
+
+    splits, items = {}, []
+    for root, _, names in os.walk(directory):
+        shards = sorted(n for n in names if n.endswith(".dert"))
+        if shards:
+            found = [(r["label"], r["filename"], bytes(np.asarray(r["image"])))
+                     for n in shards for r in read_record_file(os.path.join(root, n))]
+            splits[os.path.relpath(root, directory)] = (shards, len(found))
+            items += found
+    return splits, sorted(items)
+
+
+@pytest.mark.parametrize("flags", [[], ["--val-split", "0.25"], ["--raw", "--val-split", "0.5"]],
+                         ids=["all", "split", "raw-split"])
+def test_convert_records_matches_the_jax_cli(tmp_path, flags):
+    """``convert-records`` shuffles with an unseeded `random.Random`, in
+    either CLI, so the two are compared by the set of records, and each
+    split by its shards' names and its size."""
+    from differential_equations_resnet_tpu import cli as jax_cli
+
+    write_png_tree(str(tmp_path / "images"), n=9)
+    for name, module in (("jax", jax_cli), ("torch", cli)):
+        assert module.main(["convert-records", str(tmp_path / "images"), str(tmp_path / name),
+                            "--prefix", "p", "--shard-size", "2", *flags]) == 0
+    got, want = record_set(tmp_path / "torch"), record_set(tmp_path / "jax")
+    assert got == want
+    assert len(got[1]) == 9
+
+
+def cifar_archive(path, extra=b""):
+    """A tar.gz laid out as the CIFAR-10 python release (tiny batches);
+    returns its sha256."""
+    import hashlib
+    import io
+    import pickle
+    import tarfile
+
+    with tarfile.open(path, "w:gz") as tar:
+        for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch", "batches.meta"]:
+            data = pickle.dumps({b"name": name.encode(), b"extra": extra})
+            info = tarfile.TarInfo(f"cifar-10-batches-py/{name}")
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+@pytest.mark.parametrize("case", ["no-verify", "checksum-ok", "checksum-bad", "downloaded",
+                                  "download-corrupt", "already-extracted"])
+def test_fetch_cifar10_on_a_test_built_archive_matches_the_jax_cli(tmp_path, capsys,
+                                                                   monkeypatch, case):
+    """Checksum and extraction of ``fetch-cifar10`` as the JAX CLI's, on an
+    archive this test builds; the download is replaced by a copy of a local
+    file or by an error, so nothing leaves the machine."""
+    import shutil
+    import urllib.error
+    import urllib.request
+
+    from differential_equations_resnet_tpu import cli as jax_cli
+    from differential_equations_resnet_tpu.data import cifar10 as jax_cifar10
+    from differential_equations_resnet_tpu_torch.data import cifar10
+
+    source = str(tmp_path / "source.tar.gz")
+    digest = cifar_archive(source)
+    corrupt = str(tmp_path / "corrupt.tar.gz")
+    cifar_archive(corrupt, extra=b"x")
+    if case != "checksum-bad":  # the release's published checksum, otherwise
+        for module in (cifar10, jax_cifar10):
+            monkeypatch.setattr(module, "CIFAR10_TGZ_SHA256", digest)
+
+    def fake_download(url, target):
+        if case in ("downloaded", "download-corrupt"):
+            shutil.copy(source if case == "downloaded" else corrupt, target)
+            return target, None
+        raise urllib.error.URLError("no network in tests")
+
+    monkeypatch.setattr(urllib.request, "urlretrieve", fake_download)
+    results = {}
+    for name, module in (("jax", jax_cli), ("torch", cli)):
+        dest = tmp_path / name
+        dest.mkdir()
+        if case not in ("downloaded", "download-corrupt"):
+            shutil.copy(source, dest / "cifar-10-python.tar.gz")
+        if case == "already-extracted":
+            (dest / "cifar-10-batches-py").mkdir()
+            (dest / "cifar-10-batches-py" / "data_batch_1").write_bytes(b"kept")
+        flags = ["--no-verify"] if case == "no-verify" else []
+        try:
+            module.main(["fetch-cifar10", "--dest", str(dest), *flags])
+            out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+            results[name] = ("ok", os.path.relpath(out["cifar10_dir"], dest),
+                             sorted(os.listdir(dest / "cifar-10-batches-py")),
+                             (dest / "cifar-10-batches-py" / "data_batch_1").read_bytes())
+        except RuntimeError as e:
+            results[name] = ("error", str(e).replace(str(dest), "<dest>").split(" (")[0])
+    assert results["torch"] == results["jax"]
+    expect = "error" if case in ("checksum-bad", "download-corrupt") else "ok"
+    assert results["torch"][0] == expect
+    if expect == "ok":
+        assert results["torch"][1] == "cifar-10-batches-py"
+        assert len(results["torch"][2]) == (1 if case == "already-extracted" else 7)

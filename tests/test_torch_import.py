@@ -45,7 +45,8 @@ def test_fresh_import_loads_no_jax():
             for name in ("metrics", "schedules", "telemetry", "train_step")} <= set(modules)
     assert {f"{port.__name__}.{name}" for name in (
         "ops.integrators", "experiments", "experiments.deep_stability", "experiments.sweeps",
-        "utils.weight_utils", "cli")} <= set(modules)
+        "utils.weight_utils", "cli", "data.records", "data.preprocessors", "data.mnist",
+        "native.codec", "native.loader")} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
