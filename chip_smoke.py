@@ -110,7 +110,19 @@ Phases, each of which raises on failure (exit code != 0):
    against their plain versions and timed beside their bounds, the
    `mnist_single_block_config()` model (8L x 16F) against the CPU on
    seeded `synthetic_mnist` data, then an epoch of 1875 replayed steps,
-   a device evaluation and predict.
+   a device evaluation and predict;
+21. meshes (`phase_mesh`, parallel/): a device-resident epoch of the
+   64L x 16F model through a one-rank NCCL ``data`` mesh against the same
+   epoch without a mesh (same state and seed: the first 16 steps' rows and
+   the parameters within the step bounds), 1562-step epochs of both timed,
+   their B1/B2 launches counted; two spawned ranks
+   sharing the card over gloo (CUDA tensors) taking
+   `make_train_step(mesh=...)` eagerly at global batch 32 (16 images a
+   rank: B1/B2 launch on each) against the one-rank step from the same
+   state, for the fused 64L x 16F model and for ResNet-50 at 32x32 with
+   batch norm (its moments all-reduced); a captured loop over gloo raises
+   naming the backend; then TP and PP at axis size 1 on NCCL, each
+   model-level forward and step against the meshless model.
 
 A kernel's launches are those on the card: its wrapper counts each launch
 outside a CUDA-graph capture, and each replay of a graph counts the
@@ -161,6 +173,7 @@ from differential_equations_resnet_tpu_torch.train import (
     Training,
     gradient_metric_names,
     make_adam,
+    make_device_epoch,
     make_multi_step,
     make_predict_step,
     make_train_step,
@@ -2775,6 +2788,293 @@ def phase_mnist(smi):
     return launches
 
 
+# A step over a mesh against the same step without one (PERF.md §2): the
+# loss relative, the grad-norm row relative, each parameter absolute.
+MESH_LOSS_TOL = 1e-5
+MESH_ROW_TOL = 1e-3
+MESH_PARAM_TOL = 1e-3
+MESH_RANKS = 2
+MESH_RANK_TIMEOUT = 300
+# Steps of the device-resident epochs compared row by row.  cuDNN's weight
+# gradients (the stem's) differ from run to run in the last bits, and a
+# random-label epoch of 64 layers under Adam amplifies that over its 1562
+# steps as it would between two meshless epochs, so the whole epoch is
+# timed and its loss reported, and its first steps are held to the bounds.
+MESH_COMPARED_STEPS = 16
+
+
+def mesh_step_rows(model, mesh, batches, device):
+    """Eager `make_train_step(mesh=...)` steps over global ``batches``:
+    their telemetry rows and the parameters and buffers after, on the
+    host."""
+    step = make_train_step(model, make_adam(model.parameters()), mesh=mesh)
+    rows = [pack_row(*step(x.to(device), y.to(device), LR)).cpu() for x, y in batches]
+    return (torch.stack(rows), [p.detach().cpu() for p in model.parameters()],
+            [b.detach().cpu() for b in model.buffers()])
+
+
+def mesh_cases(device):
+    """The two models the gloo ranks step (seeded): the fused 64L x 16F
+    model for 2 steps and ResNet-50 at 32x32 with batch norm for one (a
+    random-init ResNet's next steps part under Adam, compare_steps), each at
+    global batch 32."""
+    rng = np.random.default_rng(40)
+    batches = [image_batch(rng, MESH_RANKS * 16) for _ in range(2)]
+    return [
+        ("64L x 16F", lambda: build_single_block_resnet(
+            cifar10_single_block_config(num_layers=64, num_filters=16),
+            generator=torch.Generator().manual_seed(41), device=device), batches),
+        ("ResNet-50 32x32", lambda: build_resnet(
+            resnet_preset("resnet50", 10, image_shape=(32, 32, 3)),
+            generator=torch.Generator().manual_seed(42), device=device), batches[:1]),
+    ]
+
+
+def mesh_rank(rank, store, out, device):
+    """One of the gloo ranks that share the card (a spawned process): every
+    case's eager mesh steps, this rank's B1/B2 launches, and what a captured
+    loop over gloo raises."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from differential_equations_resnet_tpu_torch.parallel import create_mesh
+
+    result = {}
+    try:
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=MESH_RANKS)
+        mesh = create_mesh((MESH_RANKS,), ("data",), device_type=device)
+        fi.reset_launch_counts()
+        for label, build, batches in mesh_cases(device):
+            result[label] = mesh_step_rows(build(), mesh, batches, device)
+        result["launches"] = launch_counts()
+        if device == "cuda":
+            model = mesh_cases(device)[0][1]()
+            multi = make_multi_step(model, make_adam(model.parameters()), mesh=mesh)
+            x, y = mesh_cases(device)[0][2][0]
+            try:
+                multi(x[None].cuda(), y[None].cuda(), [LR])
+                result["captured"] = "no error"
+            except RuntimeError as e:
+                result["captured"] = str(e)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException as e:  # noqa: BLE001 - reported by the parent
+        import traceback
+
+        result = {"error": f"rank {rank}: {e!r}\n{traceback.format_exc()}"}
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_mesh_ranks(tmp, device):
+    """Spawn the gloo ranks (`mesh_rank`) and return their results; every
+    rank is stopped by the end, at the latest after MESH_RANK_TIMEOUT s."""
+    import multiprocessing
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(tmp, "store")
+    outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(MESH_RANKS)]
+    procs = [ctx.Process(target=mesh_rank, args=(r, store, outs[r], device))
+             for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    results = []
+    for r, out in enumerate(outs):
+        if not os.path.exists(out):
+            raise AssertionError(f"gloo rank {r} left no result (exit code {procs[r].exitcode})")
+        with open(out, "rb") as f:
+            results.append(pickle.load(f))
+    errors = [r["error"] for r in results if "error" in r]
+    if errors:
+        raise AssertionError("\n".join(errors))
+    return results
+
+
+def rows_agree(got, want, loss_tol=MESH_LOSS_TOL, row_tol=MESH_ROW_TOL):
+    """(loss rel, row rel, ok) of telemetry rows [loss, correct, count, *norms]."""
+    loss_err = float(((got[:, 0] - want[:, 0]).abs() / want[:, 0].abs()).max())
+    row_err = float(((got[:, 3:] - want[:, 3:]).abs() / want[:, 3:].abs()).max())
+    same = torch.equal(got[:, 1:3], want[:, 1:3])
+    return loss_err, row_err, loss_err <= loss_tol and row_err <= row_tol and same
+
+
+def mesh_epoch_run(model, mesh, features, labels, steps, device):
+    """A device-resident epoch of MESH_COMPARED_STEPS replayed steps of
+    ``model`` (the first, which captures the step), then one of ``steps``
+    timed: (rows of the first, parameters after it, rows of the second,
+    seconds of the second)."""
+    epoch = make_device_epoch(model, make_adam(model.parameters()), HARNESS_BATCH, mesh=mesh,
+                              augment=standard_cifar_augment())
+    out = []
+    for seed, n in ((1, MESH_COMPARED_STEPS), (2, steps)):
+        generator = torch.Generator(device=device).manual_seed(seed)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, norms = epoch(features, labels, generator, [LR] * n)
+        rows = torch.cat([torch.stack([metrics[k] for k in ("loss", "correct", "count")], 1),
+                          norms], 1).cpu()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out.append((rows, [p.detach().cpu() for p in model.parameters()],
+                    time.perf_counter() - t0))
+    (rows, params, _), (timed_rows, _, seconds) = out
+    return rows, params, timed_rows, seconds
+
+
+def phase_mesh(smi, arrays, device="cuda", epoch_steps=None):
+    """Meshes on the card (parallel/, ROADMAP A15).  One card: the NCCL
+    collectives run on a world of one rank, and two gloo ranks share it;
+    nothing here measures a multi-GPU speed.
+
+    1. The 64L x 16F model's device-resident epoch through a one-rank NCCL
+       ``data`` mesh against the same epoch without a mesh, from the same
+       state and seeds: MESH_COMPARED_STEPS replayed steps compared row by
+       row (the all-reduce of one rank adds nothing; bit for bit is
+       reported, the bounds are held), then an epoch of 1562 steps of each
+       timed (the collective's cost on one card), B1/B2 launches of the
+       mesh epochs counted.
+    2. Two spawned gloo ranks on the card (`mesh_rank`): eager
+       `make_train_step(mesh=...)` at global batch 32 against the one-rank
+       step from the same state, for the fused model (B1/B2 on each rank's
+       16 images) and for ResNet-50 at 32x32 with batch norm (loss
+       RESNET_LOSS_TOL, row RESNET_GRAD_TOL, parameters BN_STEP_BOUND lr,
+       running statistics STATE_TOL); a captured loop over gloo raises
+       naming the backend.
+    3. TP, PP and tp x pp at axis size 1 on NCCL: an 8L x 16F model's
+       eval-mode logits and one eager step against the meshless model.
+
+    Returns the B1 and B2 launches of parts 1 and 2 (the mesh path)."""
+    import torch.distributed as dist
+
+    from differential_equations_resnet_tpu_torch.parallel import create_mesh
+
+    t_phase = time.perf_counter()
+    train_x, train_y = arrays[:2]
+    steps = epoch_steps or len(train_x) // HARNESS_BATCH
+    features = torch.from_numpy(train_x).to(device)
+    labels = torch.from_numpy(train_y).to(device)
+    mesh = create_mesh((1,), ("data",), device_type=device)
+    backend = dist.get_backend(mesh.get_group(0))
+    runs = {}
+    for label, m in (("meshless", None), ("mesh", mesh)):
+        model = headline_model() if device == "cuda" else build_single_block_resnet(
+            cifar10_single_block_config(num_layers=64, num_filters=16),
+            generator=torch.Generator().manual_seed(0), device=device)
+        reset_counts()
+        runs[label] = mesh_epoch_run(model, m, features, labels, steps, device) + (launch_counts(),)
+    rows_m, params_m, timed_m, sec_m, launches = runs["mesh"]
+    rows_0, params_0, timed_0, sec_0, _ = runs["meshless"]
+    bitwise = torch.equal(rows_m, rows_0) and all(torch.equal(a, b) for a, b in zip(params_m, params_0))
+    loss_err, row_err, rows_ok = rows_agree(rows_m, rows_0)
+    param_err = max(float((a - b).abs().max()) for a, b in zip(params_m, params_0))
+    # The kernels' wrappers count launches on the card (on the CPU they run
+    # the plain versions, which count nothing).
+    want = (WARMUP_CALLS + MESH_COMPARED_STEPS + steps,) * 2 if device == "cuda" else (0, 0)
+    finite = bool(torch.isfinite(timed_m).all() and torch.isfinite(timed_0).all())
+    ok = rows_ok and param_err <= MESH_PARAM_TOL and launches == want and finite
+    log(f"[mesh] one-rank {backend} data mesh, 64L x 16F device-resident epochs of {steps} "
+        f"replayed steps at batch {HARNESS_BATCH} (augmented): mesh {sec_m:.4f} s "
+        f"({steps / sec_m:.2f} steps/s) vs meshless {sec_0:.4f} s ({steps / sec_0:.2f} steps/s), "
+        f"collective cost {(sec_m - sec_0) / steps * 1e3:+.4f} ms a step; epoch mean loss "
+        f"{float(timed_m[:, 0].mean()):.4f} vs {float(timed_0[:, 0].mean()):.4f} ({smi})")
+    log(f"[mesh] mesh vs meshless, the first {MESH_COMPARED_STEPS} replayed steps from the same "
+        f"state and seed: bit for bit {bitwise}; loss rel {loss_err:.2e} (tol "
+        f"{MESH_LOSS_TOL:g}), rows rel {row_err:.2e} (tol {MESH_ROW_TOL:g}), params max abs "
+        f"{param_err:.2e} (tol {MESH_PARAM_TOL:g}); launches B1 {launches[0]} B2 {launches[1]} "
+        f"(want {want}: {WARMUP_CALLS} warm-up calls + one replay a step): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the device-resident epoch over a one-rank mesh differs")
+    total = list(launches)
+
+    # 2. two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_mesh_ranks(tmp, device)
+    rank_seconds = time.perf_counter() - t0
+    agree = True
+    for label, build, batches in mesh_cases(device):
+        want_rows, want_params, want_buffers = mesh_step_rows(build(), None, batches, device)
+        bn = "ResNet" in label
+        for r, got in enumerate(ranks):
+            rows, params, buffers = got[label]
+            loss_err, row_err, rows_ok = rows_agree(
+                rows, want_rows, *((RESNET_LOSS_TOL, RESNET_GRAD_TOL) if bn else ()))
+            worst = max(float((a - b).abs().max()) for a, b in zip(params, want_params))
+            state_err = max((norm_rel(a, b) for a, b in zip(buffers, want_buffers)), default=0.0)
+            if bn:
+                ok = rows_ok and worst / LR <= BN_STEP_BOUND and state_err <= STATE_TOL
+                bounds = (f"params max |diff| {worst / LR:.3f} of lr (tol {BN_STEP_BOUND:g}), "
+                          f"running statistics norm-rel {state_err:.2e} (tol {STATE_TOL:g})")
+            else:
+                ok = rows_ok and worst <= MESH_PARAM_TOL
+                bounds = f"params max abs {worst:.2e} (tol {MESH_PARAM_TOL:g})"
+            agree = agree and ok
+            log(f"[mesh] gloo rank {r} of {MESH_RANKS} on one card, {label}, {len(batches)} "
+                f"eager mesh step(s) at global batch {len(batches[0][0])} vs the one-rank step: "
+                f"loss rel {loss_err:.2e}, rows rel {row_err:.2e}, {bounds}: "
+                f"{'ok' if ok else 'FAIL'}")
+    for r, got in enumerate(ranks):
+        fwd, bwd = got["launches"]
+        # The fused model's two steps on this rank's 16 images.
+        ok = fwd == bwd == (2 if device == "cuda" else 0)
+        captured = got.get("captured", "not run off the card")
+        raises = device != "cuda" or "gloo" in captured
+        agree = agree and ok and raises
+        log(f"[mesh] gloo rank {r}: B1 {fwd} B2 {bwd} launches (want 2 each), a captured loop "
+            f"over gloo: {captured!r}: {'ok' if ok and raises else 'FAIL'}")
+        total = [total[0] + fwd, total[1] + bwd]
+    log(f"[mesh] {MESH_RANKS} gloo ranks: {rank_seconds:.1f} s from spawn to exit ({smi})")
+    if not agree:
+        raise AssertionError("the gloo ranks' mesh steps differ from the one-rank step")
+
+    # 3. TP and PP at axis size 1 on NCCL
+    grid = create_mesh((1, 1), ("pipe", "model"), device_type=device)
+    base = cifar10_single_block_config(num_layers=8, num_filters=16)
+    rng = np.random.default_rng(43)
+    batches = [image_batch(rng, 8)]
+    want_model = build_single_block_resnet(base, generator=torch.Generator().manual_seed(44),
+                                           device=device)
+    with torch.no_grad():
+        want_logits = want_model(batches[0][0].to(device), return_logits=True).cpu()
+    want_rows, want_params, _ = mesh_step_rows(want_model, None, batches, device)
+    agree = True
+    for label, fields in (("tp_mesh", dict(tp_mesh=grid)), ("pp_mesh", dict(pp_mesh=grid)),
+                          ("tp x pp", dict(tp_mesh=grid, pp_mesh=grid))):
+        model = build_single_block_resnet(dataclasses.replace(base, **fields),
+                                          generator=torch.Generator().manual_seed(44), device=device)
+        with torch.no_grad():
+            logits = model(batches[0][0].to(device), return_logits=True).cpu()
+        logits_err = float((logits - want_logits).abs().max())
+        rows, params, _ = mesh_step_rows(model, grid, batches, device)
+        loss_err, row_err, rows_ok = rows_agree(rows, want_rows)
+        worst = max(float((a - b).abs().max()) for a, b in zip(params, want_params))
+        ok = logits_err <= FP32_TOL * (1 + float(want_logits.abs().max())) and rows_ok and (
+            worst <= MESH_PARAM_TOL)
+        agree = agree and ok
+        log(f"[mesh] {label} of one rank ({backend}), 8L x 16F at batch 8 vs the meshless model: "
+            f"eval logits max abs {logits_err:.2e}, step loss rel {loss_err:.2e}, rows rel "
+            f"{row_err:.2e}, params max abs {worst:.2e}: {'ok' if ok else 'FAIL'}")
+    if not agree:
+        raise AssertionError("TP or PP of axis size 1 differs from the meshless model")
+    dist.destroy_process_group()
+    log(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return tuple(total)
+
+
 def cifar_arrays():
     """Synthetic CIFAR-10 of the real size and dtype: (train images,
     train labels, val images, val labels)."""
@@ -2821,18 +3121,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         records_launches = phase_records(tmp, smi)
     mnist_fwd, mnist_bwd = phase_mnist(smi)
+    mesh_fwd, mesh_bwd = phase_mesh(smi, arrays)
     source = "differential_equations_resnet_tpu_torch/csrc/"
     replaces = "differential_equations_resnet_tpu/ops/pallas/fused_integrator.py:"
     kernels = [
         {"name": "fused_euler_fwd", "route": "cuda", "source": source + "fused_euler_fwd.cu",
          "replaces": replaces + "146",
          "launches": (serve_launches + train_fwd + harness_fwd + types_fwd + epochs_fwd
-                      + wide_fwd - wide_only_fwd + records_launches[0] + mnist_fwd),
+                      + wide_fwd - wide_only_fwd + records_launches[0] + mnist_fwd + mesh_fwd),
          "max_abs_err": fwd_err, **fwd_timing, "library_ms": None},
         {"name": "fused_euler_bwd", "route": "cuda", "source": source + "fused_euler_bwd.cu",
          "replaces": replaces + "216",
          "launches": (train_bwd + harness_bwd + types_bwd + epochs_bwd + wide_bwd - wide_only_bwd
-                      + records_launches[1] + mnist_bwd),
+                      + records_launches[1] + mnist_bwd + mesh_bwd),
          "max_abs_err": bwd_err, **bwd_timing, "library_ms": None},
         {"name": "fused_euler_fwd_wide", "route": "cuda", "source": source + "fused_euler_wide.cu",
          "replaces": replaces + "146", "launches": wide_only_fwd,

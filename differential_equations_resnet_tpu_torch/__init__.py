@@ -42,6 +42,11 @@ Module map (each module names its JAX counterpart):
 - `train.telemetry`            <- `train/telemetry.py` (gradient mean norms,
   `CsvLogger`)
 - `train.metrics`, `train.schedules` <- `train/metrics.py`, `train/schedules.py`
+- `parallel.mesh`, `parallel.shard_map_step`, `parallel.pipeline` <-
+  `parallel/` (meshes of ranks on `torch.distributed`, the
+  explicit-collective step, pipeline parallelism), with
+  `parallel.collectives` (the autograd collectives) and
+  `parallel.tensor_parallel` (the Megatron form of ``tp_mesh``)
 - `utils.weight_utils`         <- the JAX <-> port parameter converter
 - `utils.serving`              <- `utils/serving.py`
 """

@@ -1,7 +1,7 @@
 """The port's experiments: the conv-matrix spectrum, the forward
 stability report and the gamma sweep of the deep-stability study, and the
-width x depth train-throughput sweep (the JAX package's `experiments/`
-without its device mesh)."""
+width x depth train-throughput sweep (the JAX package's `experiments/`,
+the sweep over a device mesh included)."""
 
 from differential_equations_resnet_tpu_torch.experiments.deep_stability import (  # noqa: F401
     conv_matrix_spectrum,

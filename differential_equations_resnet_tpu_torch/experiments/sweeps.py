@@ -1,7 +1,6 @@
 """Width x depth train-throughput sweeps.
 
-Port of `differential_equations_resnet_tpu/experiments/sweeps.py` for one
-card (``mesh`` raises `NotImplementedError`, ROADMAP A15).  Each cell builds
+Port of `differential_equations_resnet_tpu/experiments/sweeps.py`.  Each cell builds
 a single-block ODE-ResNet at (width, depth) on the ImageNet-32 workload and
 measures sustained train steps a second on synthetic data, every step a
 replay of one captured CUDA graph (`train.make_multi_step`), with model
@@ -12,6 +11,11 @@ the JAX package's do; a bf16 cell runs every layer on cuDNN, as the JAX
 package runs it on XLA (its kernel gate takes fp32 only).  An fp32 cell's
 identity stack runs on B1/B2 or layer by layer as
 `models.single_block_resnet.identity_route` says.
+
+``mesh`` (`parallel.create_mesh`) runs every cell's steps over the mesh
+(`make_multi_step(mesh=...)`, each rank its rows of the global batch) on
+its device type; ``model_tflops`` is then the whole mesh's rate and the
+MFU is per device, divided over ``mesh.size()``, as in the JAX package.
 
 Left behind, because it was measured on a TPU: the JAX package's no-remat
 capacity rule (``remat=None`` is off here).
@@ -32,20 +36,13 @@ from differential_equations_resnet_tpu_torch.models import (
     build_single_block_resnet,
 )
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import compute_dtype_of
+from differential_equations_resnet_tpu_torch.parallel.mesh import shard_params
 from differential_equations_resnet_tpu_torch.train.train_step import make_adam, make_multi_step
 from differential_equations_resnet_tpu_torch.utils.flops import (
     mfu,
     peak_of,
     single_block_train_flops,
 )
-
-
-def _no_mesh(mesh, name: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{name}(mesh=...): data parallelism over a device mesh waits for its port "
-            "(ROADMAP A15)."
-        )
 
 
 def imagenet32_config(
@@ -88,12 +85,14 @@ def measure_train_throughput(
     steps (the capture among them), then ``steps`` steps on one batch,
     timed on the host clock up to a read of the last step's loss.  MFU is
     against the peak of the config's compute dtype (``mfu_vs_bf16_peak`` or
-    ``mfu_vs_fp32_peak``)."""
-    _no_mesh(mesh, "measure_train_throughput")
-    device = resolve_device(device)
+    ``mfu_vs_fp32_peak``), per device of ``mesh``.  ``device`` defaults to
+    the mesh's device type."""
+    device = resolve_device(device if device is not None or mesh is None else mesh.device_type)
     model = build_single_block_resnet(
         config, generator=torch.Generator().manual_seed(seed), device=device)
-    multi = make_multi_step(model, make_adam(model.parameters()))
+    if mesh is not None:
+        shard_params(mesh, model)
+    multi = make_multi_step(model, make_adam(model.parameters()), mesh=mesh)
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(
         rng.uniform(0, 255, (batch_size,) + tuple(config.image_shape)).astype(np.float32)).to(device)
@@ -110,12 +109,13 @@ def measure_train_throughput(
     steps_per_sec = steps / elapsed
     flops_step = single_block_train_flops(config, batch_size)
     peak_name, peak = peak_of(compute_dtype_of(config))
+    devices = mesh.size() if mesh is not None else 1
     return {
         "steps_per_sec": steps_per_sec,
         "images_per_sec": steps_per_sec * batch_size,
         "step_ms": 1e3 * elapsed / steps,
         "model_tflops": flops_step * steps_per_sec / 1e12,
-        f"mfu_vs_{peak_name}_peak": mfu(flops_step, steps_per_sec, peak),
+        f"mfu_vs_{peak_name}_peak": mfu(flops_step, steps_per_sec, peak) / devices,
     }
 
 
@@ -132,8 +132,7 @@ def width_depth_sweep(
     device: Optional[Union[str, torch.device]] = None,
 ) -> Dict[Tuple[int, int], Dict[str, float]]:
     """`measure_train_throughput` at every (width, depth) grid point.
-    ``remat=None`` means off."""
-    _no_mesh(mesh, "width_depth_sweep")
+    ``remat=None`` means off.  ``mesh``: see `measure_train_throughput`."""
     results: Dict[Tuple[int, int], Dict[str, float]] = {}
     for width in widths:
         for depth in depths:
@@ -143,5 +142,5 @@ def width_depth_sweep(
             if num_classes != 1000:
                 config = dataclasses.replace(config, num_classes=num_classes)
             results[(width, depth)] = measure_train_throughput(
-                config, batch_size, steps=steps, device=device)
+                config, batch_size, mesh=mesh, steps=steps, device=device)
     return results

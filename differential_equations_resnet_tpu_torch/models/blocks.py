@@ -16,8 +16,10 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from differential_equations_resnet_tpu_torch.parallel.collectives import all_reduce_sum, data_group
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     Antisym3x3DenseParams,
     Antisym3x3Params,
@@ -94,8 +96,22 @@ def batch_norm(
     mean and biased variance over every other axis, through which the
     gradient flows, and the new running statistics ``0.99 * old + 0.01 *
     batch`` (detached); else the running statistics, unchanged.  Returns
-    (y, new_state); the caller writes new_state into its buffers."""
-    if train:
+    (y, new_state); the caller writes new_state into its buffers.
+
+    Inside `parallel.collectives.data_parallel` over a group of more than
+    one rank, train mode takes the moments of the whole batch, every rank's
+    rows, as the JAX package's step sharded over ``data`` does: the sums
+    are all-reduced with their gradient (`_global_moments`), so the running
+    statistics end the same on every rank."""
+    group = data_group()
+    if train and group is not None and dist.get_world_size(group) > 1:
+        mean, var = _global_moments(x, group)
+        with torch.no_grad():
+            new_state = BatchNormState(
+                mean=BN_MOMENTUM * state.mean + (1.0 - BN_MOMENTUM) * mean,
+                var=BN_MOMENTUM * state.var + (1.0 - BN_MOMENTUM) * var,
+            )
+    elif train:
         var, mean = torch.var_mean(x, dim=tuple(range(x.dim() - 1)), correction=0)
         with torch.no_grad():
             new_state = BatchNormState(
@@ -108,6 +124,18 @@ def batch_norm(
     inv = torch.rsqrt(var.to(x.dtype) + BN_EPSILON)
     y = (x - mean.to(x.dtype)) * inv * params.scale.to(x.dtype)
     return y + params.offset.to(x.dtype), new_state
+
+
+def _global_moments(x: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, biased variance) per channel over every rank's rows: the sum
+    and then the centred sum of squares all-reduced over ``group``, both
+    differentiable (`parallel.collectives.all_reduce_sum`), in fp32 sums."""
+    dims = tuple(range(x.dim() - 1))
+    count = x.numel() // x.shape[-1] * dist.get_world_size(group)
+    mean = all_reduce_sum(x.sum(dim=dims, dtype=torch.float32), group) / count
+    centred = x.float() - mean
+    var = all_reduce_sum((centred * centred).sum(dim=dims), group) / count
+    return mean.to(x.dtype), var.to(x.dtype)
 
 
 def dense(x: torch.Tensor, params: DenseParams) -> torch.Tensor:

@@ -34,8 +34,21 @@ stack's shapes and the config before anything is launched
   "direct" (`euler_relu_step`, or the integrator over `conv_relu_field`);
   with batch norm it is conv, batch norm and relu.
 
-`route_counts` counts the stacks each route ran, and `per_layer_counts` the
-per-layer stacks by form (Python calls: a replayed CUDA graph adds none).  Gradients flow through every leaf, so the model
+Over a device mesh (ROADMAP A15, `parallel/`) two more routes come first:
+with ``pp_mesh`` the Euler stack is pipelined over depth
+(`parallel.pipeline.pipeline_blocks_apply`, each stage's layers on one
+rank of the mesh's ``pp_axis``), and with ``tp_mesh`` every stack the JAX
+package would not run on its Pallas kernel runs layer by layer in Megatron
+form over the mesh's ``tp_axis`` (`parallel.tensor_parallel`: each rank
+convolves the full activations into its slice of the output channels, the
+slices are all-gathered): the Euler, int8, s2d, midpoint and RK4 forms and
+batch norm alike.  Where the JAX package runs Pallas, each rank runs B1/B2
+on full channels, as JAX runs its kernel on the replicated stack.
+
+`route_counts` counts the stacks each route ran, `per_layer_counts` the
+per-layer stacks by form, and `mesh_route_counts` the stacks run
+"tensor_parallel" or "pipeline" (Python calls: a replayed CUDA graph adds
+none).  Gradients flow through every leaf, so the model
 trains (`train.train_step`).  The forward takes ``train`` as the JAX
 ``apply`` does: with batch norm, train mode normalizes by the batch's
 statistics and updates the running ones (the model's buffers), eval mode
@@ -49,14 +62,18 @@ parameters, Adam's slots, checkpoints and the gradient telemetry stay fp32.
 
 The config accepts every key of the JAX package's ``config.json``, with
 the JAX package's validation (``int8_forward`` excludes batch norm,
-``use_pallas`` and ``pp_mesh``); the meshes, which the port does not run
-yet, raise `NotImplementedError` naming ROADMAP A15 when the model is
-built.  Accepted and ignored, because they do not change the numbers of a
-forward or backward pass:
+``use_pallas`` and ``pp_mesh``; ``pp_mesh`` takes the plain Euler stack;
+tp x pp takes one mesh).  Accepted and ignored, because they do not
+change the numbers of a forward or backward pass:
 
-- ``remat`` on the fused route, which keeps only the stack's input anyway;
-- ``scan_unroll``, ``data_axis_size``, ``device_platform``, ``pp_axis``,
-  ``pp_microbatches``, ``pp_batch_axis``, ``tp_axis``.
+- ``remat`` on the fused route, which keeps only the stack's input anyway,
+  and on the pipelined one, whose stages are always rematerialized;
+- ``scan_unroll``, ``data_axis_size``, ``device_platform`` (the step
+  builders bind the last two from the mesh, `with_mesh_context`; the
+  forward sees each rank's own rows, so the s2d gate counts per-device rows
+  without them);
+- ``pp_batch_axis``: under a data mesh the step has already given each
+  rank its rows, so the pipeline takes them as they are.
 
 The space-to-depth gate keeps the JAX rule except its default row count
 (`_s2d_eligible`): ``s2d_force`` packs on any device, an explicit
@@ -67,6 +84,7 @@ measured on a TPU).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import warnings
@@ -126,6 +144,7 @@ from differential_equations_resnet_tpu_torch.ops.s2d import (
     pack_kernel_s2d,
     space_to_depth,
 )
+from differential_equations_resnet_tpu_torch.parallel import tensor_parallel
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -195,6 +214,25 @@ class SingleBlockResNetConfig:
                 "midpoint/rk4 integrators require use_batch_norm=False (the "
                 "block must be a pure ODE field)."
             )
+        if self.pp_mesh is not None and (
+            self.integrator != "euler" or self.use_batch_norm or self.use_pallas
+        ):
+            raise ValueError(
+                "pp_mesh (pipeline parallelism) requires the plain Euler "
+                "identity stack: integrator='euler', use_batch_norm=False, "
+                "use_pallas=False."
+            )
+        if (
+            self.pp_mesh is not None
+            and self.tp_mesh is not None
+            and self.tp_mesh is not self.pp_mesh
+        ):
+            raise ValueError(
+                "Composing pipeline and tensor parallelism (tp x pp) "
+                "requires ONE mesh carrying both axes: pass the same Mesh "
+                "as pp_mesh and tp_mesh (with pp_axis and tp_axis naming "
+                "its two axes)."
+            )
         if self.int8_forward and (
             self.use_batch_norm or self.use_pallas or self.pp_mesh is not None
         ):
@@ -255,10 +293,8 @@ def cifar10_single_block_config(
 
 
 def unsupported_reason(config: SingleBlockResNetConfig) -> str:
-    """What of ``config`` this slice does not run, with the ROADMAP item it
-    waits on, or "" where the whole config is covered."""
-    if config.pp_mesh is not None or config.tp_mesh is not None:
-        return "pp_mesh/tp_mesh (pipeline and tensor parallelism, ROADMAP A15)"
+    """What of ``config`` the port does not run, or "" where the whole
+    config is covered."""
     return dtype_reason(config)
 
 
@@ -440,6 +476,7 @@ def _dense_blocks(blocks, config: SingleBlockResNetConfig) -> ConvParams:
 # and the per-layer ones by form (`per_layer_form`).
 route_counts = {"fused": 0, "per_layer": 0}
 per_layer_counts = {"int8": 0, "s2d": 0, "direct": 0}
+mesh_route_counts = {"tensor_parallel": 0, "pipeline": 0}
 
 
 def jax_runs_pallas(config: SingleBlockResNetConfig, x: torch.Tensor) -> bool:
@@ -478,7 +515,15 @@ def identity_route(config: SingleBlockResNetConfig, x: torch.Tensor, dense: Conv
     (`jax_runs_pallas`).
     "per_layer" for every other stack, as the JAX package runs it on XLA's
     convolutions, an ``int8_forward`` stack first of all.  Decided from
-    shapes, dtype and the config, before anything is launched."""
+    shapes, dtype and the config, before anything is launched.
+
+    Over a mesh: "pipeline" with ``pp_mesh``; "tensor_parallel" with
+    ``tp_mesh`` for every stack the JAX package would not run on Pallas
+    (which keeps "fused", each rank on full channels)."""
+    if config.pp_mesh is not None:
+        return "pipeline"
+    if config.tp_mesh is not None and not jax_runs_pallas(config, x):
+        return "tensor_parallel"
     if (config.int8_forward or config.use_batch_norm or config.integrator != "euler"
             or tuple(dense.kernel.shape[1:3]) != (3, 3) or not fused_euler_eligible(x, dense)):
         return "per_layer"
@@ -554,6 +599,52 @@ def _per_layer_stack(x: torch.Tensor, dense: ConvParams, config: SingleBlockResN
     return depth_to_space(y, b)
 
 
+def _tensor_parallel_stack(x, dense: ConvParams, config: SingleBlockResNetConfig, form: str,
+                           group) -> torch.Tensor:
+    """`_per_layer_stack` in Megatron form over ``group``: the field is
+    `tensor_parallel.field` on this rank's c_out slice of the kernels, or
+    `tensor_parallel.int8_field` on the whole layer (its scales are the
+    whole kernel's and cotangent's)."""
+    b = config.s2d_block
+    if form == "s2d":
+        dense, x = _pack_params_s2d(dense, config), space_to_depth(x, b)
+    if form == "int8":
+        params = ConvParams(*dense)
+        field = lambda y, p: tensor_parallel.int8_field(y, p, group, config.int8_backward)
+    else:
+        params = tensor_parallel.shard_out_channels(dense, group)
+        field = lambda y, p: tensor_parallel.field(y, p, group)
+    if config.integrator == "euler":
+        step = lambda y, p: y + config.h * field(y, p)
+    else:
+        method = get_integrator(config.integrator)
+        step = lambda y, p: method(field, y, config.h, p)
+    y = run_layers(step, x, params, remat=config.remat)
+    return depth_to_space(y, b) if form == "s2d" else y
+
+
+def _pipelined_stack(x: torch.Tensor, dense: ConvParams,
+                     config: SingleBlockResNetConfig) -> torch.Tensor:
+    """The Euler stack pipelined over ``config.pp_mesh[config.pp_axis]``
+    (`parallel.pipeline`), with channel TP inside each stage when
+    ``tp_mesh`` is the same mesh; packed in s2d form where `_s2d_eligible`
+    (the JAX `_apply_identity_blocks_pipelined`).  The rows are this rank's
+    own: under a data mesh the step has split the batch already."""
+    from differential_equations_resnet_tpu_torch.parallel.pipeline import pipeline_blocks_apply
+
+    kernel, bias = dense.kernel, dense.bias
+    packed = _s2d_eligible(config, x)
+    if packed:
+        kernel, bias = _pack_params_s2d(dense, config)
+        x = space_to_depth(x, config.s2d_block)
+    y = pipeline_blocks_apply(
+        kernel, bias, x, config.h, config.pp_mesh, axis_name=config.pp_axis,
+        num_microbatches=config.pp_microbatches or None,
+        tp_axis=config.tp_axis if config.tp_mesh is not None else None,
+    )
+    return depth_to_space(y, config.s2d_block) if packed else y
+
+
 def _warn_int8_divergent_backward(config: SingleBlockResNetConfig, x: torch.Tensor) -> None:
     """int8_backward='dgrad'/'full' quantizes the cotangent on the residual
     stream, and the JAX package measured such training diverge at trunk
@@ -573,14 +664,23 @@ def _warn_int8_divergent_backward(config: SingleBlockResNetConfig, x: torch.Tens
     )
 
 
-def _batch_norm_stack(x, dense: ConvParams, bn_params, bn_state, config, train: bool):
+def _batch_norm_stack(x, dense: ConvParams, bn_params, bn_state, config, train: bool,
+                      tp_group=None):
     """The Euler stack with batch norm, layer by layer: y + h * relu(BN(conv(y)
     + b)), each layer checkpointed where ``remat`` is set (the running
     statistics are outputs of the checkpointed step, so a recompute in the
-    backward does not apply them twice).  Returns (y, the stack's new (L,
-    C) BatchNormState)."""
+    backward does not apply them twice).  With ``tp_group`` the conv is the
+    Megatron form of `parallel.tensor_parallel` (this rank's output
+    channels, all-gathered before the norm).  Returns (y, the stack's new
+    (L, C) BatchNormState)."""
+    if tp_group is None:
+        conv = lambda y, p: conv2d_same(y, p.kernel, bias=p.bias)
+    else:
+        dense = tensor_parallel.shard_out_channels(dense, tp_group)
+        conv = lambda y, p: tensor_parallel.conv(y, p, tp_group)
+
     def step(y, p, bn_p, bn_s):
-        z, new = batch_norm(conv2d_same(y, p.kernel, bias=p.bias), bn_p, bn_s, train)
+        z, new = batch_norm(conv(y, p), bn_p, bn_s, train)
         return y + config.h * torch.relu(z), new.mean, new.var
 
     y, means, variances = x, [], []
@@ -603,17 +703,24 @@ def _apply_identity_blocks(x: torch.Tensor, sp: dict, ss: dict,
     _warn_int8_divergent_backward(config, x)
     dense = _dense_blocks(sp["blocks"], config)
     route = identity_route(config, x, dense)
+    tp_group = (config.tp_mesh.get_group(config.tp_axis) if route == "tensor_parallel"
+                else None)
     new_ss = {}
-    if route == "fused":
+    if route == "pipeline":
+        y = _pipelined_stack(x, dense, config)
+    elif route == "fused":
         y = fused_euler_dense(x, dense.kernel, dense.bias, float(config.h))
     elif config.use_batch_norm:
         y, new_ss["blocks_bn"] = _batch_norm_stack(x, dense, sp["blocks_bn"], ss["blocks_bn"],
-                                                   config, train)
+                                                   config, train, tp_group)
     else:
         form = per_layer_form(config, x)
-        y = _per_layer_stack(x, dense, config, form)
+        if tp_group is None:
+            y = _per_layer_stack(x, dense, config, form)
+        else:
+            y = _tensor_parallel_stack(x, dense, config, form, tp_group)
         per_layer_counts[form] += 1
-    route_counts[route] += 1
+    (mesh_route_counts if route in mesh_route_counts else route_counts)[route] += 1
     return y, new_ss
 
 
@@ -807,6 +914,24 @@ class SingleBlockResNet(TreeModel):
         ``return_logits``); ``train=True`` is the JAX ``apply(...,
         train=True)``: batch statistics, and the running ones updated."""
         return self._forward(apply_single_block_resnet, x, train, return_logits)
+
+    def with_mesh_context(self, data_axis_size: Optional[int] = None,
+                          device_platform: Optional[str] = None) -> "SingleBlockResNet":
+        """The model with its config bound to a mesh's data-axis size and
+        platform (an explicit ``device_platform`` wins), as the JAX step
+        builders bind it (`train.train_step._bind_mesh`): a shallow copy
+        that shares this model's parameters and buffers, or the model
+        itself where nothing changes."""
+        changes = {}
+        if data_axis_size is not None and data_axis_size != self.config.data_axis_size:
+            changes["data_axis_size"] = data_axis_size
+        if device_platform is not None and self.config.device_platform is None:
+            changes["device_platform"] = device_platform
+        if not changes:
+            return self
+        bound = copy.copy(self)
+        bound.config = dataclasses.replace(self.config, **changes)
+        return bound
 
 
 def build_single_block_resnet(

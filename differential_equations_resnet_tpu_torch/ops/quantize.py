@@ -43,8 +43,10 @@ import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from differential_equations_resnet_tpu_torch.parallel.collectives import data_group
 from differential_equations_resnet_tpu_torch.ops.conv import (
     conv2d_same,
     conv2d_same_vjp,
@@ -121,11 +123,27 @@ def quantize_kernel_per_tensor(
     return QuantizedConvParams(kq, scale, None if bias is None else bias.float())
 
 
-def quantize_activations_per_tensor(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def absmax_groups(tp_group=None) -> Tuple:
+    """The process groups a per-tensor scale's absmax is taken over: the
+    data-parallel group of `parallel.collectives.data_parallel` (the whole
+    batch's tensor, as the JAX package's step sharded over ``data`` takes
+    it) and ``tp_group`` (a tensor split on channels); groups of one rank
+    left out."""
+    return tuple(g for g in (data_group(), tp_group)
+                 if g is not None and dist.get_world_size(g) > 1)
+
+
+def quantize_activations_per_tensor(y: torch.Tensor, groups=()) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-tensor int8 quantization: (y_q, scale) with
-    ``y ~= y_q * scale``, the scale a 0-d fp32 tensor on y's device."""
+    ``y ~= y_q * scale``, the scale a 0-d fp32 tensor on y's device.  With
+    process ``groups`` (`absmax_groups`), ``y`` is this rank's share of a
+    tensor split over them, and the absmax is the whole tensor's (a max
+    all-reduce over each)."""
     yf = y.float()
-    scale = _scale_of(yf.abs().amax())
+    absmax = yf.abs().amax()
+    for group in groups:
+        dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+    scale = _scale_of(absmax)
     return _to_int8(yf / scale), _flushed(scale)
 
 
@@ -180,8 +198,9 @@ def _dynamic_int8_conv_parts(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(z, y_q, s_y): the dynamic-w8a8 conv output and the quantized
     activations it consumed (the int8 backward modes keep them as their
-    residual, 1 byte an element)."""
-    yq, s_y = quantize_activations_per_tensor(y)
+    residual, 1 byte an element).  Inside a data-parallel step the
+    activations' scale is the whole batch's (`absmax_groups`)."""
+    yq, s_y = quantize_activations_per_tensor(y, absmax_groups())
     z = int8_conv_same(yq, qp.kernel_q, strides).float() * (s_y * qp.scale)
     if qp.bias is not None:
         z = z + qp.bias
@@ -205,11 +224,12 @@ def transpose_int8_kernel(kernel_q: torch.Tensor) -> torch.Tensor:
     return kernel_q.flip(-4, -3).transpose(-1, -2)
 
 
-def _int8_dgrad(g_z, kernel_q, k_scale, out_dtype):
+def _int8_dgrad(g_z, kernel_q, k_scale, out_dtype, groups=()):
     """Data-gradient conv in w8a8: quantize the masked cotangent per
-    tensor, conv against the transposed int8 kernel, rescale.  Returns
-    (dy_conv, g_q, s_g); the weight gradient reuses (g_q, s_g)."""
-    g_q, s_g = quantize_activations_per_tensor(g_z)
+    tensor (over ``groups``, see `quantize_activations_per_tensor`), conv
+    against the transposed int8 kernel, rescale.  Returns (dy_conv, g_q,
+    s_g); the weight gradient reuses (g_q, s_g)."""
+    g_q, s_g = quantize_activations_per_tensor(g_z, groups)
     di = int8_conv_same(g_q, transpose_int8_kernel(kernel_q))
     return (di.float() * (s_g * k_scale)).to(out_dtype), g_q, s_g
 
@@ -274,8 +294,10 @@ def _save_residuals(ctx, backward, y, kernel, yq, s_y, qp, *extra):
     """The mode's residuals (then ``extra``, the relu mask where there is
     one): 'ste' (y, kernel); 'dgrad' (y, kernel, kernel_q, k_scale);
     'wgrad'/'full' the int8 activations instead of the fp ones, (y_q, s_y,
-    kernel_q, k_scale)."""
+    kernel_q, k_scale); and the groups the cotangent's scale is taken over
+    (`absmax_groups` at the forward)."""
     ctx.backward, ctx.kernel_dtype = backward, kernel.dtype
+    ctx.groups = absmax_groups(getattr(ctx, "tp_group", None))
     if backward == "ste":
         saved = (y, kernel)
     elif backward == "dgrad":
@@ -285,28 +307,29 @@ def _save_residuals(ctx, backward, y, kernel, yq, s_y, qp, *extra):
     ctx.save_for_backward(*saved, *extra)
 
 
-def _int8_linear_bwd(backward, saved, g_z, kernel_dtype):
+def _int8_linear_bwd(backward, saved, g_z, kernel_dtype, groups=()):
     """(dy_conv, dk, db) of ``z = int8conv(y, K) + b`` at ``g_z`` under the
     mode: everything downstream of the mode-independent ``g_z``.  'wgrad'
     takes the data gradient fp against the dequantized transposed kernel
     (no quantization noise on the residual stream); 'dgrad' and 'full'
-    quantize the cotangent for it."""
+    quantize the cotangent for it, with the scale of the whole cotangent
+    over ``groups`` (the forward's `absmax_groups`)."""
     if backward == "ste":
         y, kernel = saved
         return relu_conv_vjp(y, kernel, g_z)
     db = g_z.sum(dim=(0, 1, 2))
     if backward == "dgrad":
         y, kernel, kq, k_scale = saved
-        dy_conv, _, _ = _int8_dgrad(g_z, kq, k_scale, g_z.dtype)
+        dy_conv, _, _ = _int8_dgrad(g_z, kq, k_scale, g_z.dtype, groups)
         _, dk = conv2d_same_vjp(y, kernel, g_z, need=(False, True))
         return dy_conv, dk, db
     yq, s_y, kq, k_scale = saved
     if backward == "wgrad":
         k_t = transpose_int8_kernel(kq).to(g_z.dtype)
         dy_conv = (conv2d_same(g_z, k_t).float() * k_scale).to(g_z.dtype)
-        g_q, s_g = quantize_activations_per_tensor(g_z)
+        g_q, s_g = quantize_activations_per_tensor(g_z, groups)
     else:  # 'full'
-        dy_conv, g_q, s_g = _int8_dgrad(g_z, kq, k_scale, g_z.dtype)
+        dy_conv, g_q, s_g = _int8_dgrad(g_z, kq, k_scale, g_z.dtype, groups)
     dk = (_int8_wgrad(yq, g_q, tuple(kq.shape[-4:-2])).float() * (s_y * s_g)).to(kernel_dtype)
     return dy_conv, dk, db
 
@@ -325,7 +348,7 @@ class _EulerReluStepInt8(torch.autograd.Function):
     def backward(ctx, g):
         *saved, mask = ctx.saved_tensors
         g_z = torch.where(mask, ctx.h * g, 0.0).to(g.dtype)
-        dy_conv, dk, db = _int8_linear_bwd(ctx.backward, saved, g_z, ctx.kernel_dtype)
+        dy_conv, dk, db = _int8_linear_bwd(ctx.backward, saved, g_z, ctx.kernel_dtype, ctx.groups)
         return g + dy_conv, dk, db, None, None, None
 
 
@@ -340,7 +363,8 @@ class _ConvInt8Same(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        dy, dk, db = _int8_linear_bwd(ctx.backward, ctx.saved_tensors, g, ctx.kernel_dtype)
+        dy, dk, db = _int8_linear_bwd(ctx.backward, ctx.saved_tensors, g, ctx.kernel_dtype,
+                                      ctx.groups)
         return dy, dk, db, None, None
 
 
@@ -357,7 +381,7 @@ class _ConvReluFieldInt8(torch.autograd.Function):
     def backward(ctx, g):
         *saved, mask = ctx.saved_tensors
         g_z = torch.where(mask, g, 0.0).to(g.dtype)
-        dy, dk, db = _int8_linear_bwd(ctx.backward, saved, g_z, ctx.kernel_dtype)
+        dy, dk, db = _int8_linear_bwd(ctx.backward, saved, g_z, ctx.kernel_dtype, ctx.groups)
         return dy, dk, db, None, None
 
 

@@ -1,0 +1,31 @@
+"""Device meshes: data, explicit-collective, tensor and pipeline
+parallelism on `torch.distributed` (the JAX package's `parallel/`).
+
+`mesh` and `collectives` import nothing of the models; `shard_map_step`
+and `pipeline` are imported on first use, since the models themselves
+import `collectives`."""
+
+from differential_equations_resnet_tpu_torch.parallel.mesh import (  # noqa: F401
+    batch_sharding,
+    create_mesh,
+    initialize_multihost,
+    local_batch_slice,
+    replicated_sharding,
+    shard_batch,
+    shard_params,
+)
+
+_LAZY = {
+    "make_shard_map_train_step": "shard_map_step",
+    "pipeline_blocks_apply": "pipeline",
+    "pipeline_scan": "pipeline",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module = importlib.import_module(f"{__name__}.{_LAZY[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

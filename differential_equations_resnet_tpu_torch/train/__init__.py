@@ -2,7 +2,8 @@
 device-resident and CUDA-graph loops, the `Training` harness, checkpoints,
 streaming metrics, per-layer gradient-norm telemetry with its CSV and
 summary writers, the telemetry CSV analysis and learning-rate schedules
-(the JAX package's `train/` without its device mesh)."""
+(the JAX package's `train/`; every builder and `Training` take a device
+mesh, `parallel/`)."""
 
 from differential_equations_resnet_tpu_torch.train.checkpoint import Checkpointer
 from differential_equations_resnet_tpu_torch.train.history import TrainingHistory, plot_lines

@@ -32,9 +32,30 @@ kernels' launch counters count the replays' launches, not the capture
 
 A graph holds the addresses of the parameters, the gradients and the
 optimizer's state tensors at capture: after ``optimizer.load_state_dict``
-(which replaces the state tensors) build the loop again.  ``mesh`` (data
-parallelism, ROADMAP A15) raises `NotImplementedError`; ``donate`` and
+(which replaces the state tensors) build the loop again.  ``donate`` and
 ``unroll`` are accepted and mean nothing here.
+
+``mesh`` (a `parallel.mesh.create_mesh` mesh) makes every builder's
+function what the JAX package's step sharded over the mesh computes.
+Every rank calls it with the same global batch and keeps its own rows
+(`parallel.mesh.shard_batch`, over the ``data`` axis); the forward runs
+inside `parallel.collectives.data_parallel`, so batch norm takes the
+moments of the whole batch; after the backward one flat all-reduce over
+``data`` gives every rank the mean gradient, the global loss (the mean of
+the ranks' means) and the summed ``correct`` and ``count``
+(`_reduce_over_data`); the grad-norm row is computed from the reduced
+gradients and Adam steps the same parameters on every rank.  With
+``accum_steps = k`` each rank splits its own rows into k contiguous
+microbatches: the JAX package's device-major split.  The device-resident
+epoch draws the same order on every rank from the same generator and
+gathers each rank's rows of each global batch; augmentation runs on the
+whole global batch, so the generators stay in step, and each rank keeps
+its own rows.  Evaluation sums the ranks' rows; prediction gathers them,
+so every rank returns the whole batch's output; an int8 model's
+activation scales are then the whole batch's in evaluation too, as in
+training (`ops.quantize.absmax_groups`).  On CUDA the loops stay
+graph replays, which capture NCCL's collectives; over gloo (which cannot
+be captured) a loop raises naming the backend, with no eager fallback.
 """
 
 from __future__ import annotations
@@ -44,12 +65,15 @@ import warnings
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from differential_equations_resnet_tpu_torch.models.blocks import l2_kernel_penalty
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import map_leaves
 from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator
+from differential_equations_resnet_tpu_torch.parallel.collectives import all_gather_single, data_parallel
+from differential_equations_resnet_tpu_torch.parallel.mesh import axis_size, shard_batch
 from differential_equations_resnet_tpu_torch.train.telemetry import gradient_mean_norms
 
 Metrics = Dict[str, torch.Tensor]
@@ -58,12 +82,80 @@ Metrics = Dict[str, torch.Tensor]
 WARMUP_CALLS = 3
 
 
-def _no_mesh(mesh, name: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{name}(mesh=...): data parallelism over a device mesh waits for its "
-            "port (ROADMAP A15)."
-        )
+def _data_group(mesh, axis: str = "data"):
+    """The process group of this rank's ``axis`` line, or None without a
+    mesh or where the mesh has no such axis."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return None
+    return mesh.get_group(axis)
+
+
+def _bind_mesh(model, mesh):
+    """The model as the step builders run it on ``mesh``: its config bound
+    to the mesh's data-axis size and platform (`with_mesh_context`, where
+    the model has one).  The port's forward sees each rank's own rows, so
+    its layout gates count per-device rows without it; the binding keeps
+    the config the JAX package's step would see."""
+    if mesh is None:
+        return model
+    binder = getattr(model, "with_mesh_context", None)
+    if binder is None:
+        return model
+    return binder(data_axis_size=axis_size(mesh, "data"), device_platform=mesh.device_type)
+
+
+def _local(mesh, *arrays, axis: str = "data"):
+    """This rank's rows of each global array (the arrays themselves without
+    a mesh)."""
+    return arrays if mesh is None else shard_batch(mesh, arrays, axis)
+
+
+def _reduce_over_data(params, group, loss, correct, count):
+    """One all-reduce over ``group`` of every gradient and the three
+    metrics: the gradients and the loss become their means over the ranks,
+    ``correct`` and ``count`` their sums.  The gradients are written back
+    in place; returns (loss, correct, count)."""
+    ranks = dist.get_world_size(group)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+    flat.div_(ranks)
+    flat = torch.cat([flat, correct.reshape(1), count.reshape(1)])
+    dist.all_reduce(flat, group=group)
+    offset = 0
+    for p, g in zip(params, grads):
+        n = g.numel()
+        if p.grad is None:
+            p.grad = flat[offset:offset + n].view_as(p).clone()
+        else:
+            p.grad.copy_(flat[offset:offset + n].view_as(p))
+        offset += n
+    return flat[offset], flat[offset + 1], flat[offset + 2]
+
+
+def _sum_over_data(values: torch.Tensor, mesh) -> torch.Tensor:
+    """``values`` summed over the mesh's data axis (itself without one)."""
+    group = _data_group(mesh)
+    if group is not None:
+        values = values.clone()
+        dist.all_reduce(values, group=group)
+    return values
+
+
+def _require_capturable(mesh, model) -> None:
+    """Raise unless the collectives of ``mesh`` and of the model's
+    ``tp_mesh``/``pp_mesh`` on CUDA tensors can be captured in a CUDA graph
+    (NCCL's can; gloo's cannot)."""
+    config = model.config
+    for m in (mesh, getattr(config, "tp_mesh", None), getattr(config, "pp_mesh", None)):
+        if m is None:
+            continue
+        backend = str(dist.get_backend(m.get_group(0)))
+        if "nccl" not in backend:
+            raise RuntimeError(
+                f"a CUDA graph cannot capture the {backend} backend's collectives: the "
+                "captured loops need an NCCL mesh on CUDA (run make_train_step eagerly "
+                "over gloo)."
+            )
 
 
 def init_adam_state(optimizer: torch.optim.Adam) -> None:
@@ -177,12 +269,18 @@ def _set_lr(optimizer: torch.optim.Optimizer, lr) -> None:
             group["lr"] = float(lr)
 
 
-def _build_update(model, optimizer, with_gradient_metrics: bool, accum_steps: int):
+def _build_update(model, optimizer, with_gradient_metrics: bool, accum_steps: int,
+                  mesh=None, axis: str = "data"):
     """``update(images, labels) -> (metrics, grad_norms)``: one optimizer
-    step at the rate the optimizer holds.  This is what a graph captures."""
+    step at the rate the optimizer holds, on this rank's rows.  This is
+    what a graph captures.  Over a mesh the gradients and metrics are
+    reduced over its ``axis`` (`_reduce_over_data`) before the grad norms
+    and the update."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}.")
     loss_fn = build_loss_fn(model)
+    group = _data_group(mesh, axis)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def update(images: torch.Tensor, labels: torch.Tensor):
         optimizer.zero_grad(set_to_none=True)
@@ -196,24 +294,24 @@ def _build_update(model, optimizer, with_gradient_metrics: bool, accum_steps: in
             )
             k = 1
         losses, correct = [], 0.0
-        for x, y in zip(images.chunk(k), labels.chunk(k)):
-            loss, logits = loss_fn(x, y)
-            (loss / k).backward()
-            losses.append(loss.detach())
-            correct = correct + _correct(logits.detach(), y)
+        with data_parallel(group):
+            for x, y in zip(images.chunk(k), labels.chunk(k)):
+                loss, logits = loss_fn(x, y)
+                (loss / k).backward()
+                losses.append(loss.detach())
+                correct = correct + _correct(logits.detach(), y)
+        loss = torch.stack(losses).mean()
+        # On the device without a host tensor: capturable.
+        count = images.new_full((), n, dtype=torch.float32)
+        if group is not None:
+            loss, correct, count = _reduce_over_data(params, group, loss, correct, count)
         grad_norms = (
             gradient_mean_norms(map_leaves(lambda p: p.grad, model.params()), model.config)
             if with_gradient_metrics
             else torch.zeros(0, device=images.device)
         )
         optimizer.step()
-        metrics = {
-            "loss": torch.stack(losses).mean(),
-            "correct": correct,
-            # On the device without a host tensor: capturable.
-            "count": images.new_full((), n, dtype=torch.float32),
-        }
-        return metrics, grad_norms
+        return {"loss": loss, "correct": correct, "count": count}, grad_norms
 
     return update
 
@@ -238,13 +336,16 @@ def make_train_step(
     gradient: the monolithic step's update (the L2 penalty averages back to
     one application) at one microbatch's activation memory.  A batch that k
     does not divide is trained monolithically, with a warning.  The loss is
-    the mean of the microbatch losses, correct their sum."""
-    _no_mesh(mesh, "make_train_step")
-    update = _build_update(model, optimizer, with_gradient_metrics, accum_steps)
+    the mean of the microbatch losses, correct their sum.
+
+    ``mesh``: every rank passes the same global batch and gets the same
+    metrics, grad norms and parameters (module docstring)."""
+    model = _bind_mesh(model, mesh)
+    update = _build_update(model, optimizer, with_gradient_metrics, accum_steps, mesh)
 
     def step(images: torch.Tensor, labels: torch.Tensor, lr):
         _set_lr(optimizer, lr)
-        return update(images, labels)
+        return update(*_local(mesh, images, labels))
 
     return step
 
@@ -342,13 +443,15 @@ class _Replayed:
 
 
 class _StepRunner:
-    """One train step ``(images, labels, lr) -> telemetry row``: the eager
-    step on the CPU, a replayed graph on CUDA (whose row the next call
-    overwrites: copy it first)."""
+    """One train step ``(images, labels, lr) -> telemetry row`` on this
+    rank's rows: the eager step on the CPU, a replayed graph on CUDA (whose
+    row the next call overwrites: copy it first).  Over a mesh the row is
+    the reduced one, the same on every rank."""
 
-    def __init__(self, model, optimizer, with_gradient_metrics, accum_steps):
-        self.optimizer = optimizer
-        update = _build_update(model, optimizer, with_gradient_metrics, accum_steps)
+    def __init__(self, model, optimizer, with_gradient_metrics, accum_steps, mesh=None):
+        self.optimizer, self.mesh, self.model = optimizer, mesh, model
+        model = _bind_mesh(model, mesh)
+        update = _build_update(model, optimizer, with_gradient_metrics, accum_steps, mesh)
         self.row = lambda images, labels: pack_row(*update(images, labels))
         self.replayed = _Replayed("train step", self.row, lambda: _graph_tensors(model, optimizer))
 
@@ -357,6 +460,7 @@ class _StepRunner:
             _set_lr(self.optimizer, lr)
             return self.row(images, labels)
         _lr_tensors(self.optimizer)  # raises unless the rate is a device tensor
+        _require_capturable(self.mesh, self.model)
         _set_lr(self.optimizer, lr)
         return self.replayed(images.to(torch.float32), labels)
 
@@ -378,15 +482,15 @@ def make_multi_step(
     with per-step telemetry stacked on the device.  On CUDA each step is a
     replay of one captured step (see the module docstring): the K steps
     cost K replays and no host synchronization.  ``accum_steps``: each
-    batch is itself microbatched (see `make_train_step`)."""
-    _no_mesh(mesh, "make_multi_step")
-    runner = _StepRunner(model, optimizer, with_gradient_metrics, accum_steps)
+    batch is itself microbatched (see `make_train_step`).  ``mesh``: the
+    global batches, each rank training on its rows of each."""
+    runner = _StepRunner(model, optimizer, with_gradient_metrics, accum_steps, mesh)
 
     def multi(images: torch.Tensor, labels: torch.Tensor, lrs):
         lrs = torch.as_tensor(lrs, dtype=torch.float32).to(images.device)
         rows = None
         for i in range(images.shape[0]):
-            row = runner(images[i], labels[i], lrs[i])
+            row = runner(*_local(mesh, images[i], labels[i]), lrs[i])
             if rows is None:
                 rows = row.new_empty((images.shape[0], row.numel()))
             rows[i].copy_(row)
@@ -419,7 +523,13 @@ def make_device_epoch(
     device and drives the shuffle and then each step's augmentation, in
     that order.  On CUDA every step is a replay of one captured step; the
     gather and the augmentation run eagerly between replays (a few small
-    kernels)."""
+    kernels).
+
+    ``mesh``: every rank holds the whole dataset and a generator seeded
+    alike, draws the same order, and gathers its rows of each global batch
+    of ``batch_size``; with ``augment`` it gathers and augments the whole
+    global batch (the draws are made at its shape, as without a mesh) and
+    keeps its rows.  The epoch then equals the meshless one."""
     if batch_size % accum_steps:
         raise ValueError(
             f"accum_steps ({accum_steps}) must divide batch_size "
@@ -427,8 +537,7 @@ def make_device_epoch(
             "batch_size batches, so a non-dividing accum_steps would fall "
             "back to the monolithic step on every batch."
         )
-    _no_mesh(mesh, "make_device_epoch")
-    runner = _StepRunner(model, optimizer, with_gradient_metrics, accum_steps)
+    runner = _StepRunner(model, optimizer, with_gradient_metrics, accum_steps, mesh)
 
     def epoch(features: torch.Tensor, labels: torch.Tensor, generator: torch.Generator, lrs):
         steps = len(lrs)
@@ -444,10 +553,12 @@ def make_device_epoch(
         rows = None
         for i in range(steps):
             idx = perm[i * batch_size:(i + 1) * batch_size]
+            if augment is None:
+                (idx,) = _local(mesh, idx)
             x = features.index_select(0, idx).to(torch.float32)
             y = labels.index_select(0, idx)
             if augment is not None:
-                x = augment(generator, x)
+                x, y = _local(mesh, augment(generator, x), y)
             row = runner(x, y, lrs[i])
             if rows is None:
                 rows = row.new_empty((steps, row.numel()))
@@ -460,46 +571,61 @@ def make_device_epoch(
 def make_eval_step(model: nn.Module, *, mesh=None) -> Callable[[torch.Tensor, torch.Tensor], Metrics]:
     """``(images, labels) -> metrics``: plain cross-entropy (never the L2
     penalty, as the reference's evaluation), the correct count and the
-    count.  Eager."""
-    _no_mesh(mesh, "make_eval_step")
+    count.  Eager.  ``mesh``: the global batch's metrics, each rank
+    evaluating its rows."""
+    model = _bind_mesh(model, mesh)
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> Metrics:
-        with torch.no_grad():
+        images, labels = _local(mesh, images, labels)
+        with torch.no_grad(), data_parallel(_data_group(mesh)):
             logits = model(images, return_logits=True, train=False)
-            return {
-                "loss": cross_entropy_from_logits(logits, labels),
-                "correct": _correct(logits, labels),
-                "count": images.new_full((), images.shape[0], dtype=torch.float32),
-            }
+            count = images.new_full((), images.shape[0], dtype=torch.float32)
+            if mesh is None:
+                return {"loss": cross_entropy_from_logits(logits, labels),
+                        "correct": _correct(logits, labels), "count": count}
+            total, correct, count = _sum_over_data(torch.stack([
+                per_example_cross_entropy(logits, labels).sum(), _correct(logits, labels),
+                count]), mesh)
+            return {"loss": total / count, "correct": correct, "count": count}
 
     return step
 
 
-def _eval_row(model):
+def _eval_row(model, mesh=None):
     """``row(images, labels, valid) -> [loss, correct, count]`` of one eval
     batch, ``valid`` (B,) masking padding: the loss is the mean over the
     valid examples.  Eager on the CPU, a replayed graph on CUDA (its row
-    then the graph's own)."""
+    then the graph's own).  ``mesh``: the global batch's row, each rank
+    evaluating its rows of the three arguments."""
+    model = _bind_mesh(model, mesh)
 
     def row(images, labels, valid):
-        with torch.no_grad():
+        with torch.no_grad(), data_parallel(_data_group(mesh)):
             logits = model(images, return_logits=True, train=False)
             count = valid.sum()
-            loss = (per_example_cross_entropy(logits, labels) * valid).sum() / count.clamp(min=1.0)
+            total = (per_example_cross_entropy(logits, labels) * valid).sum()
             correct = (_hits(logits, labels) * valid).sum()
-            return torch.stack([loss, correct, count])
+            if mesh is not None:
+                total, correct, count = _sum_over_data(torch.stack([total, correct, count]), mesh)
+            return torch.stack([total / count.clamp(min=1.0), correct, count])
 
     replayed = _Replayed("eval batch", row)
-    return lambda images, labels, valid: (replayed if images.is_cuda else row)(
-        images.to(torch.float32), labels, valid)
+
+    def run(images, labels, valid):
+        images, labels, valid = _local(mesh, images.to(torch.float32), labels, valid)
+        if not images.is_cuda:
+            return row(images, labels, valid)
+        _require_capturable(mesh, model)
+        return replayed(images, labels, valid)
+
+    return run
 
 
 def make_multi_eval_step(model: nn.Module, mesh=None, unroll: int = 1):
     """K-batch evaluation: ``(images (K,B,...), labels (K,B)) -> metrics
     {each (K,)}``, each batch a replay of one captured eval batch on
     CUDA.  Loss is plain cross-entropy."""
-    _no_mesh(mesh, "make_multi_eval_step")
-    runner = _eval_row(model)
+    runner = _eval_row(model, mesh)
 
     def multi(images: torch.Tensor, labels: torch.Tensor) -> Metrics:
         k, batch = images.shape[:2]
@@ -522,8 +648,7 @@ def make_device_eval(model: nn.Module, batch_size: int, mesh=None):
     masked, its loss the mean over its valid examples, so the metrics equal
     feeding per-batch results to `StreamingMetrics`.  Every batch is a
     replay of one captured eval batch on CUDA."""
-    _no_mesh(mesh, "make_device_eval")
-    runner = _eval_row(model)
+    runner = _eval_row(model, mesh)
 
     def eval_all(features: torch.Tensor, labels: torch.Tensor) -> Metrics:
         n = features.shape[0]
@@ -546,20 +671,35 @@ def make_device_eval(model: nn.Module, batch_size: int, mesh=None):
     return eval_all
 
 
+def _gather_rows(local: torch.Tensor, mesh) -> torch.Tensor:
+    """The ranks' rows over the mesh's data axis, in rank order (``local``
+    itself without one)."""
+    group = _data_group(mesh)
+    if group is None:
+        return local
+    out = local.new_empty((dist.get_world_size(group) * local.shape[0],) + tuple(local.shape[1:]))
+    all_gather_single(out, local.contiguous(), group=group)
+    return out
+
+
 def make_predict_step(model: nn.Module, mesh=None):
     """``predict(images) -> model output`` (softmax probabilities, the
     reference predictor's output), a new tensor on the images' device.  On
-    CUDA a replay of one captured forward per batch shape."""
-    _no_mesh(mesh, "make_predict_step")
+    CUDA a replay of one captured forward per batch shape.  ``mesh``: each
+    rank runs its rows and every rank returns the whole batch's output."""
+    model = _bind_mesh(model, mesh)
 
     def forward(images):
-        with torch.no_grad():
-            return model(images, train=False)
+        with torch.no_grad(), data_parallel(_data_group(mesh)):
+            return _gather_rows(model(images, train=False), mesh)
 
     replayed = _Replayed("predict batch", forward)
 
     def predict(images: torch.Tensor) -> torch.Tensor:
-        images = images.to(torch.float32)
-        return replayed(images).clone() if images.is_cuda else forward(images)
+        (images,) = _local(mesh, images.to(torch.float32))
+        if not images.is_cuda:
+            return forward(images)
+        _require_capturable(mesh, model)
+        return replayed(images).clone()
 
     return predict

@@ -1,7 +1,7 @@
 """The training harness: the user-facing `Training` class.
 
-Port of `differential_equations_resnet_tpu/train/training.py` (the whole
-surface but the device mesh): the epoch loop with its double-buffered
+Port of `differential_equations_resnet_tpu/train/training.py`: the epoch
+loop with its double-buffered
 host staging, the device-resident (``device_data``) loop of `train_step`,
 gradient accumulation, evaluation on the validation or the training set,
 per-layer gradient-norm CSV and summary rows, best-metric checkpointing,
@@ -26,7 +26,14 @@ Differences from the JAX package:
   trace.
 - The device-resident epoch draws its order and augmentation from a
   `torch.Generator` seeded from ``data_seed`` and the global step.
-- ``mesh`` raises `NotImplementedError` (ROADMAP A15).
+- ``mesh`` (`parallel.create_mesh`): every rank runs the same `Training`.
+  The model's parameters are broadcast from the mesh's origin
+  (`shard_params`); each rank reads the same seeded global batches and
+  keeps its own rows (`shard_batch`, before the copy to the device); the
+  steps reduce over the mesh (`train.train_step`), so every rank holds the
+  same metrics, rows and parameters.  Rank 0 alone writes the CSVs, the
+  summaries and the checkpoints (the file a meshless run writes), then a
+  barrier; every rank restores a checkpoint.
 """
 
 from __future__ import annotations
@@ -40,11 +47,13 @@ from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from differential_equations_resnet_tpu_torch.data.pipeline import (
     NumpyDataset,
     create_dataset_from_arrays,
 )
+from differential_equations_resnet_tpu_torch.parallel.mesh import shard_batch, shard_params
 from differential_equations_resnet_tpu_torch.train.checkpoint import Checkpointer
 from differential_equations_resnet_tpu_torch.train.metrics import StreamingMetrics
 from differential_equations_resnet_tpu_torch.train.telemetry import (
@@ -109,12 +118,12 @@ class Training:
         jit_augment=None,
         accum_steps: int = 1,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Training(mesh=...): data parallelism over a device mesh waits for its "
-                "port (ROADMAP A15)."
-            )
         self.model = model
+        self.mesh = mesh
+        if mesh is not None:
+            shard_params(mesh, model)
+        # Under a mesh only rank 0 writes files (CSVs, summaries, checkpoints).
+        self._writer = mesh is None or dist.get_rank() == 0
         self.device = next(model.parameters()).device
         self.batch_size = batch_size
         self.accum_steps = int(accum_steps)
@@ -167,13 +176,13 @@ class Training:
 
         self._summary_writer = None
         self._eval_summary_writer = None
-        if record_summaries and summaries_dir:
+        if record_summaries and summaries_dir and self._writer:
             run = summaries_name or model.config.name
             self._summary_writer = SummaryWriter(os.path.join(summaries_dir, run, "train"))
             self._eval_summary_writer = SummaryWriter(os.path.join(summaries_dir, run, "eval"))
         self._train_csv = None
         self._eval_csv = None
-        if record_summaries and csv_logger_dir:
+        if record_summaries and csv_logger_dir and self._writer:
             stamp = time.strftime("%Y%m%d-%H%M%S")
             base = f"{csv_logger_name or 'history'}_{stamp}"
             self._train_csv = CsvLogger(
@@ -193,9 +202,9 @@ class Training:
         the optimizer's state tensors, so a restore (which replaces them)
         builds them again."""
         self._train_step = _StepRunner(self.model, self.optimizer, self._with_norms,
-                                       self.accum_steps)
-        self._eval_row = _eval_row(self.model)
-        self._predict_step = make_predict_step(self.model)
+                                       self.accum_steps, self.mesh)
+        self._eval_row = _eval_row(self.model, self.mesh)
+        self._predict_step = make_predict_step(self.model, self.mesh)
         self._device_epoch = None
         self._device_eval_fn = None
 
@@ -209,8 +218,11 @@ class Training:
         return torch.as_tensor(array).to(self.device, non_blocking=non_blocking)
 
     def _staged(self, array) -> torch.Tensor:
-        """A host batch as a tensor the dispatch loop copies to the device
-        without waiting: page-locked where the device is CUDA."""
+        """A host batch (this rank's rows of it, under a mesh) as a tensor the
+        dispatch loop copies to the device without waiting: page-locked
+        where the device is CUDA."""
+        if self.mesh is not None:
+            (array,) = shard_batch(self.mesh, (array,))
         t = torch.from_numpy(np.ascontiguousarray(array))
         return t.pin_memory() if self.device.type == "cuda" else t
 
@@ -295,7 +307,7 @@ class Training:
                 )
             if self._device_epoch is None:
                 self._device_epoch = make_device_epoch(
-                    self.model, self.optimizer, self.batch_size,
+                    self.model, self.optimizer, self.batch_size, mesh=self.mesh,
                     with_gradient_metrics=self._with_norms, augment=self._jit_augment,
                     accum_steps=self.accum_steps)
 
@@ -344,10 +356,9 @@ class Training:
             self.best_metrics["accuracy"] = max(self.best_metrics["accuracy"], monitored["accuracy"])
             if checkpointer is not None and epoch % save_frequency == 0 and (
                     improved or not save_best_only):
-                checkpointer.save(
-                    self.state, self.global_step, name=save_name, tags=save_tags,
-                    metrics={"loss": monitored["mean_loss"], "accuracy": monitored["accuracy"]},
-                )
+                self._save(checkpointer, name=save_name, tags=save_tags,
+                           metrics={"loss": monitored["mean_loss"],
+                                    "accuracy": monitored["accuracy"]})
         return self.history
 
     def _profiler(self, profile_dir: Optional[str], epoch: int):
@@ -512,7 +523,7 @@ class Training:
         """A full pass over the device-resident 'val' or 'train' arrays
         (`make_device_eval`), uploaded once."""
         if self._device_eval_fn is None:
-            self._device_eval_fn = make_device_eval(self.model, self.batch_size)
+            self._device_eval_fn = make_device_eval(self.model, self.batch_size, mesh=self.mesh)
         metrics = self._device_eval_fn(*self._device_data(source))
         self.eval_metrics.reset()
         self.eval_metrics.update(metrics["loss"], metrics["correct"], metrics["count"])
@@ -611,19 +622,33 @@ class Training:
 
     # -- persistence ------------------------------------------------------------------
 
+    def _save(self, checkpointer: Checkpointer, name: str, tags, metrics) -> str:
+        """Write a checkpoint: under a mesh rank 0 writes it (every rank
+        holds the same state) and the ranks meet at a barrier.  Returns its
+        path on every rank."""
+        if self._writer:
+            path = checkpointer.save(self.state, self.global_step, name=name, tags=tags,
+                                     metrics=metrics)
+        else:
+            path = os.path.join(checkpointer.base_dir, checkpointer.checkpoint_name(
+                self.global_step, name, tags, metrics))
+        if self.mesh is not None:
+            dist.barrier()
+        return path
+
     def save(self, save_dir: str, tags: Sequence[str] = ("default",), name: str = "",
              saver: str = "torch") -> str:
         """Checkpoint the step, the model and the optimizer (reference
-        `save`)."""
-        return Checkpointer(save_dir, backend=saver).save(
-            self.state, self.global_step, name=name, tags=tags,
-            metrics={"loss": self.best_metrics["loss"], "accuracy": self.best_metrics["accuracy"]},
-        )
+        `save`); under a mesh rank 0 writes it (`_save`)."""
+        return self._save(Checkpointer(save_dir, backend=saver), name=name, tags=tags,
+                          metrics={"loss": self.best_metrics["loss"],
+                                   "accuracy": self.best_metrics["accuracy"]})
 
     def load_variables(self, path: str) -> None:
         """Restore a checkpoint into this trainer (reference
-        `load_variables`): model, Adam slots and step.  The loops are built
-        again, since the optimizer's state tensors are new."""
+        `load_variables`): model, Adam slots and step, on every rank of a
+        mesh.  The loops are built again, since the optimizer's state
+        tensors are new."""
         path = os.path.abspath(path.rstrip("/"))
         Checkpointer(os.path.dirname(path)).restore(self.state, path)
         self._build_steps()

@@ -130,7 +130,7 @@ def test_bf16_flag_runs_as_the_jax_cli_builds_it(capsys, monkeypatch, flags):
     assert model.config == want and model.config.compute_dtype == torch.bfloat16
 
 
-def test_predict_takes_npy_only_and_other_subcommands_are_not_registered(tmp_path, capsys):
+def test_predict_reads_an_image_directory_and_the_records_subcommands_are_registered(tmp_path, capsys):
     """Before the host data modules (ROADMAP A8) were ported, predict took
     only a .npy array and ``convert-records`` and ``fetch-cifar10`` were not
     registered.  Now a directory is read for its images (one without any

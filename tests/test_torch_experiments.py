@@ -11,6 +11,7 @@ import torch
 import differential_equations_resnet_tpu.train as jax_train
 from differential_equations_resnet_tpu import experiments as jax_experiments
 from differential_equations_resnet_tpu.utils.serving import _config_to_json
+from differential_equations_resnet_tpu_torch.parallel import create_mesh
 from differential_equations_resnet_tpu_torch import experiments
 from differential_equations_resnet_tpu_torch.experiments import deep_stability
 from differential_equations_resnet_tpu_torch.utils.serving import config_from_json
@@ -136,7 +137,8 @@ def test_imagenet32_config():
 def test_tiny_width_depth_sweep_on_the_cpu():
     """Every grid point's throughput row, in bf16 by default as the JAX
     package's sweep, its MFU against the bf16 peak (against the fp32 peak
-    for an fp32 sweep); mesh= waits for ROADMAP A15."""
+    for an fp32 sweep); over a one-rank mesh, its MFU divided over the
+    mesh's size as in the JAX package."""
     keys = {"steps_per_sec", "images_per_sec", "step_ms", "model_tflops"}
     got = experiments.width_depth_sweep(widths=(4,), depths=(1, 2), batch_size=2, num_classes=10,
                                         steps=2, device="cpu")
@@ -150,7 +152,10 @@ def test_tiny_width_depth_sweep_on_the_cpu():
     fp32 = experiments.width_depth_sweep(widths=(4,), depths=(1,), batch_size=2, num_classes=10,
                                          steps=2, compute_dtype=torch.float32, device="cpu")
     assert set(fp32[(4, 1)]) == keys | {"mfu_vs_fp32_peak"}
-    with pytest.raises(NotImplementedError, match="A15"):
-        experiments.width_depth_sweep(mesh="mesh")
-    with pytest.raises(NotImplementedError, match="A15"):
-        experiments.measure_train_throughput(experiments.imagenet32_config(), 2, mesh="mesh")
+    mesh = create_mesh((1,), ("data",), device_type="cpu")
+    meshed = experiments.width_depth_sweep(widths=(4,), depths=(1,), batch_size=2, num_classes=10,
+                                           steps=2, mesh=mesh)
+    row = meshed[(4, 1)]
+    assert set(row) == keys | {"mfu_vs_bf16_peak"}
+    assert row["mfu_vs_bf16_peak"] == pytest.approx(
+        row["model_tflops"] * 1e12 / PEAK_FLOPS["h100_sxm_bf16"] / mesh.size())

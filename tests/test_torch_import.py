@@ -46,7 +46,8 @@ def test_fresh_import_loads_no_jax():
     assert {f"{port.__name__}.{name}" for name in (
         "ops.integrators", "experiments", "experiments.deep_stability", "experiments.sweeps",
         "utils.weight_utils", "cli", "data.records", "data.preprocessors", "data.mnist",
-        "native.codec", "native.loader")} <= set(modules)
+        "native.codec", "native.loader", "parallel.mesh", "parallel.collectives",
+        "parallel.shard_map_step", "parallel.tensor_parallel", "parallel.pipeline")} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 

@@ -20,6 +20,7 @@ from differential_equations_resnet_tpu.models import (
 )
 from differential_equations_resnet_tpu.utils.serving import _config_to_json
 from differential_equations_resnet_tpu.utils.weight_utils import import_reference_weights
+from differential_equations_resnet_tpu_torch.parallel import create_mesh
 from differential_equations_resnet_tpu_torch.models import (
     build_single_block_resnet,
     cifar10_single_block_config,
@@ -128,21 +129,26 @@ def test_port_config_matches_the_jax_keyword_surface():
     assert config_from_json(as_json).blocks_per_stage == (64,)
 
 
-@pytest.mark.parametrize("overrides,item", [
-    (dict(pp_mesh="mesh"), "A15"),
-    (dict(tp_mesh="mesh"), "A15"),
-])
-def test_features_outside_the_slice_raise(overrides, item):
-    """What the port does not run yet (the meshes) raises naming its
-    ROADMAP item; every kernel type and integrator runs otherwise
-    (tests/test_torch_kernel_types.py), batch norm (tests/test_torch_batch_norm.py),
-    reduced-precision compute (below, and tests/test_torch_bf16.py), int8
-    (tests/test_torch_quantized_model.py) and s2d (tests/test_torch_s2d.py)."""
-    config = dataclasses.replace(
-        cifar10_single_block_config(num_layers=2, num_filters=4), **overrides
-    )
-    with pytest.raises(NotImplementedError, match=item):
-        build_single_block_resnet(config, generator=torch.Generator(), device="cpu")
+@pytest.mark.parametrize("mesh_field", ["pp_mesh", "tp_mesh"])
+def test_pipeline_and_tensor_parallel_meshes_of_one_rank_match_the_meshless_model(mesh_field):
+    """pp_mesh and tp_mesh (which raised naming ROADMAP A15 before the port
+    had meshes) build and run: on a one-rank mesh the logits and every
+    parameter's gradient equal the meshless model's.  The multi-rank meshes
+    are held against the JAX package in tests/test_torch_tensor_parallel.py
+    and tests/test_torch_pipeline_parallel.py."""
+    axis = "pipe" if mesh_field == "pp_mesh" else "model"
+    mesh = create_mesh((1,), (axis,), device_type="cpu")
+    config = cifar10_single_block_config(num_layers=2, num_filters=4)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 255, (2, 8, 8, 3)).astype(np.float32))
+    out = []
+    for cfg in (config, dataclasses.replace(config, **{mesh_field: mesh})):
+        model = build_single_block_resnet(cfg, generator=torch.Generator().manual_seed(0),
+                                          device="cpu")
+        logits = model(x, return_logits=True)
+        logits.sum().backward()
+        out.append([logits.detach()] + [p.grad for p in model.parameters()])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("fields", [

@@ -51,6 +51,7 @@ from differential_equations_resnet_tpu_torch.train import (
     make_predict_step,
     make_train_step,
 )
+from differential_equations_resnet_tpu_torch.parallel import create_mesh
 from differential_equations_resnet_tpu_torch.utils import flops
 from differential_equations_resnet_tpu_torch.utils.serving import config_from_json
 from differential_equations_resnet_tpu_torch.utils.weight_utils import adam_state_from_jax
@@ -347,20 +348,57 @@ def test_train_rejects_bad_arguments(tmp_path):
     trainer.close()
 
 
+def _run_training(m, o, mesh):
+    features, labels, vf, vl = (a[:96] for a in data()[:4])
+    trainer = Training(m, train_features=features, train_labels=labels, val_features=vf,
+                       val_labels=vl, batch_size=16, optimizer=o, mesh=mesh, record_summaries=False)
+    history = trainer.train(1, 2, constant_schedule(LR), verbose=False)
+    out = [torch.tensor([history["train"][0]["mean_loss"], history["eval"][0]["mean_loss"]])]
+    return out + [torch.from_numpy(trainer.predict(vf[:20]))]
+
+
+def _batch(n=8, k=None):
+    rng = np.random.default_rng(0)
+    shape = (n, 32, 32, 3) if k is None else (k, n, 32, 32, 3)
+    return (torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 10, shape[:-3]).astype(np.int64)))
+
+
+def _flat(*trees):
+    out = []
+    for t in trees:
+        if isinstance(t, dict):
+            out += [t[k].reshape(-1) for k in sorted(t)]
+        else:
+            out.append(t.reshape(-1))
+    return out
+
+
 @pytest.mark.parametrize("build", [
-    lambda m, o: Training(m, mesh=object()),
-    lambda m, o: make_train_step(m, o, mesh=object()),
-    lambda m, o: make_multi_step(m, o, mesh=object()),
-    lambda m, o: make_device_epoch(m, o, 32, mesh=object()),
-    lambda m, o: make_eval_step(m, mesh=object()),
-    lambda m, o: make_multi_eval_step(m, mesh=object()),
-    lambda m, o: make_device_eval(m, 32, mesh=object()),
-    lambda m, o: make_predict_step(m, mesh=object()),
-])
-def test_a_mesh_raises_naming_a15(build):
-    (m, o), _ = twins(num_layers=1)
-    with pytest.raises(NotImplementedError, match="A15"):
-        build(m, o)
+    _run_training,
+    lambda m, o, mesh: _flat(*make_train_step(m, o, mesh=mesh)(*_batch(), LR)),
+    lambda m, o, mesh: _flat(*make_multi_step(m, o, mesh=mesh)(*_batch(k=2), [LR, LR])),
+    lambda m, o, mesh: _flat(*make_device_epoch(m, o, 8, mesh=mesh)(
+        *(t.to(torch.uint8) if t.is_floating_point() else t for t in _batch(24)),
+        torch.Generator().manual_seed(0), [LR, LR])),
+    lambda m, o, mesh: _flat(make_eval_step(m, mesh=mesh)(*_batch())),
+    lambda m, o, mesh: _flat(make_multi_eval_step(m, mesh=mesh)(*_batch(k=2))),
+    lambda m, o, mesh: _flat(make_device_eval(m, 8, mesh=mesh)(*_batch(20))),
+    lambda m, o, mesh: _flat(make_predict_step(m, mesh=mesh)(_batch()[0])),
+], ids=["Training", "make_train_step", "make_multi_step", "make_device_epoch", "make_eval_step",
+        "make_multi_eval_step", "make_device_eval", "make_predict_step"])
+def test_every_builder_runs_on_a_mesh_of_one_rank(build):
+    """Each builder and `Training` on a one-rank data mesh (this process,
+    no launcher: parallel.create_mesh makes the group) gives what it gives
+    without a mesh, bit for bit; the multi-rank meshes are held against
+    the JAX package in tests/test_torch_mesh.py."""
+    (m1, o1), (m2, o2) = twins(num_layers=1)
+    mesh = create_mesh((1,), ("data",), device_type="cpu")
+    got, want = build(m1, o1, mesh), build(m2, o2, None)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert_same_params(m1, m2)
 
 
 def test_training_without_summaries_reports_the_same_epoch(tmp_path):

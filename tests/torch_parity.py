@@ -172,8 +172,10 @@ def assert_params_close(got_tree, want_tree, steps, lr):
     steps, and all but a fraction OUTLIERS of the elements within STEP_TOL *
     lr * steps, the conv biases that feed a batch norm left out of that
     count: the norm subtracts them out, so their true gradient is 0 and each
-    package's Adam steps them by its own roundoff."""
-    got = jax.tree.leaves(params_to_jax(got_tree, JAX_CLASSES))
+    package's Adam steps them by its own roundoff.  ``got_tree`` may also
+    hold NumPy leaves already (`params_to_jax` of the port's tree)."""
+    got = jax.tree.leaves(params_to_jax(got_tree, JAX_CLASSES)
+                          if isinstance(jax.tree.leaves(got_tree)[0], torch.Tensor) else got_tree)
     want = jax.tree_util.tree_flatten_with_path(want_tree)[0]
     assert len(got) == len(want) > 0
     counted = off = 0
@@ -216,3 +218,77 @@ def require_cuda():
     the test runs, never at import or collection)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (chip_smoke.py checks the kernel on the card)")
+
+
+def jax_mesh(shape, names):
+    """A JAX mesh of ``shape`` over the first virtual CPU devices."""
+    from jax.sharding import Mesh
+
+    n = int(np.prod(shape))
+    return Mesh(np.array(jax.devices()[:n]).reshape(shape), tuple(names))
+
+
+def jax_train(config, params, batches, lr, state=None, mesh=None, accum_steps=1,
+              shard_map=False):
+    """The JAX package's train steps over ``batches`` [(images, labels)]
+    from ``params`` (and the batch-norm ``state``), jitted over ``mesh``
+    (`make_train_step(mesh=...)`, or `make_shard_map_train_step`): its
+    telemetry rows [loss, correct, count, *grad_norms], the parameters and
+    state after, and the eval-mode logits of the first batch."""
+    from differential_equations_resnet_tpu.models import build_single_block_resnet as build
+    from differential_equations_resnet_tpu.parallel import make_shard_map_train_step
+    from differential_equations_resnet_tpu.train import create_train_state, make_adam
+    from differential_equations_resnet_tpu.train import make_train_step
+
+    model = build(config)
+    tx = make_adam()
+    train_state = create_train_state(model, jax.random.key(0), tx)
+    train_state = train_state._replace(
+        params=params, opt_state=tx.init(params),
+        model_state=train_state.model_state if state is None else state)
+    if shard_map:
+        step = make_shard_map_train_step(model, tx, mesh, donate=False, accum_steps=accum_steps)
+    else:
+        step = make_train_step(model, tx, mesh=mesh, donate=False, accum_steps=accum_steps)
+    rows = []
+    for images, labels in batches:
+        train_state, metrics, norms = step(train_state, jnp.asarray(images),
+                                           jnp.asarray(labels), jnp.float32(lr))
+        rows.append(np.concatenate([[float(metrics[k]) for k in ("loss", "correct", "count")],
+                                    np.asarray(norms)]))
+    logits, _ = model.apply(train_state.params, train_state.model_state,
+                            jnp.asarray(batches[0][0]), return_logits=True)
+    return {"rows": np.stack(rows), "params": to_numpy(train_state.params),
+            "state": to_numpy(train_state.model_state), "logits": np.asarray(logits)}
+
+
+def port_config_of(config):
+    """The port's config of a JAX config (either family)."""
+    family = "bottleneck" if hasattr(config, "version") else "single_block"
+    return config_from_json(_config_to_json(config), family)
+
+
+def assert_rows_close(got, want, loss_rtol=1e-5, row_rtol=1e-3):
+    """Telemetry rows: loss to ``loss_rtol``, correct and count exactly, the
+    grad-norm row to ``row_rtol`` relative."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=loss_rtol)
+    np.testing.assert_array_equal(got[:, 1:3], want[:, 1:3])
+    np.testing.assert_allclose(got[:, 3:], want[:, 3:], rtol=row_rtol)
+
+
+def assert_trees_close(got, want, atol=1e-3, rtol=0.0):
+    """Two parameter trees leaf by leaf (JAX tree order)."""
+    got, want = jax.tree.leaves(got), jax.tree.leaves(want)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), atol=atol, rtol=rtol)
+
+
+def case_result(results, name):
+    """One case's result from `torch_mesh_cases.run`, raising its error."""
+    result = results[name]
+    if isinstance(result, dict) and "error" in result:
+        raise AssertionError(result["error"])
+    return result
