@@ -11,7 +11,8 @@ Phases, each of which raises on failure (exit code != 0):
 2. build: every CUDA source of the port, compiled from the checkout into
    build/kernels/ (one nvcc per source, started together: the band B1 and
    B2 and their wide variants), with each library's ptxas register and
-   spill report;
+   spill report, and each instantiation of the wide kernels' registers and
+   spill bytes (none may spill);
 3. plan: each kernel's band plan (blocks of an image's thread-block
    cluster) at the main path's shapes and cudaOccupancyMaxActiveClusters for
    every band count, and the wide variants' launch plans at the widths the
@@ -40,7 +41,10 @@ Phases, each of which raises on failure (exit code != 0):
    batch 32;
 8. profile: one window of train steps at batch 32 under torch.profiler, its
    ten device operations that took the most time and the device's idle
-   share;
+   share; then determinism (`phase_deterministic`): two 64L x 16F models
+   from one seed take 2 replayed steps each with cuDNN's ``deterministic``
+   flag on, and then off, compared bit for bit, and the replayed step timed
+   under each setting in turns;
 9. harness: the training harness at the same width and depth on synthetic
    CIFAR-10 of the real size (50,000 + 10,000 uint8 images): a streaming
    epoch of 200 replayed steps through `Training` (CSV and summary rows, the
@@ -61,9 +65,10 @@ Phases, each of which raises on failure (exit code != 0):
    band kernels decline on the wide variants against the CPU (``use_pallas``
    antisymmetric 64 and 128 filters and regular 64 in training, regular 72
    in a forward), the wide B1 and B2 timed at 32x32x64, 32x32x128 and
-   64x64x128 beside their bounds, and the regular 64L x 64F and 64L x 128F
-   train steps on the fused and the per-layer route; B1 and B2 timed at 8
-   filters;
+   64x64x128 beside their bounds and profiled (the kernels a call launches
+   and their device time), and the regular 64L x 64, 96, 112 and 128F
+   train steps on the fused and the per-layer route in turns; B1 and B2
+   timed at 8 filters;
 11. epochs: device-resident epochs of the regular 64L x 16F and 8F models;
 12. bf16 (`phase_bf16`): the 64L x 16F model, `imagenet32_config()` (28L x
    64F, 1000 classes) and ResNet-50 at 32x32 in bf16, each against the
@@ -133,9 +138,11 @@ of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -219,7 +226,32 @@ def phase_device():
     return smi
 
 
+def ptxas_kernels(ptxas):
+    """[(kernel, registers, spill-store bytes, spill-load bytes)] of each entry
+    function in a ``ptxas -v`` log, names demangled where c++filt is found."""
+    kernels = []
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line:
+            kernels.append([line.split("'")[1], 0, 0, 0])
+        elif kernels and "spill stores" in line:
+            kernels[-1][2] = int(line.split(" bytes spill stores")[0].split(",")[-1])
+            kernels[-1][3] = int(line.split(" bytes spill loads")[0].split(",")[-1])
+        elif kernels and "Used " in line and "registers" in line:
+            kernels[-1][1] = int(line.split("Used ")[1].split()[0])
+    if kernels and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(k[0] for k in kernels),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(kernels):
+            for k, name in zip(kernels, names):
+                name = name.replace("(anonymous namespace)::", "").split("(")[0]
+                k[0] = name.removeprefix("void ")
+    return [tuple(k) for k in kernels]
+
+
 def phase_build():
+    """Every native library built from the checkout (one compiler each, all
+    at once), with each CUDA library's registers and spills; every kernel of
+    the wide variants (each instantiation) must spill nothing."""
     t0 = time.perf_counter()
     seconds = _build.build()  # the CUDA kernels and the native record libraries at once
     log(f"[build] {json.dumps({k: round(v, 1) for k, v in seconds.items()})} "
@@ -227,13 +259,16 @@ def phase_build():
     for name in seconds:
         if _build.SOURCES[name].compiler != "nvcc":
             continue
-        ptxas = _build.library_path(name).with_suffix(".so.log").read_text()
-        regs = [int(line.split("Used ")[1].split()[0])
-                for line in ptxas.splitlines() if "Used " in line and "registers" in line]
-        spills = [int(line.split(" bytes spill stores")[0].split(",")[-1])
-                  for line in ptxas.splitlines() if "spill stores" in line]
-        log(f"[build] {name}: {len(regs)} kernels, max {max(regs, default=0)} registers, "
-            f"{sum(spills)} spill-store bytes in all")
+        kernels = ptxas_kernels(_build.library_path(name).with_suffix(".so.log").read_text())
+        log(f"[build] {name}: {len(kernels)} kernels, max "
+            f"{max((k[1] for k in kernels), default=0)} registers, "
+            f"{sum(k[2] for k in kernels)} spill-store bytes in all")
+        if name == "fused_euler_wide":
+            for kernel, regs, stores, loads in kernels:
+                log(f"[build]   {kernel}: {regs} registers, {stores} bytes spill stores, "
+                    f"{loads} bytes spill loads")
+            if not kernels or any(k[2] or k[3] for k in kernels):
+                raise AssertionError("a wide kernel spills registers (or ptxas reported none)")
 
 
 MAIN = (32, 32, 16)  # H, W, C of the main path's identity stack
@@ -729,6 +764,61 @@ def phase_profile(step, batch, steps=10):
         log(f"[profile]   {device_us(avg) / steps / 1e3:8.4f} ms a step "
             f"({device_us(avg) / total:6.1%}), {avg.count / steps:5.1f} a step: {avg.key[:110]}")
     return idle
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(flag=True):
+    """``torch.backends.cudnn.deterministic`` set to ``flag`` inside, the
+    caller's value restored on exit (the port's convolutions keep it since
+    C2's repair: `ops.conv.cudnn_tf32_off`)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = flag
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def phase_deterministic(smi, steps=2, timed=50):
+    """cuDNN's determinism flag reaches the port's convolutions (the stem's
+    and its weight gradient run on cuDNN; B1 and B2 sum in fixed orders):
+    with ``torch.backends.cudnn.deterministic`` True, and then at its
+    default (False), two 64L x 16F models built from one seed each take
+    ``steps`` replayed steps on one batch, and their losses, grad-norm rows
+    and parameters are compared bit for bit; then the replayed step's time
+    under each setting, in turns (default, deterministic, deterministic,
+    default; ``timed`` replays each).  Raises unless the deterministic
+    setting gave bit-identical steps."""
+    images, labels = [t.cuda() for t in image_batch(np.random.default_rng(5), HARNESS_BATCH)]
+    identical = {}
+    for deterministic in (True, False):
+        runs = []
+        for _ in range(2):
+            with cudnn_deterministic(deterministic):
+                model = headline_model(seed=0)
+                multi = make_multi_step(model, make_adam(model.parameters()))
+                metrics, norms = multi(images.expand(steps, *images.shape),
+                                       labels.expand(steps, *labels.shape), [LR] * steps)
+                torch.cuda.synchronize()
+            runs.append([metrics["loss"].clone(), norms.clone()]
+                        + [p.detach().clone() for p in model.parameters()])
+            del model, multi
+        identical[deterministic] = all(torch.equal(a, b) for a, b in zip(*runs))
+        worst = max(float((a - b).abs().max()) for a, b in zip(*runs))
+        log(f"[deterministic] cudnn.deterministic={deterministic}: two 64L x 16F models "
+            f"from one seed, {steps} replayed steps at batch {HARNESS_BATCH} each: losses, "
+            f"grad-norm rows and parameters bit-identical {identical[deterministic]} (max "
+            f"|difference| {worst:.3e}) ({smi})")
+    times = {True: [], False: []}
+    for deterministic in (False, True, True, False):
+        with cudnn_deterministic(deterministic):
+            times[deterministic].append(replayed_steps_ms(headline_model(seed=0), steps=timed))
+    log(f"[deterministic] replayed 64L x 16F step at batch {HARNESS_BATCH}, {timed} replays a "
+        f"turn: default {' / '.join(f'{t:.4f}' for t in times[False])} ms, deterministic "
+        f"{' / '.join(f'{t:.4f}' for t in times[True])} ms ({smi})")
+    if not identical[True]:
+        raise AssertionError("with cudnn.deterministic on, two steps from one state differ: "
+                             "the flag does not reach the port's convolutions")
 
 
 def phase_time_requests(predict, requests, runs=25):
@@ -1369,14 +1459,37 @@ def phase_wide(smi, batch=8):
     return tuple(total)
 
 
+def log_kernels_per_call(label, run, calls=2):
+    """torch.profiler over ``calls`` synchronized calls of ``run`` (after one
+    unprofiled call), logged: the device operations a call launches in all,
+    and each one's launches and device ms a call (the wide B2's recompute,
+    dK pass and state-cotangent conv apart).  Returns {name: (launches a
+    call, ms a call)}."""
+    run()
+    torch.cuda.synchronize()
+    by_name = {}
+    for avg in profile_window(run, calls, label)[4]:
+        n, ms = by_name.get(avg.key, (0.0, 0.0))
+        by_name[avg.key] = (n + avg.count / calls, ms + device_us(avg) / calls / 1e3)
+    total = sum(n for n, _ in by_name.values())
+    log(f"[profile] {label}: {total:g} device operations a call, "
+        f"{sum(ms for _, ms in by_name.values()):.4f} ms of device time a call (torch.profiler)")
+    for key, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        log(f"[profile]   {n:6g} a call, {ms:9.4f} ms a call ({ms / max(n, 1) * 1e3:8.2f} us a "
+            f"launch): {key[:100]}")
+    return by_name
+
+
 def phase_time_wide(smi, step_widths=(64, 96, 112, 128)):
     """The wide variants timed at batch 32, 64 layers, beside their bounds
     and their plain versions: B1 and B2 at 32x32x64 (B1's band variant
     too: it takes that width), 32x32x128 and 64x64x128 (fewer calls: a
     call there is tens to hundreds of ms); then the train step of the
     regular 64L x C models at batch 32, C in ``step_widths``, on both
-    routes (`route_of_wide_stacks`), replayed, which `WIDE_FUSED_MAX_CHANNELS`
-    is set from.  Returns the wide B1 and B2
+    routes (`route_of_wide_stacks`) in turns (fused, per layer, per layer,
+    fused), replayed, which `WIDE_FUSED_MAX_CHANNELS` is set from.  Each
+    wide call is also profiled: the device operations it launches and their
+    device time (`log_kernels_per_call`).  Returns the wide B1 and B2
     timings at 32x32x128 (the `kernels` line's)."""
     out = {}
     for hh, c, runs in ((32, 64, 10), (32, 128, 5), (64, 128, 2)):
@@ -1398,6 +1511,9 @@ def phase_time_wide(smi, step_widths=(64, 96, 112, 128)):
                 + (f", plain {plain_ms:.4f} ms" if plain else "")
                 + f"; bound {bound['flops'] / 1e9:.3f} GFLOP / 67 TFLOP/s = {bound['bound_ms']:.4f} "
                 f"ms by {bound['bound_by']}; kernel at {bound['bound_ms'] / ms:.1%} of it ({smi})")
+            if plain:
+                log_kernels_per_call(f"{name} B=32 {hh}x{hh}x{c} L=64", run,
+                                     calls=2 if hh == 32 else 1)
             if hh == 32 and c == 128 and plain:
                 out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
                              "bound_by": bound["bound_by"]}
@@ -1408,16 +1524,23 @@ def phase_time_wide(smi, step_widths=(64, 96, 112, 128)):
         card = build_single_block_resnet(config, generator=torch.Generator().manual_seed(0),
                                          device="cuda")
         flops_step = single_block_train_flops(config, HARNESS_BATCH)
-        for route in ("fused", "per_layer"):
+        turns = {"fused": [], "per_layer": []}
+        for route in ("fused", "per_layer", "per_layer", "fused"):
             with route_of_wide_stacks(route):
                 reset_counts()
                 ms = replayed_steps_ms(card, steps=20)
                 launches = launch_counts()
+            turns[route].append(ms)
             rate = 1e3 / ms
             log(f"[time] {describe(config)} train step on the {route} route, 20 replayed steps at "
                 f"batch {HARNESS_BATCH}: {ms:.4f} ms a step, {flops_step * rate / 1e12:.4f} model "
                 f"TFLOP/s ({flops_step / 1e9:.3f} GFLOP a step), MFU {mfu(flops_step, rate):.2%} of "
                 f"the fp32 peak; B1/B2 launches {launches}, wide {wide_counts()} ({smi})")
+        wins = sum(f < p for f in turns["fused"] for p in turns["per_layer"])
+        log(f"[time] {describe(config)}: the fused route faster in {wins} of 4 pairings of turns "
+            f"(fused {' / '.join(f'{t:.4f}' for t in turns['fused'])} ms, per layer "
+            f"{' / '.join(f'{t:.4f}' for t in turns['per_layer'])} ms; "
+            f"WIDE_FUSED_MAX_CHANNELS = {sbr.WIDE_FUSED_MAX_CHANNELS})")
         del card
         torch.cuda.empty_cache()
     return out
@@ -3103,6 +3226,7 @@ def main() -> int:
     phase_time_requests(predict, requests)
     phase_time_train(step, batch)
     phase_profile(step, batch)
+    phase_deterministic(smi)
     arrays = cifar_arrays()
     harness_fwd, harness_bwd = phase_harness(smi, arrays)
     types_fwd, types_bwd = phase_kernel_types(smi)

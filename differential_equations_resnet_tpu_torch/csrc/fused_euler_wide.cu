@@ -25,33 +25,73 @@
 // 589,824 B at C = 128, over one block's 232,448 B however few rows a band
 // holds, and the padded 64x64x128 state (2.2 MB) is more than a 16-block
 // cluster can double buffer.  So here the state lives in device memory
-// between layers, and every layer is a tiled implicit GEMM:
-//
-//   - the forward step (wide_conv, kStep): rows are the B*H*W pixels,
-//     columns the Cp output channels, the reduction the 9*Cp (tap, input
-//     channel) pairs, read straight from the (B, H, W, Cp) state with the
-//     zero "SAME" padding done by the loads.  A block computes 128 pixels x
-//     64 channels (128 where Cp > 64, so the patch tile is read once); each
-//     thread 8 pixels x 4 channels a group of 64 from two shared-memory
-//     stages of 16 reduction steps (the next stage's loads are in flight
-//     while this one computes).  The epilogue adds the bias, applies
-//     y + h * relu(z), and in B2's recompute ORs the relu mask bits
-//     1[z > 0] into a (L, B, H, W, ceil(Cp/32)) word mask;
-//   - B2's state cotangent (wide_conv, kAccumulate): the same GEMM of
-//     g_z with K^T, added into g in place;
-//   - B2's weight gradient (wide_dk): rows the 9*Cp (tap, input) pairs,
-//     columns the Cp outputs, the reduction over pixels split into S fixed
-//     chunks, each written as a partial and summed in a fixed order
-//     (wide_reduce): no float atomics, so two calls are bit-identical; db
-//     the same way.
+// between layers, and every layer is a tiled implicit GEMM.
 //
 // What bounds it on an H100: operations.  B1 is 2*L*B*H*W*9C^2 FLOP (618.5
 // GFLOP at B=32, L=64, 32x32x128, 9.23 ms at 67 TFLOP/s); B2 three times
-// that.  Each layer reads its state and writes the next one (or g) through
-// L2 and HBM, B2 its trajectory (L, B, H, W, Cp) too: at 32x32x128, B = 32,
-// about 34 MB a layer, under a millisecond of HBM traffic against 0.14 ms of
-// FFMA a layer.  A layer is one or four launches on the caller's stream
-// (L launches for B1, 5L for B2), so the call is graph-capturable.
+// that.  A layer's state, its next state, and B2's trajectory and g move
+// about 34 MB a layer at 32x32x128, B = 32: about 10 us of HBM traffic
+// against 0.14 ms of FFMA.  Inside the block, the FFMAs are held back by
+// the shared-memory loads that feed them (the more accumulators a thread
+// holds, the fewer loads an FFMA) and by the work around them: the design
+// before this one staged every operand through registers (spilling at 128
+// registers), formed g_z in a pass of its own (written to device memory and
+// read back), and summed dK's partials in a fifth launch a layer.  This
+// design:
+//
+//   - Operands arrive by cp.async (16-byte copies; the zero-fill source
+//     size does the "SAME" padding, the channels past Cp and the ragged last
+//     tile), into a ring of kStages = 4 stages of dynamic shared memory:
+//     three stages in flight while one is computed, one barrier a stage, no
+//     staging registers.
+//   - The reduction runs tap by tap, each tap in chunks of 16 input channels
+//     (zero-filled past Cp; no waste at Cp = 16, 32, 48, 64, 80, 96, 112,
+//     128).  A tap's displacement in the flattened (B, H, W) pixel index is
+//     the same for every pixel of a tile: each copying thread computes the
+//     9-bit "tap lands in the image" mask of its pixels and its copies'
+//     offsets once a block, and a stage only adds the tap's and the chunk's
+//     offset.
+//   - wide_conv (B1's step, B2's recompute and its state cotangent): a block
+//     computes 128 pixels x 64*NG output channels (NG = 2 where Cp > 64, so
+//     one tile holds every channel).  Where Cp > 64 a block is 128 threads,
+//     each 8 pixels (rows tm + 16i) x 16 channels (4tn + 32j .. +3): 128
+//     accumulators, 24 float4 shared loads for 512 FFMAs; at Cp <= 64 256
+//     threads of 4 pixels x 8 channels.  The patch stage is kept [pixel][16
+//     channels + 4 floats of padding]: a thread reads 4 reduction steps of a
+//     pixel as one float4, and the 4 pixels a warp reads at once (rows 20
+//     floats apart) fall on distinct banks; the kernel stage is [channel
+//     in][channel out], read as 8 consecutive float4s a warp.  The epilogue
+//     adds the bias, applies y + h * relu(z), and in B2's recompute writes
+//     the relu mask 1[z > 0] as whole 32-bit words (OR-reduced across the 8
+//     lanes that hold a word's channels), so the mask needs no zeroing and
+//     no atomics.
+//   - B2 forms g_z = h * 1[z > 0] * g from the mask bits as its operands
+//     arrive: once a thread's own copies of a stage have landed (waited for
+//     after it computed the stage before, off the barrier's path), it
+//     rewrites its float4s in shared memory from the mask words, which the
+//     state-cotangent conv loads once a block (the 3 x 130 pixels its taps
+//     reach) and the dK pass a stage.  No g_z pass: g ping-pongs between two
+//     buffers (the conv reads neighbours' g while other blocks write), and
+//     the input g is only read.  The bf16 rounding of the conv's patch
+//     operand is done in the same rewrite.
+//   - B2's weight gradient (wide_dk): rows the 9*Cp (tap, input) pairs,
+//     columns the Cp outputs, in tiles of 128 rows (64 at Cp <= 64, so that
+//     9*Cp divides at Cp = 64 as at 128), a thread 4 rows x 8*NG channels;
+//     the reduction over pixels split into S fixed chunks, one block each
+//     (row tile, chunk), so that the pass fills the card (S = 29 at
+//     32x32x128, B = 32); its patch stage lands [pixel][row] (a thread reads
+//     its 4 rows as one float4).  db rides on the rewrite of the g_z copies.
+//     The chunk partials (S, 9*Cp, Cp) stay in device memory, where L2
+//     holds them (17 MB at 32x32x128), and the next launch, the layer's
+//     state-cotangent conv, sums them in a fixed order (s = 0 .. S-1) over
+//     all its blocks while its first stages load: no float atomics, so two
+//     calls are bit-identical.  Summed there, they cost that conv 3.6-4.1
+//     us a layer (an H100 at 32x32x128 and 32x32x64, B = 32); a launch of
+//     their own took 6.2-7.2 us and made B2 0.3-1.6% slower (PERF.md §6).
+//
+// Launches, all on the caller's stream (graph-capturable): B1 one a layer;
+// B2 the recompute (one a layer) and two a layer in reverse (wide_dk, then
+// wide_conv<kAccumulate>): 3L.  Each launch checks cudaGetLastError.
 
 #include "euler_common.cuh"
 
@@ -59,16 +99,43 @@ using namespace deqres;
 
 namespace {
 
-constexpr int kBM = 128;        // pixels of a forward tile, reduction rows of a dK tile
-constexpr int kBK = 16;         // reduction steps a stage
-constexpr int kThreads = 256;   // 16 x 16 threads, each 8 rows x 4 columns
-constexpr int kPad = 4;         // floats after each shared row of 128
-constexpr int kStep = 0;        // y + h * relu(conv(y, K) + b), relu mask optional
-constexpr int kAccumulate = 1;  // g += conv(g_z, K^T)
+constexpr int kBM = 128;             // pixels of a conv tile
+constexpr int kBK = 16;              // reduction steps a stage
+constexpr int kStages = 4;           // stages in the shared-memory ring
+constexpr int kAStride = kBK + 4;    // floats a pixel of the conv's patch stage
+constexpr int kPatchCopies = kBM * kBK / 4;  // float4s of a patch stage
+constexpr int kMinBlocks = 2;        // conv blocks an SM (255 registers at 128 threads)
+constexpr int kStep = 0;             // y + h * relu(conv(y, K) + b), relu mask optional
+constexpr int kAccumulate = 1;       // g_out = g + conv(g_z(g), K^T), after summing dK
+
+// Threads a block.  The conv where Cp > 64 runs 128, each thread 8 pixels x
+// 16 channels (128 accumulators: fewer shared loads an FFMA, 255 registers);
+// at Cp <= 64, where 128 x 64 outputs would give 128 threads 64 each, 256
+// threads of 4 pixels x 8 channels keep twice the warps an SM.  The dK pass
+// gives each thread 4 rows x 8*NG channels: 128-row tiles of 256 threads,
+// two blocks an SM, where Cp > 64 (9*Cp = 1152 rows at Cp = 128: 9 tiles);
+// 64-row tiles of 128 threads, four blocks an SM, at Cp <= 64 (576 rows at
+// Cp = 64: 9 tiles, where 128-row tiles would leave half of a fifth idle).
+constexpr int kConvThreadsNarrow = 256;
+constexpr int kConvThreadsWide = 128;
+
+__host__ __device__ constexpr int dk_rows(int NG) { return NG == 2 ? 128 : 64; }
+__host__ __device__ constexpr int dk_threads(int NG) { return NG == 2 ? 256 : 128; }
+__host__ __device__ constexpr int dk_blocks(int NG) { return NG == 2 ? 2 : 4; }
+
+// A conv block of T threads: (T / 8) x 8 threads, each kTM pixels x 8*NG
+// channels; each copies kACopies float4s of a patch stage.
+template <int T>
+struct Threads {
+  static constexpr int kTM = kBM * 8 / T;
+  static constexpr int kRowThreads = T / 8;
+  static constexpr int kACopies = kPatchCopies / T;
+};
 
 struct Wide {
   int B, H, W, C, Cp, L;
-  int K;        // 9 * Cp: the reduction of a conv
+  int K;        // 9 * Cp: the reduction of a conv, the rows of dK
+  int nc;       // chunks of kBK input channels a tap
   int nw;       // relu-mask words a pixel
   long long M;  // B * H * W pixels
 };
@@ -82,439 +149,633 @@ Wide make_wide(int B, int H, int W, int C, int L) {
   g.Cp = (C + 3) / 4 * 4;
   g.L = L;
   g.K = 9 * g.Cp;
+  g.nc = (g.Cp + kBK - 1) / kBK;
   g.nw = (g.Cp + 31) / 32;
   g.M = static_cast<long long>(B) * H * W;
   return g;
+}
+
+// Channel groups of 64 a tile: 2 where Cp > 64 (one tile holds them all).
+int groups(const Wide& g) { return g.Cp > 64 ? 2 : 1; }
+
+// Floats of one ring stage: the patch tile and the kernel (or g) tile; the
+// dK pass's stage also holds the relu-mask words of its 16 pixels' 64*NG
+// channels.  The state-cotangent conv keeps, beside its ring, the mask words
+// of the pixels its taps reach: for each tap row dy, the tile's 128 pixels
+// shifted by (dy - 1) rows and one more on each side, 4 words (128
+// channels) each.
+constexpr int kMaskPixels = kBM + 2;
+constexpr int kConvMaskWords = 3 * kMaskPixels * 4;
+
+template <int NG>
+__host__ __device__ constexpr int conv_stage_floats() {
+  return kBM * kAStride + kBK * 64 * NG;
+}
+
+template <int NG>
+__host__ __device__ constexpr int dk_stage_floats() {
+  return kBK * dk_rows(NG) + kBK * 64 * NG + kBK * 2 * NG;
+}
+
+template <int NG>
+__host__ __device__ constexpr int conv_smem_bytes() {
+  return 4 * (kStages * conv_stage_floats<NG>() + kConvMaskWords);
+}
+
+template <int NG>
+__host__ __device__ constexpr int dk_smem_bytes() {
+  return 4 * kStages * dk_stage_floats<NG>();
 }
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// A pixel's (image, row, column), or image -1 past the last pixel.
-struct Pixel {
-  int b, y, x;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes of src into shared memory, or 16 zero bytes where !valid (src is
+// then not read; callers pass a valid base pointer all the same).
+__device__ __forceinline__ void copy16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// g_z of a float4 of g: h * g where the mask bit is set, else 0.
+__device__ __forceinline__ float4 masked(float4 v, unsigned bits, float h) {
+  return make_float4(bits & 1u ? h * v.x : 0.f, bits & 2u ? h * v.y : 0.f,
+                     bits & 4u ? h * v.z : 0.f, bits & 8u ? h * v.w : 0.f);
+}
+
+struct ConvArgs {
+  const float* src;   // (B, H, W, Cp): y_l (kStep) or g (kAccumulate)
+  const float* K;     // (9, Cp, Cp): K_l (kStep) or K_l^T (kAccumulate)
+  const float* bias;  // (Cp), kStep
+  float* dst;         // kStep: y_{l+1}, or null; kAccumulate: g + conv(g_z, K^T)
+  unsigned* mask;     // (B, H, W, nw): kStep's relu mask out (or null), kAccumulate's in
+  const float* part;  // kAccumulate: the dK pass's (S, 9*Cp, Cp) partials
+  const float* pdb;   //   and its (S, Cp) db partials, summed into
+  float* gk;          //   dK_l (9, C, C)
+  float* gb;          //   and db_l (C)
+  int S;
+  float h;
 };
 
-__device__ __forceinline__ Pixel pixel_of(const Wide& g, long long m) {
-  Pixel p{-1, 0, 0};
-  if (m < g.M) {
-    const int hw = g.H * g.W;
-    p.b = static_cast<int>(m / hw);
-    const int r = static_cast<int>(m - static_cast<long long>(p.b) * hw);
-    p.y = r / g.W;
-    p.x = r - p.y * g.W;
+// The sum of n values at p[0], p[stride], ... in that order, their loads
+// issued 16 at a time so that the L2 latency is paid n/16 times.
+__device__ __forceinline__ float ordered_sum(const float* __restrict__ p, size_t stride, int n) {
+  float sum = 0.f;
+  for (int s0 = 0; s0 < n; s0 += 16) {
+    float v[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) v[q] = s0 + q < n ? p[(s0 + q) * stride] : 0.f;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      if (s0 + q < n) sum += v[q];
+    }
   }
-  return p;
+  return sum;
 }
 
-// The next pixel, 16 on: (b, y, x) advanced without a division.
-__device__ __forceinline__ void advance16(const Wide& g, Pixel& p) {
-  p.x += 16;
-  while (p.x >= g.W) {
-    p.x -= g.W;
-    ++p.y;
-  }
-  while (p.y >= g.H) {
-    p.y -= g.H;
-    ++p.b;
-  }
-}
-
-// A reduction index k = t * Cp + ci of the 9*Cp (tap, input channel) pairs,
-// kept as (t, ci) and advanced 16 at a time without a division.
-struct Tap {
-  int t, ci;
-};
-
-__device__ __forceinline__ Tap tap_of(const Wide& g, int k) {
-  const int t = k / g.Cp;
-  return Tap{t, k - t * g.Cp};
-}
-
-__device__ __forceinline__ void advance16(const Wide& g, Tap& k) {
-  k.ci += 16;
-  while (k.ci >= g.Cp) {
-    k.ci -= g.Cp;
-    ++k.t;
-  }
-}
-
-// Four consecutive reduction entries (tap t, input channels ci .. ci+3) of
-// a pixel's 3x3 patch of the (B, H, W, Cp) state (Cp is a multiple of 4, so
-// the four share a tap); zero outside the image ("SAME" padding), past the
-// last pixel (b < 0 or b >= B) and past the reduction's end (t >= 9).
-__device__ __forceinline__ float4 patch4(const float* __restrict__ src, const Wide& g,
-                                         const Pixel& p, const Tap& k) {
-  if (p.b < 0 || p.b >= g.B || k.t >= 9) return make_float4(0.f, 0.f, 0.f, 0.f);
-  const int dy = k.t / 3;
-  const int yy = p.y + dy - 1, xx = p.x + k.t - 3 * dy - 1;
-  if (yy < 0 || yy >= g.H || xx < 0 || xx >= g.W) return make_float4(0.f, 0.f, 0.f, 0.f);
-  return ldg4(src + ((static_cast<size_t>(p.b) * g.H + yy) * g.W + xx) * g.Cp + k.ci);
-}
-
-// The columns of a tile: NG groups of 64 output channels (NG = 2 where Cp >
-// 64, so that one tile holds every channel and the patch tile is read
-// once); each thread holds 4 channels of each group.
-template <int NG>
-struct Cols {
-  static constexpr int kN = 64 * NG;
-};
-
-// One layer as a tiled implicit GEMM over pixels x output channels (see the
-// file's note).  MODE kStep: dst = src + h * relu(src (*) K + bias), with
-// dst optional (null: the relu mask alone) and the mask optional (null: not
-// recorded).  MODE kAccumulate: dst += src (*) K.  The sum over the 9*Cp
-// reduction runs in one fixed order, one stage of 16 after another.
-template <bool BF16, int MODE, int NG>
-__global__ void __launch_bounds__(kThreads, 2)
-    wide_conv(const float* __restrict__ src, const float* __restrict__ Kl,
-              const float* __restrict__ bias, float* __restrict__ dst,
-              unsigned* __restrict__ mask, Wide g, float h) {
-  constexpr int kN = Cols<NG>::kN;
-  __shared__ __align__(16) float As[2][kBK][kBM + kPad];  // [reduction][pixel]
-  __shared__ __align__(16) float Bs[2][kBK][kN];          // [reduction][channel]
-  const int tid = threadIdx.x;
-  const int tm = tid / 16, tn = tid % 16;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kN;
-
-  // Loads: each thread brings two float4s of the patch tile (pixels
-  // tid/4 and tid/4 + 64, reduction quad tid % 4) and NG of the kernel
-  // tile (reduction row tid / 16, channel quad tid % 16 of each group).
-  const int a_kq = tid % 4;
-  Pixel a_px[2];
-  a_px[0] = pixel_of(g, m0 + tid / 4);
-  a_px[1] = pixel_of(g, m0 + tid / 4 + 64);
-  Tap a_k = tap_of(g, 4 * a_kq);  // the reduction index of the next load
-  const int b_kr = tid / 16;
-  float4 ra[2], rb[NG];
-  // Called with k0 = 0, 16, 32, ... in turn.
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) ra[j] = operand4<BF16>(patch4(src, g, a_px[j], a_k));
-    advance16(g, a_k);
-    const int k = k0 + b_kr;
-#pragma unroll
-    for (int q = 0; q < NG; ++q) {
-      const int col = n0 + 64 * q + 4 * tn;
-      rb[q] = (col < g.Cp && k < g.K) ? ldg4(Kl + static_cast<size_t>(k) * g.Cp + col)
-                                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  auto store = [&](int s) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int mm = tid / 4 + 64 * j;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) As[s][4 * a_kq + q][mm] = lane(ra[j], q);
-    }
-#pragma unroll
-    for (int q = 0; q < NG; ++q) st4(&Bs[s][b_kr][64 * q + 4 * tn], rb[q]);
-  };
-
-  float acc[8][4 * NG];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4 * NG; ++j) acc[i][j] = 0.f;
-  }
-  load(0);
-  store(0);
-  __syncthreads();
-  int s = 0;
-  for (int k0 = 0; k0 < g.K; k0 += kBK) {
-    const bool more = k0 + kBK < g.K;
-    if (more) load(k0 + kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = ld4(&As[s][kk][8 * tm]), a1 = ld4(&As[s][kk][8 * tm + 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int q = 0; q < NG; ++q) {
-        const float4 b = ld4(&Bs[s][kk][64 * q + 4 * tn]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc[i][4 * q + 0] = fmaf(a[i], b.x, acc[i][4 * q + 0]);
-          acc[i][4 * q + 1] = fmaf(a[i], b.y, acc[i][4 * q + 1]);
-          acc[i][4 * q + 2] = fmaf(a[i], b.z, acc[i][4 * q + 2]);
-          acc[i][4 * q + 3] = fmaf(a[i], b.w, acc[i][4 * q + 3]);
-        }
-      }
-    }
-    // The other stage was last read before the previous barrier.
-    if (more) store(s ^ 1);
-    __syncthreads();
-    s ^= 1;
-  }
-
-#pragma unroll
-  for (int q = 0; q < NG; ++q) {
-    const int co = n0 + 64 * q + 4 * tn;
-    if (co >= g.Cp) break;
-    float4 bb = make_float4(0.f, 0.f, 0.f, 0.f);
-    if constexpr (MODE == kStep) bb = ldg4(bias + co);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long long m = m0 + 8 * tm + i;
-      if (m >= g.M) break;
-      const size_t o = static_cast<size_t>(m) * g.Cp + co;
-      if constexpr (MODE == kStep) {
-        const float z0 = acc[i][4 * q] + bb.x, z1 = acc[i][4 * q + 1] + bb.y;
-        const float z2 = acc[i][4 * q + 2] + bb.z, z3 = acc[i][4 * q + 3] + bb.w;
-        if (mask) {
-          const unsigned bits = (z0 > 0.f ? 1u : 0u) | (z1 > 0.f ? 2u : 0u) |
-                                (z2 > 0.f ? 4u : 0u) | (z3 > 0.f ? 8u : 0u);
-          if (bits) atomicOr(mask + static_cast<size_t>(m) * g.nw + co / 32, bits << (co % 32));
-        }
-        if (dst) {
-          float4 y = ldg4(src + o);
-          y.x += h * relu(z0);
-          y.y += h * relu(z1);
-          y.z += h * relu(z2);
-          y.w += h * relu(z3);
-          st4(dst + o, y);
-        }
-      } else {
-        float4 v = ld4(dst + o);
-        v.x += acc[i][4 * q];
-        v.y += acc[i][4 * q + 1];
-        v.z += acc[i][4 * q + 2];
-        v.w += acc[i][4 * q + 3];
-        st4(dst + o, v);
-      }
-    }
-  }
-}
-
-// g_z = h * mask * g over every (pixel, channel quad).
-__global__ void __launch_bounds__(kThreads)
-    wide_gz(const float* __restrict__ gin, const unsigned* __restrict__ mask,
-            float* __restrict__ gz, Wide g, float h) {
-  const int quads = g.Cp / 4;
-  const long long n = g.M * quads;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long m = i / quads;
-    const int c = static_cast<int>(i - m * quads) * 4;
-    const unsigned word = mask[m * g.nw + c / 32] >> (c % 32);
-    const float4 v = ldg4(gin + m * g.Cp + c);
-    st4(gz + m * g.Cp + c, make_float4(word & 1u ? h * v.x : 0.f, word & 2u ? h * v.y : 0.f,
-                                       word & 4u ? h * v.z : 0.f, word & 8u ? h * v.w : 0.f));
-  }
-}
-
-// Partial dK (rows: 9*Cp (tap, input) pairs; columns: Cp outputs) and db of
-// the pixels [s * chunk, (s + 1) * chunk), s = blockIdx.z: fp32, y and g_z
-// unrounded in both modes.  part is (S, 9*Cp, Cp), pdb (S, Cp); the blocks
-// of row tile 0 also sum db.  Each thread sums its 8 x 4NG entries over the
-// chunk's pixels in order, 16 a stage, two stages.
-template <int NG>
-__global__ void __launch_bounds__(kThreads, 2)
-    wide_dk(const float* __restrict__ Y, const float* __restrict__ Gz, float* __restrict__ part,
-            float* __restrict__ pdb, Wide g, int chunk) {
-  constexpr int kN = Cols<NG>::kN;
-  __shared__ __align__(16) float Ps[2][kBK][kBM + kPad];  // [pixel][reduction row]
-  __shared__ __align__(16) float Gs[2][kBK][kN];          // [pixel][channel]
-  const int tid = threadIdx.x;
-  const int tk = tid / 16, tn = tid % 16;
-  const int r0 = blockIdx.x * kBM, n0 = blockIdx.y * kN;
-  const long long p_begin = static_cast<long long>(blockIdx.z) * chunk;
-  const long long p_end = p_begin + chunk < g.M ? p_begin + chunk : g.M;
-
-  // Loads: two float4s of the patch tile (pixel i / 32, rows quad i % 32,
-  // i = tid and tid + 256: each thread's rows stay, its pixels move 16 a
-  // stage) and NG of g_z (pixel tid / 16, quad tid % 16 of each group).
-  Tap p_k[2];
-  Pixel p_px[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int i = tid + kThreads * j;
-    p_k[j] = tap_of(g, r0 + 4 * (i % 32));
-    p_px[j] = pixel_of(g, p_begin + i / 32);
-  }
-  float4 rp[2], rg[NG];
-  // Called with p0 = p_begin, p_begin + 16, ... in turn.
-  auto load = [&](long long p0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = tid + kThreads * j;
-      rp[j] = p0 + i / 32 < p_end ? patch4(Y, g, p_px[j], p_k[j])
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-      advance16(g, p_px[j]);
-    }
-    const long long m = p0 + tid / 16;
-#pragma unroll
-    for (int q = 0; q < NG; ++q) {
-      const int col = n0 + 64 * q + 4 * tn;
-      rg[q] = (m < p_end && col < g.Cp) ? ldg4(Gz + static_cast<size_t>(m) * g.Cp + col)
-                                        : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  auto store = [&](int s) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = tid + kThreads * j;
-      st4(&Ps[s][i / 32][4 * (i % 32)], rp[j]);
-    }
-#pragma unroll
-    for (int q = 0; q < NG; ++q) st4(&Gs[s][tid / 16][64 * q + 4 * tn], rg[q]);
-  };
-
-  float acc[8][4 * NG], ds[4 * NG];
-#pragma unroll
-  for (int j = 0; j < 4 * NG; ++j) {
-    ds[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i][j] = 0.f;
-  }
-  const bool sums_db = blockIdx.x == 0 && tk == 0;
-  load(p_begin);
-  store(0);
-  __syncthreads();
-  int s = 0;
-  for (long long p0 = p_begin; p0 < p_end; p0 += kBK) {
-    const bool more = p0 + kBK < p_end;
-    if (more) load(p0 + kBK);
-#pragma unroll
-    for (int mm = 0; mm < kBK; ++mm) {
-      const float4 a0 = ld4(&Ps[s][mm][8 * tk]), a1 = ld4(&Ps[s][mm][8 * tk + 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int q = 0; q < NG; ++q) {
-        const float4 b = ld4(&Gs[s][mm][64 * q + 4 * tn]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc[i][4 * q + 0] = fmaf(a[i], b.x, acc[i][4 * q + 0]);
-          acc[i][4 * q + 1] = fmaf(a[i], b.y, acc[i][4 * q + 1]);
-          acc[i][4 * q + 2] = fmaf(a[i], b.z, acc[i][4 * q + 2]);
-          acc[i][4 * q + 3] = fmaf(a[i], b.w, acc[i][4 * q + 3]);
-        }
-        if (sums_db) {
-          ds[4 * q + 0] += b.x;
-          ds[4 * q + 1] += b.y;
-          ds[4 * q + 2] += b.z;
-          ds[4 * q + 3] += b.w;
-        }
-      }
-    }
-    if (more) store(s ^ 1);
-    __syncthreads();
-    s ^= 1;
-  }
-
-  float* out = part + static_cast<size_t>(blockIdx.z) * g.K * g.Cp;
-#pragma unroll
-  for (int q = 0; q < NG; ++q) {
-    const int co = n0 + 64 * q + 4 * tn;
-    if (co >= g.Cp) break;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = r0 + 8 * tk + i;
-      if (r < g.K) {
-        st4(out + static_cast<size_t>(r) * g.Cp + co,
-            make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]));
-      }
-    }
-    if (sums_db) {
-      st4(pdb + static_cast<size_t>(blockIdx.z) * g.Cp + co,
-          make_float4(ds[4 * q], ds[4 * q + 1], ds[4 * q + 2], ds[4 * q + 3]));
-    }
-  }
-}
-
-// dK_l (9, C, C) and db_l (C) of the S partials, summed over s in order.
-__global__ void __launch_bounds__(kThreads)
-    wide_reduce(const float* __restrict__ part, const float* __restrict__ pdb,
-                float* __restrict__ gk, float* __restrict__ gb, Wide g, int S) {
-  const int C = g.C, Cp = g.Cp;
+// dK_l (9, C, C) and db_l (C): the S partials (S, 9*Cp, Cp) and (S, Cp)
+// summed in order s = 0 .. S-1, spread over every block of the launch.  Not
+// inlined, so that the conv's main loop keeps its own register allocation.
+template <int kThreads>
+__device__ __noinline__ void sum_partials(const float* __restrict__ part,
+                                          const float* __restrict__ pdb, float* __restrict__ gk,
+                                          float* __restrict__ gb, int S, int C, int Cp) {
   const int n = 9 * C * C + C;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    float sum = 0.f;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += gridDim.x * kThreads) {
     if (i < 9 * C * C) {
       const int t = i / (C * C), r = i - t * C * C;
       const int ci = r / C, co = r - ci * C;
-      const size_t o = static_cast<size_t>(t * Cp + ci) * Cp + co;
-      for (int s = 0; s < S; ++s) sum += part[static_cast<size_t>(s) * g.K * Cp + o];
-      gk[i] = sum;
+      gk[i] = ordered_sum(part + static_cast<size_t>(t * Cp + ci) * Cp + co,
+                          static_cast<size_t>(9) * Cp * Cp, S);
     } else {
       const int co = i - 9 * C * C;
-      for (int s = 0; s < S; ++s) sum += pdb[static_cast<size_t>(s) * Cp + co];
-      gb[co] = sum;
+      gb[co] = ordered_sum(pdb + co, Cp, S);
     }
   }
 }
 
-// Channel groups of 64 a tile: 2 where Cp > 64 (one tile holds them all).
-int groups(const Wide& g) { return g.Cp > 64 ? 2 : 1; }
+// One layer as a tiled implicit GEMM over pixels x output channels (see the
+// file's note).  MODE kStep: dst = src + h * relu(src (*) K + bias), dst
+// optional (null: the relu mask alone), the mask optional (null: not
+// recorded).  MODE kAccumulate: first dK_l and db_l from the partials, then
+// dst = src + g_z(src) (*) K^T.  Each output sums its 9*Cp products in one
+// fixed order: tap, then input channel.
+template <bool BF16, int MODE, int NG, int T>
+__global__ void __launch_bounds__(T, kMinBlocks) wide_conv(const ConvArgs a, const Wide g) {
+  constexpr int kThreads = T, kTM = Threads<T>::kTM, kRowThreads = Threads<T>::kRowThreads;
+  constexpr int kACopies = Threads<T>::kACopies;
+  constexpr int kN = 64 * NG;             // output channels of the tile
+  constexpr int kQuads = kN / 4;          // float4s a kernel-tile row
+  constexpr int kBCopies = kBK * kQuads / kThreads;
+  constexpr int kStageFloats = conv_stage_floats<NG>();
+  constexpr bool kRewrite = BF16 || MODE == kAccumulate;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
+  const long long hw = static_cast<long long>(g.H) * g.W;
 
-dim3 conv_grid(const Wide& g) {
-  const int n = 64 * groups(g);
-  return dim3(static_cast<unsigned>((g.M + kBM - 1) / kBM), (g.Cp + n - 1) / n);
-}
+  // Copies: each thread brings kACopies float4s of the patch tile (pixels
+  // tid/4 + kThreads/4 j of the tile, channel quad tid % 4 of the stage's
+  // 16) and kBCopies of the kernel tile.  Which taps of its pixels land
+  // inside the image, and the copies' offsets, computed once; a stage adds
+  // the tap's and the chunk's offset, the same for every copy.
+  const int qa = tid % 4;
+  const float* tile = a.src + m0 * g.Cp;
+  unsigned inside[kACopies];
+#pragma unroll
+  for (int j = 0; j < kACopies; ++j) {
+    const long long m = m0 + tid / 4 + kThreads / 4 * j;
+    inside[j] = 0u;
+    if (m < g.M) {
+      const int r = static_cast<int>(m % hw);
+      const int y = r / g.W, x = r - (r / g.W) * g.W;
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const int yy = y + t / 3 - 1, xx = x + t % 3 - 1;
+        if (yy >= 0 && yy < g.H && xx >= 0 && xx < g.W) inside[j] |= 1u << t;
+      }
+    }
+  }
+  // The stage to issue next, as (tap, channel chunk).
+  int it_t = 0, it_c = 0;
+  auto issue = [&](int slot) {
+    float* As = smem + slot * kStageFloats;
+    float* Bs = As + kBM * kAStride;
+    const int ci0 = it_c * kBK, ci = ci0 + 4 * qa;
+    const int shift = (it_t / 3 - 1) * g.W + (it_t % 3 - 1);
+    const bool quad_ok = ci < g.Cp;
+#pragma unroll
+    for (int j = 0; j < kACopies; ++j) {
+      const int mm = tid / 4 + kThreads / 4 * j;
+      const bool ok = quad_ok && ((inside[j] >> it_t) & 1u);
+      copy16(As + mm * kAStride + 4 * qa, ok ? tile + (mm + shift) * g.Cp + ci : a.src, ok);
+    }
+    const float* k_rows = a.K + static_cast<size_t>(it_t * g.Cp + ci0) * g.Cp;
+#pragma unroll
+    for (int j = 0; j < kBCopies; ++j) {
+      const int c = tid + kThreads * j;
+      const int r = c / kQuads, col = 4 * (c % kQuads);
+      const bool ok = ci0 + r < g.Cp && col < g.Cp;
+      copy16(Bs + r * kN + col, ok ? k_rows + r * g.Cp + col : a.K, ok);
+    }
+    if (++it_c == g.nc) {
+      it_c = 0;
+      ++it_t;
+    }
+  };
 
-unsigned flat_grid(long long n) {
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(blocks < 8192 ? (blocks > 0 ? blocks : 1) : 8192);
-}
+  // kAccumulate: the mask words of every pixel a tap reaches, with the
+  // first stage (zero outside the batch; a tap that leaves its image reads
+  // zeros, so its bits do not matter).
+  unsigned* Mt = reinterpret_cast<unsigned*>(smem + kStages * kStageFloats);
+  if constexpr (MODE == kAccumulate) {
+    const int words = 3 * kMaskPixels * g.nw;
+    for (int i = tid; i < words; i += kThreads) {
+      const int px = i / g.nw, w = i - px * g.nw;  // px: row r = px / kMaskPixels
+      const int r = px / kMaskPixels;
+      const long long q = m0 + static_cast<long long>(r - 1) * g.W + (px - r * kMaskPixels) - 1;
+      const bool ok = q >= 0 && q < g.M;
+      copy4(Mt + 4 * px + w, ok ? a.mask + q * g.nw + w : a.mask, ok);
+    }
+  }
+  const int n = 9 * g.nc;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n) issue(s);
+    commit_copies();
+  }
+  if constexpr (MODE == kAccumulate) {
+    sum_partials<kThreads>(a.part, a.pdb, a.gk, a.gb, a.S, g.C, g.Cp);
+  }
 
-template <bool BF16, int MODE>
-void conv(const float* src, const float* Kl, const float* bias, float* dst, unsigned* mask,
-          const Wide& g, float h, cudaStream_t s) {
-  if (groups(g) == 2) {
-    wide_conv<BF16, MODE, 2><<<conv_grid(g), kThreads, 0, s>>>(src, Kl, bias, dst, mask, g, h);
-  } else {
-    wide_conv<BF16, MODE, 1><<<conv_grid(g), kThreads, 0, s>>>(src, Kl, bias, dst, mask, g, h);
+  float acc[kTM][8 * NG];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8 * NG; ++j) acc[i][j] = 0.f;
+  }
+  const int tm = tid / 8, tn = tid % 8;
+  // Stage `stage`'s own copies, landed: g_z from g (kAccumulate) and the
+  // bf16 rounding, rewritten in place; the next barrier publishes them.
+  // Stages come in order: (rw_t, rw_c) is the next one's (tap, chunk).
+  int rw_t = 0, rw_c = 0;
+  auto rewrite = [&](int stage) {
+    if constexpr (kRewrite) {
+      float* As = smem + stage % kStages * kStageFloats;
+      const int ci = rw_c * kBK + 4 * qa;
+      // The tap's row of mask words, shifted by its column.
+      const unsigned* row = Mt + 4 * (rw_t / 3 * kMaskPixels + rw_t % 3) + ci / 32;
+#pragma unroll
+      for (int j = 0; j < kACopies; ++j) {
+        const int mm = tid / 4 + kThreads / 4 * j;
+        float* v = As + mm * kAStride + 4 * qa;
+        float4 x = ld4(v);
+        if constexpr (MODE == kAccumulate) x = masked(x, row[4 * mm] >> (ci & 31), a.h);
+        st4(v, operand4<BF16>(x));
+      }
+      if (++rw_c == g.nc) {
+        rw_c = 0;
+        ++rw_t;
+      }
+    }
+  };
+  wait_copies<kStages - 2>();
+  if constexpr (MODE == kAccumulate) __syncthreads();  // every thread's mask words
+  rewrite(0);
+  for (int it = 0; it < n; ++it) {
+    const float* As = smem + it % kStages * kStageFloats;
+    const float* Bs = As + kBM * kAStride;
+    __syncthreads();
+    // The slot computed last iteration is free once every thread passed the barrier.
+    if (it + kStages - 1 < n) issue((it + kStages - 1) % kStages);
+    commit_copies();
+#pragma unroll
+    for (int kq = 0; kq < kBK / 4; ++kq) {
+      float4 av[kTM];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) av[i] = ld4(As + (tm + kRowThreads * i) * kAStride + 4 * kq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int j = 0; j < 2 * NG; ++j) {
+          const float4 b = ld4(Bs + (4 * kq + e) * kN + 4 * tn + 32 * j);
+#pragma unroll
+          for (int i = 0; i < kTM; ++i) {
+            const float ai = lane(av[i], e);
+            acc[i][4 * j + 0] = fmaf(ai, b.x, acc[i][4 * j + 0]);
+            acc[i][4 * j + 1] = fmaf(ai, b.y, acc[i][4 * j + 1]);
+            acc[i][4 * j + 2] = fmaf(ai, b.z, acc[i][4 * j + 2]);
+            acc[i][4 * j + 3] = fmaf(ai, b.w, acc[i][4 * j + 3]);
+          }
+        }
+      }
+    }
+    // The next stage, issued kStages - 2 stages ago, has landed by now: its
+    // rewrite runs while other warps still compute this one.
+    if (it + 1 < n) {
+      wait_copies<kStages - 2>();
+      rewrite(it + 1);
+    }
+  }
+  wait_copies<0>();
+
+#pragma unroll
+  for (int j = 0; j < 2 * NG; ++j) {
+    const int co = 4 * tn + 32 * j;
+    float4 bb = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (MODE == kStep) {
+      if (co < g.Cp) bb = ldg4(a.bias + co);
+    }
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const long long m = m0 + tm + kRowThreads * i;
+      const size_t o = static_cast<size_t>(m) * g.Cp + co;
+      const bool mine = m < g.M && co < g.Cp;
+      if constexpr (MODE == kStep) {
+        const float z0 = acc[i][4 * j] + bb.x, z1 = acc[i][4 * j + 1] + bb.y;
+        const float z2 = acc[i][4 * j + 2] + bb.z, z3 = acc[i][4 * j + 3] + bb.w;
+        if (a.mask && j < g.nw) {
+          // Word j of the pixel's mask holds channels 32j .. 32j+31: the 8
+          // lanes tn = 0..7 of this tm, 4 bits each.
+          unsigned bits = ((z0 > 0.f ? 1u : 0u) | (z1 > 0.f ? 2u : 0u) | (z2 > 0.f ? 4u : 0u) |
+                           (z3 > 0.f ? 8u : 0u))
+                          << (4 * tn);
+          bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+          bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+          bits |= __shfl_xor_sync(0xffffffffu, bits, 4);
+          if (tn == 0 && m < g.M) a.mask[static_cast<size_t>(m) * g.nw + j] = bits;
+        }
+        if (a.dst && mine) {
+          float4 y = ldg4(a.src + o);
+          y.x += a.h * relu(z0);
+          y.y += a.h * relu(z1);
+          y.z += a.h * relu(z2);
+          y.w += a.h * relu(z3);
+          st4(a.dst + o, y);
+        }
+      } else if (mine) {
+        float4 v = ldg4(a.src + o);
+        v.x += acc[i][4 * j];
+        v.y += acc[i][4 * j + 1];
+        v.z += acc[i][4 * j + 2];
+        v.w += acc[i][4 * j + 3];
+        st4(a.dst + o, v);
+      }
+    }
   }
 }
 
+struct DkArgs {
+  const float* Y;         // (B, H, W, Cp): y_l
+  const float* G;         // (B, H, W, Cp): g, the cotangent of y_{l+1}
+  const unsigned* mask;   // (B, H, W, nw): the relu mask of z_l
+  float* part;            // (S, 9*Cp, Cp) partial dK_l
+  float* pdb;             // (S, Cp) partial db_l, from the blocks of row tile 0
+  int chunk;
+  float h;
+};
+
+// Partial dK (rows: 9*Cp (tap, input) pairs; columns: Cp outputs) and db of
+// the pixels [s * chunk, (s + 1) * chunk), s = blockIdx.y: fp32, y and g_z
+// unrounded in both modes.  Each thread sums its 4 x 8NG entries over the
+// chunk's pixels in order, 16 a stage.
+template <int NG>
+__global__ void __launch_bounds__(dk_threads(NG), dk_blocks(NG))
+    wide_dk(const DkArgs a, const Wide g) {
+  constexpr int kThreads = dk_threads(NG), kRows = dk_rows(NG);
+  constexpr int kRowQuads = kRows / 4;                    // float4s a patch-stage pixel
+  constexpr int kACopies = kBK * kRowQuads / kThreads;    // patch float4s a thread copies
+  constexpr int kPixelStep = kThreads / kRowQuads;        // between a thread's copied pixels
+  constexpr int kN = 64 * NG;
+  constexpr int kQuads = kN / 4;
+  constexpr int kGCopies = kBK * kQuads / kThreads;
+  constexpr int kStageFloats = dk_stage_floats<NG>();
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kRows;
+  const long long p_begin = static_cast<long long>(blockIdx.y) * a.chunk;
+  const long long p_end = p_begin + a.chunk < g.M ? p_begin + a.chunk : g.M;
+  const int n = p_end > p_begin ? static_cast<int>((p_end - p_begin + kBK - 1) / kBK) : 0;
+  const bool sums_db = blockIdx.x == 0;
+
+  // Patch copies: rows r0 + 4 (tid % kRowQuads) .. +3 (one tap, four inputs:
+  // Cp is a multiple of 4), pixels tid / kRowQuads + kPixelStep j of each
+  // stage.  The rows' tap is fixed; each pixel's (y, x) advances 16 pixels a
+  // stage.
+  const int row = r0 + 4 * (tid % kRowQuads);
+  const bool row_ok = row < g.K;
+  const int t = row_ok ? row / g.Cp : 0;
+  const int ci = row - t * g.Cp;
+  const int dy = t / 3 - 1, dx = t % 3 - 1;
+  const long long shift = static_cast<long long>(dy) * g.W + dx;
+  const int hw = g.H * g.W;
+  int py[kACopies], px[kACopies];
+#pragma unroll
+  for (int j = 0; j < kACopies; ++j) {
+    const int r = static_cast<int>((p_begin + tid / kRowQuads + kPixelStep * j) % hw);
+    py[j] = r / g.W;
+    px[j] = r - py[j] * g.W;
+  }
+  long long p0 = p_begin;  // the first pixel of the stage to issue next
+  auto issue = [&](int slot) {
+    float* Ps = smem + slot * kStageFloats;
+    float* Gs = Ps + kBK * kRows;
+    unsigned* Ms = reinterpret_cast<unsigned*>(Gs + kBK * kN);
+#pragma unroll
+    for (int j = 0; j < kACopies; ++j) {
+      const int pp = tid / kRowQuads + kPixelStep * j;
+      const long long p = p0 + pp;
+      const int yy = py[j] + dy, xx = px[j] + dx;
+      const bool ok = row_ok && p < p_end && yy >= 0 && yy < g.H && xx >= 0 && xx < g.W;
+      copy16(Ps + pp * kRows + 4 * (tid % kRowQuads), ok ? a.Y + (p + shift) * g.Cp + ci : a.Y,
+             ok);
+      px[j] += kBK;
+      while (px[j] >= g.W) {
+        px[j] -= g.W;
+        if (++py[j] == g.H) py[j] = 0;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kGCopies; ++j) {
+      const int c = tid + kThreads * j;
+      const int pp = c / kQuads, col = 4 * (c % kQuads);
+      const long long p = p0 + pp;
+      const bool ok = p < p_end && col < g.Cp;
+      copy16(Gs + pp * kN + col, ok ? a.G + p * g.Cp + col : a.G, ok);
+      // One copy of each mask word (32 channels), by the lane of its first quad.
+      if (col % 32 == 0) {
+        copy4(Ms + pp * 2 * NG + col / 32, ok ? a.mask + p * g.nw + col / 32 : a.mask, ok);
+      }
+    }
+    p0 += kBK;
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n) issue(s);
+    commit_copies();
+  }
+
+  // A thread's rows: r0 + 4 tr + i, i < 4.
+  float acc[4][8 * NG];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8 * NG; ++j) acc[i][j] = 0.f;
+  }
+  // db: each thread sums the g_z float4s it copies (channel quad
+  // 4 (tid % kQuads), pixels (tid + kThreads j) / kQuads of every stage).
+  float4 ds = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int tr = tid / 8, tn = tid % 8;
+  // Stage `stage`'s own g copies, landed: g_z = h * mask * g in place (and
+  // db's sums); the next barrier publishes them.
+  auto rewrite = [&](int stage) {
+    __syncwarp();  // the mask words came by other lanes of this warp
+    float* Gs = smem + stage % kStages * kStageFloats + kBK * kRows;
+    const unsigned* Ms = reinterpret_cast<const unsigned*>(Gs + kBK * kN);
+#pragma unroll
+    for (int j = 0; j < kGCopies; ++j) {
+      const int c = tid + kThreads * j;
+      const int col = 4 * (c % kQuads);
+      float* v = Gs + (c / kQuads) * kN + col;
+      const float4 gz = masked(ld4(v), Ms[c / kQuads * 2 * NG + col / 32] >> (col & 31), a.h);
+      st4(v, gz);
+      if (sums_db) {
+        ds.x += gz.x;
+        ds.y += gz.y;
+        ds.z += gz.z;
+        ds.w += gz.w;
+      }
+    }
+  };
+  if (n > 0) {
+    wait_copies<kStages - 2>();
+    rewrite(0);
+  }
+  for (int it = 0; it < n; ++it) {
+    const float* Ps = smem + it % kStages * kStageFloats;
+    const float* Gs = Ps + kBK * kRows;
+    __syncthreads();
+    if (it + kStages - 1 < n) issue((it + kStages - 1) % kStages);
+    commit_copies();
+#pragma unroll
+    for (int k = 0; k < kBK; ++k) {
+      const float4 av = ld4(Ps + k * kRows + 4 * tr);
+#pragma unroll
+      for (int j = 0; j < 2 * NG; ++j) {
+        const float4 b = ld4(Gs + k * kN + 4 * tn + 32 * j);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float ai = lane(av, i);
+          acc[i][4 * j + 0] = fmaf(ai, b.x, acc[i][4 * j + 0]);
+          acc[i][4 * j + 1] = fmaf(ai, b.y, acc[i][4 * j + 1]);
+          acc[i][4 * j + 2] = fmaf(ai, b.z, acc[i][4 * j + 2]);
+          acc[i][4 * j + 3] = fmaf(ai, b.w, acc[i][4 * j + 3]);
+        }
+      }
+    }
+    if (it + 1 < n) {
+      wait_copies<kStages - 2>();
+      rewrite(it + 1);
+    }
+  }
+  wait_copies<0>();
+
+  float* out = a.part + static_cast<size_t>(blockIdx.y) * g.K * g.Cp;
+#pragma unroll
+  for (int j = 0; j < 2 * NG; ++j) {
+    const int co = 4 * tn + 32 * j;
+    if (co >= g.Cp) break;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + 4 * tr + i;
+      if (r < g.K) {
+        st4(out + static_cast<size_t>(r) * g.Cp + co,
+            make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]));
+      }
+    }
+  }
+  if (sums_db) {
+    // The threads' sums of each channel quad, in thread order.
+    __syncthreads();
+    st4(smem + 4 * tid, ds);
+    __syncthreads();
+    if (tid < kQuads && 4 * tid < g.Cp) {
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int k = tid; k < kThreads; k += kQuads) {
+        const float4 v = ld4(smem + 4 * k);
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      st4(a.pdb + static_cast<size_t>(blockIdx.y) * g.Cp + 4 * tid, sum);
+    }
+  }
+}
+
+template <typename Kernel, typename Args>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, cudaStream_t s,
+                   const Args& args, const Wide& g) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, s>>>(args, g);
+  return cudaGetLastError();
+}
+
+dim3 conv_grid(const Wide& g) { return dim3(static_cast<unsigned>((g.M + kBM - 1) / kBM)); }
+
+template <bool BF16, int MODE>
+cudaError_t conv(const ConvArgs& args, const Wide& g, cudaStream_t s) {
+  constexpr int t1 = kConvThreadsNarrow, t2 = kConvThreadsWide;
+  if (groups(g) == 2) {
+    return launch(wide_conv<BF16, MODE, 2, t2>, conv_grid(g), t2, conv_smem_bytes<2>(), s, args,
+                  g);
+  }
+  return launch(wide_conv<BF16, MODE, 1, t1>, conv_grid(g), t1, conv_smem_bytes<1>(), s, args, g);
+}
+
+cudaError_t dk(const DkArgs& args, const Wide& g, int S, cudaStream_t s) {
+  if (groups(g) == 2) {
+    const dim3 grid((g.K + dk_rows(2) - 1) / dk_rows(2), S);
+    return launch(wide_dk<2>, grid, dk_threads(2), dk_smem_bytes<2>(), s, args, g);
+  }
+  const dim3 grid((g.K + dk_rows(1) - 1) / dk_rows(1), S);
+  return launch(wide_dk<1>, grid, dk_threads(1), dk_smem_bytes<1>(), s, args, g);
+}
+
 template <bool BF16>
-cudaError_t forward(const float* x, const float* K, const float* bias, float* s0, float* s1,
-                    float* out, const Wide& g, float h, cudaStream_t s) {
+cudaError_t forward(const float* x, const float* K, const float* bias, float* scratch, float* out,
+                    const Wide& g, float h, cudaStream_t s) {
   const size_t layer = 9LL * g.Cp * g.Cp;
+  const float* src = x;
   for (int l = 0; l < g.L; ++l) {
-    const float* src = l == 0 ? x : ((l - 1) % 2 ? s1 : s0);
-    float* dst = l == g.L - 1 ? out : (l % 2 ? s1 : s0);
-    conv<BF16, kStep>(src, K + l * layer, bias + static_cast<size_t>(l) * g.Cp, dst, nullptr, g,
-                      h, s);
-    const cudaError_t err = cudaGetLastError();
+    // The last layer writes `out`; the ones before it alternate.
+    float* dst = (g.L - 1 - l) % 2 == 0 ? out : scratch;
+    ConvArgs args{};
+    args.src = src;
+    args.K = K + l * layer;
+    args.bias = bias + static_cast<size_t>(l) * g.Cp;
+    args.dst = dst;
+    args.h = h;
+    const cudaError_t err = conv<BF16, kStep>(args, g, s);
     if (err != cudaSuccess) return err;
+    src = dst;
   }
   return cudaSuccess;
 }
 
 template <bool BF16>
 cudaError_t backward(const float* K, const float* bias, const float* KT, float* traj,
-                     unsigned* mask, float* gstate, float* gz, float* part, float* pdb,
-                     float* gk, float* gb, const Wide& g, int S, int chunk, float h,
+                     unsigned* mask, const float* gin, float* gx, float* scratch, float* part,
+                     float* pdb, float* gk, float* gb, const Wide& g, int S, int chunk, float h,
                      cudaStream_t s) {
   const size_t layer = 9LL * g.Cp * g.Cp;
   const size_t state = static_cast<size_t>(g.M) * g.Cp, words = static_cast<size_t>(g.M) * g.nw;
   cudaError_t err;
   // 1. Forward recompute: y_l into the trajectory, the relu mask of z_l.
   for (int l = 0; l < g.L; ++l) {
-    conv<BF16, kStep>(traj + l * state, K + l * layer, bias + static_cast<size_t>(l) * g.Cp,
-                      l + 1 < g.L ? traj + (l + 1) * state : nullptr, mask + l * words, g, h, s);
-    err = cudaGetLastError();
+    ConvArgs args{};
+    args.src = traj + l * state;
+    args.K = K + l * layer;
+    args.bias = bias + static_cast<size_t>(l) * g.Cp;
+    args.dst = l + 1 < g.L ? traj + (l + 1) * state : nullptr;
+    args.mask = mask + l * words;
+    args.h = h;
+    err = conv<BF16, kStep>(args, g, s);
     if (err != cudaSuccess) return err;
   }
-  // 2. Reverse sweep.
-  const int n = 64 * groups(g);
-  const dim3 dk_grid((g.K + kBM - 1) / kBM, (g.Cp + n - 1) / n, S);
-  const int n_reduce = 9 * g.C * g.C + g.C;
+  // 2. Reverse sweep: layer l reads g from the buffer layer l+1 wrote (the
+  // input g at l = L-1) and writes gx at even l, `scratch` at odd l.
+  const float* g_in = gin;
   for (int l = g.L - 1; l >= 0; --l) {
-    wide_gz<<<flat_grid(g.M * (g.Cp / 4)), kThreads, 0, s>>>(gstate, mask + l * words, gz, g, h);
-    if (groups(g) == 2) {
-      wide_dk<2><<<dk_grid, kThreads, 0, s>>>(traj + l * state, gz, part, pdb, g, chunk);
-    } else {
-      wide_dk<1><<<dk_grid, kThreads, 0, s>>>(traj + l * state, gz, part, pdb, g, chunk);
-    }
-    wide_reduce<<<flat_grid(n_reduce), kThreads, 0, s>>>(
-        part, pdb, gk + static_cast<size_t>(l) * 9 * g.C * g.C,
-        gb + static_cast<size_t>(l) * g.C, g, S);
-    conv<BF16, kAccumulate>(gz, KT + l * layer, nullptr, gstate, nullptr, g, h, s);
-    err = cudaGetLastError();
+    float* g_out = l % 2 == 0 ? gx : scratch;
+    DkArgs d{};
+    d.Y = traj + l * state;
+    d.G = g_in;
+    d.mask = mask + l * words;
+    d.part = part;
+    d.pdb = pdb;
+    d.chunk = chunk;
+    d.h = h;
+    err = dk(d, g, S, s);
     if (err != cudaSuccess) return err;
+    ConvArgs args{};
+    args.src = g_in;
+    args.K = KT + l * layer;
+    args.dst = g_out;
+    args.mask = mask + l * words;
+    args.part = part;
+    args.pdb = pdb;
+    args.gk = gk + static_cast<size_t>(l) * 9 * g.C * g.C;
+    args.gb = gb + static_cast<size_t>(l) * g.C;
+    args.S = S;
+    args.h = h;
+    err = conv<BF16, kAccumulate>(args, g, s);
+    if (err != cudaSuccess) return err;
+    g_in = g_out;
   }
   return cudaSuccess;
 }
@@ -523,12 +784,14 @@ cudaError_t backward(const float* K, const float* bias, const float* KT, float* 
 
 extern "C" {
 
-// Bytes of static shared memory a block of the wide variants uses at C
-// channels (the conv step and the dK pass use the same two stages of
-// tiles: 16 x (128 + 4) and 16 x 64 or 16 x 128 floats).
+// Bytes of dynamic shared memory the largest block of the wide variants
+// asks for at C channels: the conv's (kStages ring stages and its mask
+// rows) or the dK pass's (kStages ring stages), whichever is larger.
 long long deqres_euler_wide_smem(int C) {
   const Wide g = make_wide(1, 1, 1, C, 1);
-  return 4LL * 2 * kBK * (kBM + kPad + 64 * groups(g));
+  const int conv = groups(g) == 2 ? conv_smem_bytes<2>() : conv_smem_bytes<1>();
+  const int dk = groups(g) == 2 ? dk_smem_bytes<2>() : dk_smem_bytes<1>();
+  return conv > dk ? conv : dk;
 }
 
 const char* deqres_cuda_error_string(int err) {
@@ -536,33 +799,36 @@ const char* deqres_cuda_error_string(int err) {
 }
 
 // The wide B1 on `stream`; returns the first launch error (0 on success).
-// Device pointers to contiguous fp32 tensors: x (B, H, W, Cp) and out (B, H,
-// W, Cp), s0 and s1 (B, H, W, Cp) scratch (unused at L = 1), K (L, 3, 3, Cp,
-// Cp) and bias (L, Cp), zero-padded from C to Cp (C rounded up to a multiple
-// of 4), K rounded to bf16 values in bf16 mode; all 16-byte aligned.
-int deqres_euler_wide_fwd(const float* x, const float* K, const float* bias, float* s0, float* s1,
+// Device pointers to contiguous fp32 tensors: x (B, H, W, Cp) (only read),
+// out (B, H, W, Cp), scratch (B, H, W, Cp) (unused at L = 1), K (L, 3, 3,
+// Cp, Cp) and bias (L, Cp), zero-padded from C to Cp (C rounded up to a
+// multiple of 4), K rounded to bf16 values in bf16 mode; all 16-byte
+// aligned.
+int deqres_euler_wide_fwd(const float* x, const float* K, const float* bias, float* scratch,
                           float* out, int B, int H, int W, int C, int L, float h, int bf16,
                           void* stream) {
   if (B < 0 || H < 1 || W < 1 || C < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
   const Wide g = make_wide(B, H, W, C, L);
   const auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? forward<true>(x, K, bias, s0, s1, out, g, h, s)
-                               : forward<false>(x, K, bias, s0, s1, out, g, h, s));
+  return static_cast<int>(bf16 ? forward<true>(x, K, bias, scratch, out, g, h, s)
+                               : forward<false>(x, K, bias, scratch, out, g, h, s));
 }
 
 // The wide B2 on `stream`; returns the first launch error (0 on success).
 // Device pointers to contiguous tensors: K and KT (L, 3, 3, Cp, Cp) and bias
 // (L, Cp) as for B1 (KT rot180 with c_in and c_out swapped); traj (L, B, H,
 // W, Cp) with x, zero-padded, in its slice 0 (the recompute writes the
-// others); mask (L, B, H, W, ceil(Cp/32)) 32-bit words, zeroed; g (B, H, W,
-// Cp) the zero-padded cotangent of y_L in, gx out; gz (B, H, W, Cp),
-// part (S, 9*Cp, Cp) and pdb (S, Cp) scratch; gk (L, 3, 3, C, C) and gb (L,
-// C) out.  S chunks of `chunk` pixels (S * chunk >= B*H*W) split dK's sum.
+// others); mask (L, B, H, W, ceil(Cp/32)) 32-bit words (written whole, no
+// zeroing needed); g (B, H, W, Cp) the zero-padded cotangent of y_L (only
+// read); gx (B, H, W, Cp) out; scratch (B, H, W, Cp) (unused at L = 1),
+// part (S, 9*Cp, Cp) and pdb (S, Cp) scratch; gk (L, 3, 3, C, C) and gb
+// (L, C) out.  S chunks of `chunk` pixels (S * chunk >= B*H*W) split dK's
+// sum.
 int deqres_euler_wide_bwd(const float* K, const float* bias, const float* KT, float* traj,
-                          void* mask, float* g, float* gz, float* part, float* pdb, float* gk,
-                          float* gb, int B, int H, int W, int C, int L, int S, int chunk,
-                          float h, int bf16, void* stream) {
+                          void* mask, const float* g, float* gx, float* scratch, float* part,
+                          float* pdb, float* gk, float* gb, int B, int H, int W, int C, int L,
+                          int S, int chunk, float h, int bf16, void* stream) {
   if (B < 0 || H < 1 || W < 1 || C < 1 || L < 1 || S < 1 || chunk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -572,8 +838,10 @@ int deqres_euler_wide_bwd(const float* K, const float* bias, const float* KT, fl
   const auto s = static_cast<cudaStream_t>(stream);
   auto* bits = static_cast<unsigned*>(mask);
   return static_cast<int>(
-      bf16 ? backward<true>(K, bias, KT, traj, bits, g, gz, part, pdb, gk, gb, w, S, chunk, h, s)
-           : backward<false>(K, bias, KT, traj, bits, g, gz, part, pdb, gk, gb, w, S, chunk, h, s));
+      bf16 ? backward<true>(K, bias, KT, traj, bits, g, gx, scratch, part, pdb, gk, gb, w, S,
+                            chunk, h, s)
+           : backward<false>(K, bias, KT, traj, bits, g, gx, scratch, part, pdb, gk, gb, w, S,
+                             chunk, h, s));
 }
 
 }  // extern "C"

@@ -490,11 +490,14 @@ def jax_runs_pallas(config: SingleBlockResNetConfig, x: torch.Tensor) -> bool:
 
 
 # The widest stack whose train step on the kernels' wide variants beat the
-# per-layer one (64L x C, batch 32, NVIDIA H100 80GB HBM3 at 700 W: faster
-# at 64-112 filters, 0.7% slower at 128; PERF.md §5).  A wider stack that
-# needs a wide variant takes the per-layer route unless the JAX package
-# would run its Pallas kernel on it.
-WIDE_FUSED_MAX_CHANNELS = 112
+# per-layer one in every turn (64L x C, batch 32, NVIDIA H100 80GB HBM3 at
+# 700 W, chip_smoke.py's phase_time_wide; PERF.md §6): at 112 filters
+# 59.27-59.39 ms fused against 64.55-64.66 per layer, at 128 67.09-67.11 ms
+# against 67.65-67.87 (a 0.8% margin; with the kernels before their Hopper
+# redesign the fused step lost there by 0.7%).  128 is the reach's width,
+# so the limit sends no stack off the kernels: it is a hook for measurement
+# only, which chip_smoke.py lowers to time the per-layer route beside them.
+WIDE_FUSED_MAX_CHANNELS = 128
 
 
 def wide_route(channels: int) -> str:

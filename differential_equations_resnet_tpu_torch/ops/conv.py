@@ -29,12 +29,25 @@ from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
 )
 
 
+@contextlib.contextmanager
+def cudnn_tf32_off():
+    """cuDNN's ``allow_tf32`` off inside, restored on exit; every other cuDNN
+    flag (``enabled``, ``deterministic``, ``benchmark`` and the rest) stays
+    as the caller set it.  ``torch.backends.cudnn.flags`` is not used: it
+    resets each flag it is not given to its default."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = saved
+
+
 def _fp32_conv_context(x: torch.Tensor):
     """cuDNN with TF32 off for a convolution on ``x`` (a no-op on the CPU):
     cuDNN rounds fp32 convolutions to TF32 by default."""
-    if x.is_cuda:
-        return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
-    return contextlib.nullcontext()
+    return cudnn_tf32_off() if x.is_cuda else contextlib.nullcontext()
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:

@@ -33,7 +33,8 @@ launched (`kernel_variant`):
   64 and B2 C <= 56;
 - "wide" (``csrc/fused_euler_wide.cu``), every other shape of the reach: the
   state stays in device memory between layers and each layer is a tiled
-  implicit GEMM (`wide_plan`).
+  implicit GEMM fed by cp.async (`wide_plan`): L launches for B1, 3L for
+  B2.
 
 Each wrapper counts its kernel's launches on the card in ``launches`` (a
 call of either variant is one launch of B1 or B2), and the wide variants'
@@ -190,13 +191,23 @@ def kernel_variant(x_shape, backward: bool = False) -> str:
     return "band" if min_bands(height, width, channels, smem_bytes) is not None else "wide"
 
 
-# The wide variants' tiles (``csrc/fused_euler_wide.cu``): a block of 256
-# threads computes 128 pixels (or, in the dK pass, 128 (tap, input) rows) x
-# 64 output channels, or 128 where Cp > 64, from two shared-memory stages of
-# 16 reduction steps.
-WIDE_THREADS = 256
+# The wide variants' tiles (``csrc/fused_euler_wide.cu``), by the column
+# tile: 64 output channels where Cp <= 64, else 128 (one tile holds every
+# channel).  The conv computes 128 pixels a block (256 threads, or 128 where
+# Cp > 64); the dK pass a tile of (tap, input) rows (64 rows of 128 threads,
+# four blocks an SM, where Cp <= 64; else 128 rows of 256 threads, two an
+# SM).  Each runs a ring of 4 shared-memory stages of 16 reduction steps
+# filled by cp.async; the conv's patch stage keeps 4 floats of padding after
+# each pixel's 16, and beside the ring the relu-mask words of 3 rows of 130
+# pixels; the dK stage 16 pixels' mask words.  B1 launches once a layer; B2
+# once a layer in its recompute and twice in reverse (the dK pass, then the
+# state cotangent's conv, which also sums the dK partials).
+WIDE_THREADS = {64: 256, 128: 128}  # the conv's, by the column tile
+WIDE_DK_ROWS = {64: 64, 128: 128}
+WIDE_DK_BLOCKS_PER_SM = {64: 4, 128: 2}
 WIDE_TILE_ROWS = 128
 WIDE_STAGE = 16
+WIDE_STAGES = 4
 
 
 def _wide_cols(padded: int) -> int:
@@ -204,42 +215,52 @@ def _wide_cols(padded: int) -> int:
 
 
 def wide_smem_bytes(channels: int) -> int:
-    """Static shared memory of a wide block at C channels: two stages of a
-    (16, 128 + 4) and a (16, 64 or 128) fp32 tile."""
-    padded = _ceil(channels, 4) * 4
-    return 4 * 2 * WIDE_STAGE * (WIDE_TILE_ROWS + 4 + _wide_cols(padded))
+    """Dynamic shared memory of the largest wide block at C channels: the
+    conv's (4 ring stages of a (128, 16 + 4) patch tile and a (16, 64 or
+    128) kernel tile, and the relu-mask words of the pixels its taps reach:
+    3 rows of 130 pixels x 4 words) or the dK pass's (4 stages of a (16, 64
+    or 128 rows) patch tile, a (16, 64 or 128) g tile and 16 x 2 or 4 mask
+    words), whichever is larger."""
+    cols = _wide_cols(_ceil(channels, 4) * 4)
+    conv = (WIDE_STAGES * (WIDE_TILE_ROWS * (WIDE_STAGE + 4) + WIDE_STAGE * cols)
+            + 3 * (WIDE_TILE_ROWS + 2) * 4)
+    dk = WIDE_STAGES * (WIDE_STAGE * WIDE_DK_ROWS[cols] + WIDE_STAGE * cols
+                        + WIDE_STAGE * cols // 32)
+    return 4 * max(conv, dk)
 
 
 def wide_splits(x_shape, sms: int = SM_COUNT) -> Tuple[int, int]:
     """(S, chunk) of the wide B2's weight-gradient pass: its sum over the
     B*H*W pixels runs in S chunks of ``chunk`` pixels (a multiple of 16),
-    one block each a (9Cp, Cp) tile, as many as two blocks a streaming
-    multiprocessor hold at once (one wave), and the chunks' partials are
-    summed in a fixed order.  Decided from the shape (and the default SM
-    count) alone, so two calls sum in the same order."""
+    one block each a (64- or 128-row, Cp) tile of the (9Cp, Cp) gradient, as
+    many as the streaming multiprocessors hold at once (one wave), and the
+    chunks' partials are summed in a fixed order.  Decided from the shape
+    (and the default SM count) alone, so two calls sum in the same order."""
     batch, height, width, channels = x_shape
     padded = _ceil(channels, 4) * 4
+    cols = _wide_cols(padded)
     pixels = max(1, batch * height * width)
-    tiles = _ceil(9 * padded, WIDE_TILE_ROWS) * _ceil(padded, _wide_cols(padded))
-    splits = max(1, min(2 * sms // tiles, _ceil(pixels, 256)))
+    tiles = _ceil(9 * padded, WIDE_DK_ROWS[cols])
+    splits = max(1, min(WIDE_DK_BLOCKS_PER_SM[cols] * sms // tiles, _ceil(pixels, 256)))
     chunk = _ceil(_ceil(pixels, splits), WIDE_STAGE) * WIDE_STAGE
     return _ceil(pixels, chunk), chunk
 
 
 def wide_plan(x_shape, backward: bool = False) -> dict:
     """The wide variant's launches at a (B, H, W, C) state: the grid of a
-    layer's conv step (pixel tiles x channel tiles), its threads and
-    shared memory a block, and in the backward the dK pass's grid and its
-    (S, chunk) split."""
+    layer's conv (pixel tiles x channel tiles), its threads and shared
+    memory a block, and in the backward the dK pass's grid and its (S,
+    chunk) split."""
     batch, height, width, channels = x_shape
     padded = _ceil(channels, 4) * 4
     cols = _wide_cols(padded)
-    plan = {"variant": "wide", "threads": WIDE_THREADS, "smem_bytes": wide_smem_bytes(channels),
+    plan = {"variant": "wide", "threads": WIDE_THREADS[cols],
+            "smem_bytes": wide_smem_bytes(channels),
             "conv_grid": (_ceil(batch * height * width, WIDE_TILE_ROWS), _ceil(padded, cols))}
     if backward:
         splits, chunk = wide_splits(x_shape)
         plan.update(splits=splits, chunk=chunk,
-                    dk_grid=(_ceil(9 * padded, WIDE_TILE_ROWS), _ceil(padded, cols), splits))
+                    dk_grid=(_ceil(9 * padded, WIDE_DK_ROWS[cols]), splits))
     return plan
 
 
@@ -382,8 +403,8 @@ _SIGNATURES = {
     },
     "fused_euler_wide": {
         "deqres_euler_wide_smem": ([_I32], ctypes.c_longlong),
-        "deqres_euler_wide_fwd": ([_PTR] * 6 + [_I32] * 5 + [_F32, _I32, _PTR], _I32),
-        "deqres_euler_wide_bwd": ([_PTR] * 11 + [_I32] * 7 + [_F32, _I32, _PTR], _I32),
+        "deqres_euler_wide_fwd": ([_PTR] * 5 + [_I32] * 5 + [_F32, _I32, _PTR], _I32),
+        "deqres_euler_wide_bwd": ([_PTR] * 12 + [_I32] * 7 + [_F32, _I32, _PTR], _I32),
         "deqres_cuda_error_string": ([_I32], ctypes.c_char_p),
     },
 }
@@ -414,9 +435,9 @@ def library_smem_bytes(height: int, width: int, channels: int, bands: int,
 
 
 def wide_library_smem_bytes(channels: int) -> int:
-    """The static shared memory a block of the built wide library uses at C
-    channels: what `wide_smem_bytes` counts, from the C side.  Builds the
-    library."""
+    """The dynamic shared memory a block of the built wide library asks for
+    at C channels: what `wide_smem_bytes` counts, from the C side.  Builds
+    the library."""
     return _library("fused_euler_wide").deqres_euler_wide_smem(channels)
 
 
@@ -550,7 +571,8 @@ def _launch(x, kernels, biases, h, matmul_dtype, bands=None) -> torch.Tensor:
 
 def _launch_wide(x, kernels, biases, h, matmul_dtype) -> torch.Tensor:
     """The wide B1: L layer launches of ``csrc/fused_euler_wide.cu`` on the
-    current stream, the state in two scratch buffers between layers."""
+    current stream, the state alternating between ``out`` and one scratch
+    buffer between layers."""
     batch, height, width, channels = x.shape
     num_layers = kernels.shape[0]
     if num_layers == 0:
@@ -559,15 +581,12 @@ def _launch_wide(x, kernels, biases, h, matmul_dtype) -> torch.Tensor:
     kernels, biases = _kernel_operands(kernels, biases, padded, matmul_dtype)
     xp = _padded_state(x, padded)
     out = x.new_empty((batch, height, width, padded))
-    # Two states between layers; at L = 1 the library reads neither.
-    scratch = out[None].expand(2, *out.shape)
-    if num_layers > 1:
-        scratch = x.new_empty((2,) + tuple(out.shape))
+    scratch = x.new_empty(out.shape) if num_layers > 1 else out  # unread at L = 1
     lib = _library("fused_euler_wide")
     with torch.cuda.device(x.device):
         err = lib.deqres_euler_wide_fwd(
-            xp.data_ptr(), kernels.data_ptr(), biases.data_ptr(), scratch[0].data_ptr(),
-            scratch[1].data_ptr(), out.data_ptr(), batch, height, width, channels, num_layers,
+            xp.data_ptr(), kernels.data_ptr(), biases.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), batch, height, width, channels, num_layers,
             float(h), int(matmul_dtype == torch.bfloat16), _stream(x),
         )
     _raise_on_error(lib, err, "fused_euler_fwd (wide)")
@@ -622,8 +641,9 @@ def _launch_bwd(x, kernels, biases, g, h, matmul_dtype, bands=None):
 
 def _launch_bwd_wide(x, kernels, biases, g, h, matmul_dtype):
     """The wide B2: the forward recompute into a (L, B, H, W, Cp)
-    trajectory with its relu-mask words, then 4 launches a layer in
-    reverse, all on the current stream (``csrc/fused_euler_wide.cu``)."""
+    trajectory with its relu-mask words, then 2 launches a layer in reverse
+    (the dK pass, and the conv that sums its partials and steps g), all on
+    the current stream (``csrc/fused_euler_wide.cu``)."""
     batch, height, width, channels = x.shape
     num_layers = kernels.shape[0]
     padded = _ceil(channels, 4) * 4
@@ -632,12 +652,12 @@ def _launch_bwd_wide(x, kernels, biases, g, h, matmul_dtype):
     kernels, biases = _kernel_operands(kernels, biases, padded, matmul_dtype)
     trajectory = x.new_empty((num_layers, batch, height, width, padded))
     trajectory[0].copy_(_padded_state(x, padded))
-    mask = torch.zeros((num_layers, batch, height, width, _ceil(padded, 32)), dtype=torch.int32,
+    # Every word is written by the recompute: no zeroing.
+    mask = torch.empty((num_layers, batch, height, width, _ceil(padded, 32)), dtype=torch.int32,
                        device=x.device)
-    g_state = _padded_state(g, padded)  # gx is computed in place, over a copy of g
-    if g_state.data_ptr() == g.data_ptr():
-        g_state = g_state.clone()
-    g_z = torch.empty_like(g_state)
+    g_state = _padded_state(g, padded)  # only read
+    gx = x.new_empty((batch, height, width, padded))
+    scratch = x.new_empty(gx.shape) if num_layers > 1 else gx  # unread at L = 1
     partials = x.new_empty((splits, 9 * padded, padded))
     bias_partials = x.new_empty((splits, padded))
     gk = x.new_empty((num_layers, 3, 3, channels, channels))
@@ -646,14 +666,14 @@ def _launch_bwd_wide(x, kernels, biases, g, h, matmul_dtype):
     with torch.cuda.device(x.device):
         err = lib.deqres_euler_wide_bwd(
             kernels.data_ptr(), biases.data_ptr(), kernels_t.data_ptr(), trajectory.data_ptr(),
-            mask.data_ptr(), g_state.data_ptr(), g_z.data_ptr(), partials.data_ptr(),
-            bias_partials.data_ptr(), gk.data_ptr(), gb.data_ptr(), batch, height, width,
-            channels, num_layers, splits, chunk, float(h), int(matmul_dtype == torch.bfloat16),
-            _stream(x),
+            mask.data_ptr(), g_state.data_ptr(), gx.data_ptr(), scratch.data_ptr(),
+            partials.data_ptr(), bias_partials.data_ptr(), gk.data_ptr(), gb.data_ptr(), batch,
+            height, width, channels, num_layers, splits, chunk, float(h),
+            int(matmul_dtype == torch.bfloat16), _stream(x),
         )
     _raise_on_error(lib, err, "fused_euler_bwd (wide)")
     _count_launch(fused_euler_dense_bwd, WIDE_BWD)
-    return _unpadded(g_state, channels), gk, gb
+    return _unpadded(gx, channels), gk, gb
 
 
 def _device_type(x: torch.Tensor) -> str:

@@ -2,6 +2,9 @@
 asymmetric at stride 2), values and gradients, and its `euler_relu_step` and
 `conv_relu_field` against `jax.grad` of the JAX functions."""
 
+import inspect
+import types
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -11,6 +14,7 @@ import torch
 from differential_equations_resnet_tpu.ops import conv as jax_conv
 from differential_equations_resnet_tpu.ops.conv import conv2d_same as jax_conv2d_same
 from differential_equations_resnet_tpu_torch.ops.conv import (
+    _fp32_conv_context,
     conv2d_same,
     conv_relu_field,
     euler_relu_step,
@@ -111,3 +115,52 @@ def test_mask_steps_refuse_a_missing_bias():
         euler_relu_step(torch.from_numpy(y), torch.from_numpy(kernel), None, 0.1)
     with pytest.raises(ValueError, match="bias"):
         conv_relu_field(torch.from_numpy(y), torch.from_numpy(kernel), None)
+
+
+def cudnn_flags():
+    """Every cuDNN flag `torch.backends.cudnn.flags` names on this torch (its
+    signature differs between versions), and the conv precision that
+    ``allow_tf32`` sets."""
+    cudnn = torch.backends.cudnn
+    flags = {name: getattr(cudnn, name) for name in inspect.signature(cudnn.flags).parameters
+             if hasattr(cudnn, name)}
+    if hasattr(cudnn, "conv"):
+        flags["conv.fp32_precision"] = cudnn.conv.fp32_precision
+    return flags
+
+
+@pytest.mark.parametrize("caller", [
+    dict(deterministic=True, benchmark=True),
+    dict(deterministic=True, benchmark=False, allow_tf32=False),
+    dict(enabled=False, deterministic=False, benchmark=True),
+], ids=["deterministic-benchmark", "deterministic-no-tf32", "disabled"])
+def test_fp32_conv_context_changes_only_allow_tf32(caller):
+    """The context every CUDA convolution of the port runs in (entered
+    through `_fp32_conv_context` on a tensor that reports CUDA) turns
+    ``allow_tf32`` off and leaves every other cuDNN flag as the caller set
+    it (``torch.backends.cudnn.flags`` would reset ``deterministic`` and
+    ``benchmark``); on exit every flag is the caller's again."""
+    cudnn = torch.backends.cudnn
+    before = {name: getattr(cudnn, name) for name in ("enabled", "deterministic", "benchmark",
+                                                      "allow_tf32")}
+    try:
+        for name, value in caller.items():
+            setattr(cudnn, name, value)
+        outside = cudnn_flags()
+        with _fp32_conv_context(types.SimpleNamespace(is_cuda=True)):
+            inside = cudnn_flags()
+        after = cudnn_flags()
+    finally:
+        for name, value in before.items():
+            setattr(cudnn, name, value)
+    assert inside["allow_tf32"] is False
+    assert {k: v for k, v in inside.items() if k not in ("allow_tf32", "conv.fp32_precision")} == {
+        k: v for k, v in outside.items() if k not in ("allow_tf32", "conv.fp32_precision")}
+    assert after == outside
+
+
+def test_fp32_conv_context_is_a_no_op_on_the_cpu():
+    """On a CPU tensor the context touches no flag."""
+    outside = cudnn_flags()
+    with _fp32_conv_context(torch.zeros(1)):
+        assert cudnn_flags() == outside

@@ -358,7 +358,11 @@ def test_a_width_the_kernels_decline_raises_on_the_card(card):
 
 # (batch, H, W, C, L), seed: each seed leaves no |z| within 5e-6 of 0
 # (float64, both modes) in any layer, so no relu-mask element sits where an
-# fp32 recompute could flip it (see test_band_edges_on_cuda).
+# fp32 recompute could flip it (see test_band_edges_on_cuda).  The edges of
+# the wide tiles: the dK pass's last 128-row tile part full (9 * 68 = 612 and
+# 9 * 100 = 900 rows), a last pixel chunk shorter than the others (23x23 at
+# batch 5: 11 chunks of 256 pixels, the last of 85) and a ragged last
+# 128-pixel tile (432 and 2645 pixels).
 WIDE_CASES = {
     "32x32x72": ((2, 32, 32, 72, 3), 45),
     "32x32x128": ((2, 32, 32, 128, 2), 37),
@@ -366,6 +370,9 @@ WIDE_CASES = {
     "64x64x48": ((1, 64, 64, 48, 2), 32),
     "7x9x57": ((3, 7, 9, 57, 3), 31),
     "1x1x100": ((2, 1, 1, 100, 2), 31),
+    "32x32x68": ((2, 32, 32, 68, 2), 31),
+    "12x12x100": ((3, 12, 12, 100, 2), 30),
+    "23x23x68": ((5, 23, 23, 68, 2), 35),
 }
 
 

@@ -61,8 +61,12 @@ def test_every_shape_of_the_reach_has_a_plan_that_fits(channels, image):
                     splits, chunk = plan["splits"], plan["chunk"]
                     assert splits * chunk >= batch * height * width > (splits - 1) * chunk
                     assert chunk % fi.WIDE_STAGE == 0
-                    assert plan["dk_grid"][2] == splits
-                    assert np.prod(plan["dk_grid"]) <= 2 * fi.SM_COUNT or splits == 1
+                    padded = -(-channels // 4) * 4
+                    cols = fi._wide_cols(padded)
+                    assert plan["dk_grid"][1] == splits
+                    assert plan["dk_grid"][0] * fi.WIDE_DK_ROWS[cols] >= 9 * padded
+                    assert (np.prod(plan["dk_grid"]) <= fi.WIDE_DK_BLOCKS_PER_SM[cols] * fi.SM_COUNT
+                            or splits == 1)
 
 
 def test_the_wide_variant_takes_what_the_band_variant_declined():
@@ -92,8 +96,32 @@ def test_the_dk_split_is_fixed_by_the_shape():
         assert fi.wide_splits(shape) == fi.wide_splits(shape)
         assert fi.wide_plan(shape, backward=True)["splits"] == fi.wide_splits(shape)[0]
     assert fi.wide_splits((32, 32, 32, 128)) == (29, 1136)
-    assert fi.wide_smem_bytes(64) == 4 * 2 * 16 * (132 + 64)
-    assert fi.wide_smem_bytes(128) == 4 * 2 * 16 * (132 + 128)
+    assert fi.wide_splits((32, 32, 32, 64)) == (57, 576)
+    # The conv's block is the larger: 4 ring stages of its (128 x (16 + 4))
+    # patch and (16 x 64 or 128) kernel tiles, and 3 x 130 x 4 mask words;
+    # two blocks fit an SM's 228 KB (and four of the dK pass's at Cp <= 64:
+    # 4 stages of (16 x 64) + (16 x 64) floats and 16 x 2 words).
+    assert fi.wide_smem_bytes(64) == 4 * (4 * (128 * 20 + 16 * 64) + 3 * 130 * 4) == 63584
+    assert fi.wide_smem_bytes(128) == 4 * (4 * (128 * 20 + 16 * 128) + 3 * 130 * 4) == 79968
+    assert 2 * (fi.wide_smem_bytes(128) + 1024) <= 233472
+    assert 4 * (4 * 4 * (16 * 64 + 16 * 64 + 32) + 1024) <= 233472
+
+
+@pytest.mark.parametrize("channels,tiles,cols,waste", [
+    (64, 9, 64, 0), (68, 5, 128, 28), (100, 8, 128, 124), (128, 9, 128, 0)])
+def test_the_wide_tiles_at_the_widths_that_matter(channels, tiles, cols, waste):
+    """The dK pass's row tiles over the 9*Cp (tap, input) rows: 64 rows up
+    to Cp = 64 and 128 past it, so exact at C = 64 and 128 (rows ``waste``
+    of the last tile past 9*Cp elsewhere; the 128-row tiles of the design
+    before the ring left 64 rows idle at C = 64).  One column tile holds
+    every output channel (64 up to Cp = 64, else 128), and the conv's
+    reduction runs 9 taps x ceil(Cp / 16) chunks, zero-filled past Cp."""
+    padded = -(-channels // 4) * 4
+    plan = fi.wide_plan((32, 32, 32, channels), backward=True)
+    assert plan["dk_grid"][0] == tiles
+    assert tiles * fi.WIDE_DK_ROWS[cols] - 9 * padded == waste
+    assert fi._wide_cols(padded) == cols and plan["conv_grid"] == (256, 1)
+    assert plan["threads"] == {64: 256, 128: 128}[cols]
 
 
 def jax_grads(case, h, w, matmul_dtype):
