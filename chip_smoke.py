@@ -27,9 +27,20 @@ Phases, each of which raises on failure (exit code != 0):
    32x32x128, 8x8x128, 64x64x48 (B2) and 64x64x128, both modes, B2 judged
    by float64 and bit-identical across two calls;
 5. serve: the 64-layer x 16-filter antisymmetric CIFAR-10 model from a
-   seeded init is exported, loaded on the card and asked for batches of 1, 7
-   and 32 images; its answers are held against the same export served on
-   the CPU, and every request must launch B1 once;
+   seeded init is exported at batch 32 (config, parameters and the
+   compiled forward ``forward.pt2``: `torch.export` of the eval forward,
+   B1 a dispatcher op in it), loaded on the card and asked for batches of
+   1, 7 and 32 images: batch 32 through the compiled forward (a replayed
+   CUDA graph, the predictor's only one), 1 and 7 through the rebuilt
+   model (eager); its answers, and the logits they imply, are held
+   against the CPU, the compiled path against the rebuilt one at a
+   tolerance a TF32 run of the program is measured against, every request
+   must launch B1 once, and 4 threads at once get their own answers; then
+   (`phase_serve_paths`) an export made on the CPU is served on the card
+   (one B1 launch, the card's own export's answer), the request latency
+   of the compiled, rebuilt and eager paths at batch 1 and 32, and the
+   `use_pallas` 64L x 128F stack served through forward.pt2 (one wide B1
+   call a request, against the rebuilt path);
 6. train: the same model takes 2 train steps on the card and 2 on the CPU
    (plain path) from the same params and batches, which must agree; every
    step launches B1 once and B2 once; then 20 steps at batch 32 on one
@@ -56,7 +67,9 @@ Phases, each of which raises on failure (exit code != 0):
    TFLOP/s, MFU, and the idle share of a profiled window of each epoch), and
    its device evaluation against the streaming one; a checkpoint round trip
    (bit for bit); and the command line (train, then evaluate, predict and
-   analyze) in subprocesses;
+   analyze) in subprocesses, whose kernels build into a compile cache under
+   build/ (`utils.compile_cache`), which a later process finds built
+   (`check_compile_cache`: no compiler runs);
 10. kernel types: at 64 layers, regular 16F and 8F and centrosymmetric k = 3
    through B1/B2 and centrosymmetric k = 5, midpoint and RK4 on the
    per-layer route, each against the CPU with its launches and route
@@ -80,7 +93,8 @@ Phases, each of which raises on failure (exit code != 0):
 14. bottleneck and batch norm (`phase_bottleneck`): ResNet-50 at 32x32 and
    at 224x224 x 257 classes against the CPU, trained (2 steps against the
    CPU, 3 captured against 3 eager, replayed steps timed) and served
-   (export, load, latency at batch 1 and 32), ResNet-50 v1.5, ResNet-101
+   (export, load, latency at batch 1 and 32, and at batch 1 the compiled,
+   rebuilt and eager paths), ResNet-50 v1.5, ResNet-101
    and ResNet-152 forwards against the CPU, the single-block model with
    batch norm against the CPU, and ``train --model resnet50`` then
    ``export --checkpoint`` in subprocesses; none launches a kernel;
@@ -91,9 +105,11 @@ Phases, each of which raises on failure (exit code != 0):
    beside the fp32 and bf16 cuDNN call;
 16. int8 serving (`phase_int8_serve`): the 64L x 128F model and ResNet-50
    at 224x224 x 257 classes exported with ``quantize="int8"``, loaded and
-   asked for a batch of 256, held against the CPU's quantized forward, and
-   timed beside the fp32 and bf16 forwards (images/s, the int8 GEMMs'
-   TOPS against the int8 peak);
+   asked for a batch of 256 (the 64L x 128F model through forward.pt2, the
+   weights quantized at export, held against the rebuilt path; ResNet-50,
+   whose trace takes tens of seconds, rebuilt), against the CPU's quantized
+   forward, and timed beside the fp32 and bf16 forwards (images/s, the int8
+   GEMMs' TOPS against the int8 peak);
 17. int8 training (`phase_int8_train`): 64L x 128F in 'ste' and 'wgrad'
    and ResNet-50 at 32x32 in 'wgrad', the first step against the CPU, then
    replayed steps at batch 32 (a CUDA graph) whose loss must fall, timed;
@@ -116,7 +132,14 @@ Phases, each of which raises on failure (exit code != 0):
    `mnist_single_block_config()` model (8L x 16F) against the CPU on
    seeded `synthetic_mnist` data, then an epoch of 1875 replayed steps,
    a device evaluation and predict;
-21. meshes (`phase_mesh`, parallel/): a device-resident epoch of the
+21. examples (`phase_examples`): five of the port's examples (the JAX
+   package's `examples/`), each in a subprocess (all started together):
+   the gradient-flow experiment at 64L x 16F for one device-resident
+   epoch of 2048 seeded images, the kernel-property
+   checks, depth doubling, the large-batch A/B with bf16 and int8 arms and
+   the int8 NaN probe at cut sizes; each must exit 0 and print its JAX
+   original's keys, and their B1/B2 launches join the kernels line;
+22. meshes (`phase_mesh`, parallel/): a device-resident epoch of the
    64L x 16F model through a one-rank NCCL ``data`` mesh against the same
    epoch without a mesh (same state and seed: the first 16 steps' rows and
    the parameters within the step bounds), 1562-step epochs of both timed,
@@ -193,7 +216,12 @@ from differential_equations_resnet_tpu_torch.utils.flops import (
     single_block_train_flops,
     train_flops,
 )
-from differential_equations_resnet_tpu_torch.utils.serving import export_model, load_exported
+from differential_equations_resnet_tpu_torch.utils import serving
+from differential_equations_resnet_tpu_torch.utils.serving import (
+    FORWARD_FILE,
+    export_model,
+    load_exported,
+)
 
 # H100 SXM fp32 rate outside the tensor cores (NVIDIA data sheet, 700 W) and
 # its HBM3 bandwidth: the bound of a kernel is the larger of FLOPs over the
@@ -206,6 +234,10 @@ FP32_TOL = 1e-4   # rtol = atol; sums are ordered differently than cuDNN's
 # forwards move g_z elements, and 64 layers carry them (phase_kernels_bwd).
 TRAIN_GRAD_TOL = 1e-3
 BF16_TOL = 1e-2   # rtol = atol; see phase_kernels
+# Two serving paths on the card against each other, over logit gaps
+# (`logit_gaps`): the same kernels and cuDNN calls, so far under the
+# ~1e-3 by which a TF32 convolution errs; rtol = atol.
+CARD_PATHS_TOL = 1e-5
 LR = 1e-3
 
 
@@ -341,6 +373,67 @@ def max_violation(got, want, tol):
     return float(err.max()), bool((err <= tol + tol * want.abs()).all())
 
 
+def logit_gaps(probs, ref, ref_probs=False):
+    """Each class's logit less its row's top class's (top by ``ref``), from
+    served probabilities (log p_i - log p_j = z_i - z_j) and from ``ref``:
+    logits, or probabilities where ``ref_probs``.  A served answer so held
+    is held at the logit level, which a saturated softmax does not hide.
+    Classes whose probability underflowed to 0 in either are left out.
+    Returns (got, want, "kept/all classes"), float64."""
+    p = torch.as_tensor(np.asarray(probs), dtype=torch.float64)
+    z = torch.as_tensor(np.asarray(ref), dtype=torch.float64)
+    z = z.log() if ref_probs else z
+    top = z.argmax(-1, keepdim=True)
+    kept = (p > 0) & torch.isfinite(z)
+    got, want = p.log() - p.log().gather(-1, top), z - z.gather(-1, top)
+    return got[kept], want[kept], f"{int(kept.sum())}/{kept.numel()}"
+
+
+def gap_violation(probs, ref, tol, ref_probs=False):
+    """`max_violation` over `logit_gaps`: (max error, ok, "kept/all"); not
+    ok where a class was left out, whose logit the answer no longer
+    shows."""
+    got, want, kept = logit_gaps(probs, ref, ref_probs)
+    err, ok = max_violation(got, want, tol)
+    return err, ok and got.numel() == np.asarray(probs).size, kept
+
+
+def tf32_control(export_dir, images, ref_probs):
+    """The export's forward.pt2 run as `torch.export` loads it, outside
+    `load_program`'s fp32 wrapper, with cuDNN's TF32 on (PyTorch's
+    default): its `gap_violation` against ``ref_probs`` at CARD_PATHS_TOL,
+    which shows whether that tolerance would catch a program run in
+    TF32.  Its launches are not the main path's: call it outside a
+    counted window."""
+    program = torch.export.load(os.path.join(export_dir, FORWARD_FILE)).module()
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            probs = program(torch.from_numpy(images).cuda()).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return gap_violation(probs, ref_probs, CARD_PATHS_TOL, ref_probs=True)
+
+
+@contextlib.contextmanager
+def counted_graphs():
+    """Yields the list of every `_Replayed` that `load_exported` makes
+    meanwhile, so a check can count the CUDA graphs a predictor holds."""
+    made, cls = [], serving._Replayed
+
+    class Counted(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    serving._Replayed = Counted
+    try:
+        yield made
+    finally:
+        serving._Replayed = cls
+
+
 def phase_kernels():
     """The kernel against its plain version.  fp32: the two sum in different
     orders, so they agree to fp32 rounding carried through L layers.  bf16:
@@ -449,48 +542,110 @@ def phase_kernels_bwd():
     return slice_err
 
 
+def warmed(predict, requests):
+    """``predict`` after one call at each request's shape: on the card the
+    first call of the manifest's shape captures its graph (warm-up launches
+    included)."""
+    for images in requests:
+        predict(images)
+    return predict
+
+
+def threaded_answers(predict, requests, threads=4, rounds=5):
+    """Each request served ``rounds`` times from ``threads`` threads at
+    once; raises unless every answer equals the one-at-a-time answer."""
+    import threading
+
+    want = [predict(r) for r in requests]
+    wrong = []
+
+    def serve(i):
+        for _ in range(rounds):
+            for r, w in zip(requests[i::threads], want[i::threads]):
+                if not np.array_equal(predict(r), w):
+                    wrong.append(len(r))
+
+    workers = [threading.Thread(target=serve, args=(i,)) for i in range(threads)]
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join()
+    return len(wrong)
+
+
 def phase_serve():
-    """Export the headline model, serve it on the card, and hold its answers
-    against the same export served on the CPU by the plain path.  Returns
-    the kernel's launches during the requests, the card's predict and the
-    requests."""
+    """Export the headline model at batch 32 (config, parameters and the
+    compiled forward ``forward.pt2``), serve it on the card, and hold its
+    answers against the same export served on the CPU by the plain path:
+    batch 32 through the compiled forward (a replayed CUDA graph, the
+    predictor's only one), 1 and 7 through the rebuilt model (eager),
+    every request one launch of B1.  Each answer's logit gaps
+    (`logit_gaps`) against the CPU model's logits; the compiled path's
+    against the rebuilt path's at batch 32, tighter than a TF32 run of the
+    program passes (`tf32_control`, with cuDNN's TF32 flag on as PyTorch
+    sets it); requests from 4 threads at once.  Returns the kernel's
+    launches during the requests, the card's predict and the requests."""
     config = cifar10_single_block_config(num_layers=64, num_filters=16, kernel_type="antisymmetric")
     model = build_single_block_resnet(
         config, generator=torch.Generator().manual_seed(0), device="cuda"
     )
+    cpu_model = build_single_block_resnet(config, params=model.params(), device="cpu")
     rng = np.random.default_rng(0)
     requests = [rng.uniform(0, 255, (n, 32, 32, 3)).astype(np.float32) for n in (1, 7, 32)]
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, counted_graphs() as graphs:
         export_dir = export_model(model, os.path.join(tmp, "export"), batch_size=32)
+        if not os.path.isfile(os.path.join(export_dir, FORWARD_FILE)):
+            raise AssertionError(f"export_model wrote no {FORWARD_FILE}")
         predict, _ = load_exported(export_dir, device="cuda")
         predict_cpu, _ = load_exported(export_dir, device="cpu")
+        warmed(predict, requests)
+        routes = dict(predict.routes)
         fi.fused_euler_dense.launches = 0
         answers = [predict(r) for r in requests]
         launches = fi.fused_euler_dense.launches
         if launches != len(requests):
             raise AssertionError(f"{len(requests)} requests launched the kernel {launches} times")
+        served = {k: predict.routes[k] - routes[k] for k in routes}
+        if served != {"compiled": 1, "rebuilt": 2}:
+            raise AssertionError(f"requests at batch 1, 7, 32 took the paths {served}; expected "
+                                 "batch 32 compiled and 1 and 7 rebuilt")
+        held = sum(len(r.graphs) for r in graphs)
+        log(f"[serve] requests at batch 1, 7 and 32: the predictor holds {held} captured graph "
+            f"(the manifest's batch, 32): {'ok' if held == 1 else 'FAIL'}")
+        if held != 1:
+            raise AssertionError(f"the predictor holds {held} captured graphs, not 1")
         for images, probs in zip(requests, answers):
             if probs.shape != (len(images), 10) or not np.isfinite(probs).all():
                 raise AssertionError(f"bad answer of shape {probs.shape}")
             want = predict_cpu(images)
             err, ok = max_violation(torch.from_numpy(probs), torch.from_numpy(want), FP32_TOL)
-            log(f"[serve] batch {len(images)}: max|card-cpu| {err:.3e} over probabilities, "
-                f"row sums within {float(np.abs(probs.sum(-1) - 1).max()):.1e} of 1, "
-                f"tol rtol=atol={FP32_TOL:g}: {'ok' if ok else 'FAIL'}")
-            if not ok:
+            with torch.inference_mode():
+                logits = cpu_model(torch.from_numpy(images), return_logits=True)
+            gap_err, gap_ok, kept = gap_violation(probs, logits, FP32_TOL)
+            path = "compiled forward.pt2, replayed" if len(images) == 32 else "rebuilt model, eager"
+            log(f"[serve] batch {len(images)} ({path}): max|card-cpu| {err:.3e} over "
+                f"probabilities, row sums within {float(np.abs(probs.sum(-1) - 1).max()):.1e} of "
+                f"1; logit gaps against the CPU model's {gap_err:.3e} over {kept} classes (max "
+                f"|logit| {float(logits.abs().max()):.3e}); tol rtol=atol={FP32_TOL:g}: "
+                f"{'ok' if ok and gap_ok else 'FAIL'}")
+            if not (ok and gap_ok):
                 raise AssertionError("the card's answer disagrees with the CPU's")
-    # The random-init head saturates the softmax, so hold the logits too.
-    cpu_model = build_single_block_resnet(config, params=model.params(), device="cpu")
-    with torch.inference_mode():
-        x = torch.from_numpy(requests[-1])
-        got = model(x.cuda(), return_logits=True).cpu()
-        want = cpu_model(x, return_logits=True)
-    err, ok = max_violation(got, want, FP32_TOL)
-    log(f"[serve] batch {len(x)} logits: max|card-cpu| {err:.3e} "
-        f"(max|cpu| {float(want.abs().max()):.3e}), tol rtol=atol={FP32_TOL:g}: "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("the card's logits disagree with the CPU's")
+        if predict_cpu.routes != {"compiled": 1, "rebuilt": 2}:
+            raise AssertionError(f"the CPU's requests took the paths {predict_cpu.routes}")
+        rebuilt = load_exported(export_dir, prefer_stablehlo=False, device="cuda")[0](requests[-1])
+        err, ok, kept = gap_violation(answers[-1], rebuilt, CARD_PATHS_TOL, ref_probs=True)
+        tf32_err, tf32_ok, _ = tf32_control(export_dir, requests[-1], rebuilt)
+        log(f"[serve] batch 32 logit gaps, compiled forward.pt2 against the rebuilt model on the "
+            f"card: {err:.3e} over {kept} classes, tol rtol=atol={CARD_PATHS_TOL:g}: "
+            f"{'ok' if ok else 'FAIL'}; the program run with cuDNN TF32 on: {tf32_err:.3e} "
+            f"({'within' if tf32_ok else 'past'} the tol)")
+        if not ok:
+            raise AssertionError("the compiled forward answers otherwise than the rebuilt model")
+        wrong = threaded_answers(predict, requests)
+        log(f"[serve] 4 threads at once, 5 rounds of the 3 requests: {wrong} answers differ "
+            f"from one-at-a-time serving: {'ok' if not wrong else 'FAIL'}")
+        if wrong:
+            raise AssertionError("requests from several threads get others' answers")
     log(f"[serve] 64L x 16F antisymmetric model: {len(requests)} requests, "
         f"{launches} launches of fused_euler_fwd")
     return launches, predict, requests
@@ -837,6 +992,143 @@ def phase_time_requests(predict, requests, runs=25):
             f"{len(images) / ms * 1e3:.1f} images/s")
 
 
+def eager_predict(model):
+    """The request path served before the compiled export: the model called
+    op by op in inference mode, NumPy in and out."""
+    def predict(images):
+        with torch.inference_mode():
+            return model(torch.as_tensor(images).cuda()).cpu().numpy()
+
+    return predict
+
+
+def request_ms(predict, images, runs=25):
+    """Median request latency on the host clock (NumPy in, NumPy out), after
+    3 warm-up requests."""
+    for _ in range(3):
+        predict(images)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        predict(images)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def served_paths(label, model, export_dir, batch, images, want_logits, smi, runs=25,
+                 tf32_shows=False):
+    """Request latency at ``batch`` of the export in ``export_dir`` (made
+    at that batch) on its three paths: the compiled forward.pt2 replayed,
+    the rebuilt model replayed, and the eager model.  Logit gaps
+    (`logit_gaps`): the compiled answer against ``want_logits`` (the CPU
+    model's) within FP32_TOL, the other two against the compiled one
+    within CARD_PATHS_TOL, which a TF32 run of the program is measured
+    against (`tf32_control`); with ``tf32_shows``, a model whose convs
+    cuDNN runs in TF32 when allowed, that run must miss it.  Returns
+    {path: ms}."""
+    compiled, _ = load_exported(export_dir, device="cuda")
+    rebuilt, _ = load_exported(export_dir, prefer_stablehlo=False, device="cuda")
+    paths = {"compiled": compiled, "rebuilt": rebuilt, "eager": eager_predict(model)}
+    want = compiled(images)
+    err, ok, kept = gap_violation(want, want_logits, FP32_TOL)
+    log(f"[serve_paths] {label}, batch {batch}: compiled forward.pt2 logit gaps against the "
+        f"CPU model's {err:.3e} over {kept} classes (tol rtol=atol={FP32_TOL:g}): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the compiled path answers otherwise than the CPU")
+    times, errs = {}, {}
+    for name, predict in paths.items():
+        errs[name], ok, _ = gap_violation(predict(images), want, CARD_PATHS_TOL, ref_probs=True)
+        if not ok:
+            raise AssertionError(f"{label}: the {name} path answers otherwise than the compiled "
+                                 f"one ({errs[name]:.3e})")
+        times[name] = request_ms(predict, images, runs)
+    if compiled.routes["rebuilt"] or rebuilt.routes["compiled"] or not compiled.routes["compiled"]:
+        raise AssertionError(f"{label}: requests took the wrong paths: compiled "
+                             f"{compiled.routes}, rebuilt {rebuilt.routes}")
+    tf32_err, tf32_ok, _ = tf32_control(export_dir, images, want)
+    log(f"[serve_paths] {label}, batch {batch}: request latency median of {runs} (host clock, "
+        f"NumPy in and out): compiled forward.pt2 replayed {times['compiled']:.4f} ms, rebuilt "
+        f"model replayed {times['rebuilt']:.4f} ms, eager model {times['eager']:.4f} ms; logit "
+        f"gaps of the rebuilt and eager paths against the compiled one {errs['rebuilt']:.3e} and "
+        f"{errs['eager']:.3e} (tol rtol=atol={CARD_PATHS_TOL:g}); the program run with cuDNN "
+        f"TF32 on: {tf32_err:.3e} ({'within' if tf32_ok else 'past'} the tol) ({smi})")
+    if tf32_shows and tf32_ok:
+        raise AssertionError(f"{label}: a TF32 run of the program passes CARD_PATHS_TOL, so the "
+                             "check would not see the program run in TF32")
+    return times
+
+
+def phase_serve_paths(tmp, smi):
+    """The compiled forward (forward.pt2) beyond the headline requests:
+
+    1. an export of the 64L x 16F model made on the CPU, loaded on the
+       card: a request at its batch (32) launches B1 once, and its logit
+       gaps (`logit_gaps`) match the card's own export's within
+       CARD_PATHS_TOL;
+    2. request latency of the compiled, rebuilt and eager paths at batch 1
+       and 32, each from an export at that batch (`served_paths`);
+    3. the `use_pallas` antisymmetric 64L x 128F stack exported at batch 32
+       and served through forward.pt2: one wide B1 call a request, its
+       logit gaps against the rebuilt path's on the card within
+       CARD_PATHS_TOL.
+
+    Returns the (band B1, wide B1) launches of the requests of 1 and 3."""
+    t_phase = time.perf_counter()
+    card = headline_model(seed=21)
+    cpu = build_single_block_resnet(card.config, params=card.params(), device="cpu")
+    rng = np.random.default_rng(21)
+    images = {n: rng.uniform(0, 255, (n, 32, 32, 3)).astype(np.float32) for n in (1, 32)}
+    from_cpu, _ = load_exported(export_model(cpu, os.path.join(tmp, "from_cpu"), batch_size=32),
+                                device="cuda")
+    own_dir = export_model(card, os.path.join(tmp, "card_32"), batch_size=32)
+    own, _ = load_exported(own_dir, device="cuda")
+    want = warmed(own, [images[32]])(images[32])
+    warmed(from_cpu, [images[32]])
+    reset_counts()
+    got = from_cpu(images[32])
+    band = fi.fused_euler_dense.launches
+    err, ok, kept = gap_violation(got, want, CARD_PATHS_TOL, ref_probs=True)
+    ok = ok and band == 1 and from_cpu.routes == {"compiled": 2, "rebuilt": 0}
+    log(f"[serve_paths] an export made on the CPU, served on the card at batch 32: {band} B1 "
+        f"launch, routes {from_cpu.routes}, logit gaps against the card's own export "
+        f"{err:.3e} over {kept} classes (tol rtol=atol={CARD_PATHS_TOL:g}): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the CPU's export does not serve on the card as the card's own does")
+    with torch.inference_mode():
+        logits = {n: cpu(torch.from_numpy(x), return_logits=True) for n, x in images.items()}
+    del cpu, from_cpu, own
+    latency = {}
+    for batch in (1, 32):
+        export_dir = own_dir if batch == 32 else export_model(
+            card, os.path.join(tmp, f"card_{batch}"), batch_size=batch)
+        latency[batch] = served_paths("64L x 16F antisymmetric", card, export_dir, batch,
+                                      images[batch], logits[batch], smi)
+    del card
+    config = cifar10_single_block_config(num_layers=64, num_filters=128, use_pallas=True)
+    wide = build_single_block_resnet(config, generator=torch.Generator().manual_seed(22),
+                                     device="cuda")
+    wide_dir = export_model(wide, os.path.join(tmp, "wide_128"), batch_size=32)
+    compiled, _ = load_exported(wide_dir, device="cuda")
+    rebuilt, _ = load_exported(wide_dir, prefer_stablehlo=False, device="cuda")
+    want = warmed(rebuilt, [images[32]])(images[32])
+    warmed(compiled, [images[32]])
+    reset_counts()
+    got = compiled(images[32])
+    wide_calls, band_calls = fi.WIDE_FWD.launches, fi.fused_euler_dense.launches
+    err, ok, kept = gap_violation(got, want, CARD_PATHS_TOL, ref_probs=True)
+    ok = ok and wide_calls == band_calls == 1 and compiled.routes["compiled"] == 2
+    log(f"[serve_paths] use_pallas antisymmetric 64L x 128F exported at batch 32, served "
+        f"through forward.pt2: {wide_calls} wide B1 call of {band_calls} B1 launch a request, "
+        f"logit gaps against the rebuilt model's {err:.3e} over {kept} classes (tol "
+        f"rtol=atol={CARD_PATHS_TOL:g}) ({smi}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the wide stack's forward.pt2 does not run the wide B1 once a request")
+    log(f"[serve_paths] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return band, wide_calls
+
+
 HARNESS_BATCH = 32
 STREAM_STEPS = 200
 GRAPH_K = 8
@@ -1120,15 +1412,48 @@ def phase_harness(smi, arrays):
     return phase_counts
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# The compile cache of the CLI's subprocesses (`utils.compile_cache`): under
+# build/, out of the home directory.
+CLI_COMPILE_CACHE = os.path.join(ROOT, "build", "compile_cache")
+
+
+def run_python(*args):
+    """``python <args>`` from the checkout, with the CLI's compile cache: a
+    started process."""
+    env = dict(os.environ, DEQRES_COMPILE_CACHE_DIR=CLI_COMPILE_CACHE, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    return subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
 def run_cli(*args):
     """``python -m differential_equations_resnet_tpu_torch.cli <args>`` from
     the checkout: a started process."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    return subprocess.Popen([sys.executable, "-m", "differential_equations_resnet_tpu_torch.cli",
-                             *args], cwd=root, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    return run_python("-m", "differential_equations_resnet_tpu_torch.cli", *args)
+
+
+def check_compile_cache():
+    """The CLI's first subcommand on the card built the kernels into its
+    compile cache (`enable_compile_cache`); a later process that enables
+    the cache finds them there and starts no compiler (0 s a build)."""
+    code = ("import json\n"
+            "from differential_equations_resnet_tpu_torch.ops.kernels import _build\n"
+            "from differential_equations_resnet_tpu_torch.utils.compile_cache import "
+            "enable_compile_cache\n"
+            "root = enable_compile_cache()\n"
+            "print(json.dumps({'root': root, 'seconds': _build.build(['fused_euler_fwd', "
+            "'fused_euler_bwd']), 'paths': [str(_build.library_path(n)) for n in "
+            "('fused_euler_fwd', 'fused_euler_bwd')]}))\n")
+    out = finish(run_python("-c", code), "compile cache check", timeout=120)
+    ok = (out["root"] == os.path.realpath(CLI_COMPILE_CACHE)
+          and all(s == 0.0 for s in out["seconds"].values())
+          and all(p.startswith(out["root"]) and os.path.isfile(p) for p in out["paths"]))
+    log(f"[compile_cache] a new process with DEQRES_COMPILE_CACHE_DIR={CLI_COMPILE_CACHE}: "
+        f"root {out['root']}, B1/B2 build seconds {out['seconds']} (0 = found built by the CLI's "
+        f"first run, no nvcc): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the compile cache did not keep the CLI's kernel builds")
 
 
 def finish(proc, name, timeout=300):
@@ -1834,6 +2159,23 @@ def resnet_eval_against_cpu(card, cpu, batch, smi, seed=11):
         raise AssertionError(f"{describe_resnet(config)}: the card's logits disagree with the CPU's")
 
 
+def calm_head(card, cpu, images, spread=20.0):
+    """Scale the head kernel of both twins so that the CPU's logits of
+    ``images`` span about ``spread`` a row, and return those logits.  A
+    random-init ResNet-50's logits span thousands, so its softmax is 0 in
+    all classes but one and its probabilities would hide its logits
+    (`logit_gaps`); the scaled head leaves every class visible."""
+    x = torch.from_numpy(images)
+    with torch.inference_mode():
+        logits = cpu(x, return_logits=True)
+    scale = spread / float((logits.max(-1).values - logits.min(-1).values).max())
+    with torch.no_grad():
+        for model in (card, cpu):
+            model.params()["head"].kernel.mul_(scale)
+    with torch.inference_mode():
+        return cpu(x, return_logits=True)
+
+
 def resnet_replayed(card, steps, smi, batch=HARNESS_BATCH):
     """``steps`` replayed train steps at ``batch`` on synthetic images of
     the model's shape: ms a step, images/s, model TFLOP/s and MFU."""
@@ -1911,8 +2253,11 @@ def phase_bottleneck(tmp, smi):
        at batch 32 timed;
     2. the same at 224x224 and 257 classes (the v6 notebook's Caltech-256
        shape, on seeded images): eval-mode logits at batch 2 against the
-       CPU, `export_model` -> `load_exported` -> predict at batch 1 and 32
-       (latency, images/s), 20 replayed train steps at batch 32 timed;
+       CPU, then its head scaled so that no probability underflows
+       (`calm_head`), `export_model` -> `load_exported` -> predict at
+       batch 1 and 32 (latency, images/s), the three serving paths at
+       batch 1 against the CPU's logits (`served_paths`), 20 replayed
+       train steps at batch 32 timed;
     3. ResNet-50 v1.5 with regular mid-convs, ResNet-101 and ResNet-152:
        eval-mode logits at 32x32, batch 4, against the CPU;
     4. the single-block model with batch norm, 64L x 16F: 2 train steps at
@@ -1934,10 +2279,11 @@ def phase_bottleneck(tmp, smi):
 
     card, cpu = resnet_pair("resnet50", 224, 257)
     resnet_eval_against_cpu(card, cpu, 2, smi)
+    images = np.random.default_rng(15).uniform(0, 255, (4, 224, 224, 3)).astype(np.float32)
+    cpu_logits = calm_head(card, cpu, images[:1])
     del cpu
     predict, manifest = load_exported(export_model(card, os.path.join(tmp, "resnet50_224")),
                                       device="cuda")
-    images = np.random.default_rng(15).uniform(0, 255, (4, 224, 224, 3)).astype(np.float32)
     with torch.no_grad():
         want = card(torch.from_numpy(images).cuda()).cpu()
     err = norm_rel(torch.from_numpy(predict(images)), want)
@@ -1949,6 +2295,10 @@ def phase_bottleneck(tmp, smi):
     for batch, runs in ((1, 25), (32, 10)):
         time_served(predict, batch, 224, runs, smi)
     del predict
+    # The three serving paths at batch 1 (an export at batch 1 is served
+    # compiled there): forward.pt2, the rebuilt model, the eager model.
+    served_paths("ResNet-50 224x224 x 257 classes", card, os.path.join(tmp, "resnet50_224"), 1,
+                 images[:1], cpu_logits, smi, tf32_shows=True)
     resnet_replayed(card, 20, smi)
     del card
     torch.cuda.empty_cache()
@@ -1982,8 +2332,10 @@ def phase_bottleneck(tmp, smi):
                              "--device-data", "--save-dir", save_dir, "--csv-dir", csv_dir), "train")
     train_s = time.perf_counter() - t0
     checkpoint = os.path.join(save_dir, Checkpointer(save_dir).latest())
+    # --no-stablehlo: tracing ResNet-50 takes tens of seconds here, and the
+    # compiled forward is held in the serving phases.
     exported = finish(run_cli("export", os.path.join(tmp, "resnet_export"), *model,
-                              "--checkpoint", checkpoint), "export")
+                              "--checkpoint", checkpoint, "--no-stablehlo"), "export")
     cli_s = time.perf_counter() - t0
     predict, manifest = load_exported(exported["export_dir"], device="cuda")
     restored = build_resnet(resnet_preset("resnet50", 10, antisymmetric_mid=True,
@@ -2074,8 +2426,9 @@ def bf16_against_cpu(label, card, classes, size, smi, batch=8, seed=30, train_to
     if not ok:
         raise AssertionError(f"{label}: bf16 on the card disagrees with bf16 on the CPU")
     with tempfile.TemporaryDirectory() as tmp:
-        predict, manifest = load_exported(export_model(card, os.path.join(tmp, "bf16")),
-                                          device="cuda")
+        # The rebuilt path (the compiled one is held in the serving phases).
+        predict, manifest = load_exported(
+            export_model(card, os.path.join(tmp, "bf16"), stablehlo=False), device="cuda")
         images = np.random.default_rng(seed + 1).uniform(0, 255, (32, size, size, 3)).astype(
             np.float32)
         with torch.no_grad():
@@ -2292,24 +2645,26 @@ def phase_int8_serve(tmp, smi):
     256 quantized), random weights from a seed.  Each is exported with
     ``quantize="int8"``, loaded on the card (`load_exported`) and asked for
     a batch of 256: the served probabilities against the softmax of the
-    card's `make_quantized_forward` logits; the card's quantized logits of
+    card's `make_quantized_forward` logits and, for forward.pt2, its logit
+    gaps against the rebuilt path's (`logit_gaps`); the card's quantized logits of
     the first few images, a batch of their own (the activation scales span
     the batch), against the CPU's quantized forward of them; the int8
     forward timed at batch 256 beside the fp32 and the bf16 forward
     (CUDA events), with images/s and the int8 trunk's TOPS."""
     t_phase = time.perf_counter()
-    cases = (
+    cases = (  # (label, config, build, CPU batch, served through forward.pt2)
         ("single-block 64L x 128F 32x32", cifar10_single_block_config(
-            num_layers=64, num_filters=128), build_single_block_resnet, 4),
+            num_layers=64, num_filters=128), build_single_block_resnet, 4, True),
         ("ResNet-50 224x224 x 257 classes", resnet_preset(
-            "resnet50", 257, antisymmetric_mid=True, image_shape=(224, 224, 3)), build_resnet, 2),
+            "resnet50", 257, antisymmetric_mid=True, image_shape=(224, 224, 3)), build_resnet, 2,
+         False),
     )
-    for i, (label, config, build, cpu_batch) in enumerate(cases):
+    for i, (label, config, build, cpu_batch, compiled) in enumerate(cases):
         size, classes = config.image_shape[0], config.num_classes
         card = build(config, generator=torch.Generator().manual_seed(50), device="cuda")
-        predict, manifest = load_exported(
-            export_model(card, os.path.join(tmp, f"int8_{i}"), batch_size=INT8_BATCH,
-                         quantize="int8"), device="cuda")
+        export_dir = export_model(card, os.path.join(tmp, f"int8_{i}"), batch_size=INT8_BATCH,
+                                  stablehlo=compiled, quantize="int8")
+        predict, manifest = load_exported(export_dir, device="cuda")
         images = np.random.default_rng(51).uniform(0, 255, (INT8_BATCH, size, size, 3)).astype(
             np.float32)
         x = torch.from_numpy(images).cuda()
@@ -2317,6 +2672,16 @@ def phase_int8_serve(tmp, smi):
         logits, trunk_ops = counted_int8_ops(forward, x)
         served = predict(images)
         served_err = norm_rel(torch.from_numpy(served), torch.softmax(logits, -1).cpu())
+        # forward.pt2 (the weights quantized at export) against the rebuilt
+        # path (quantized at load) at the same batch.
+        rebuilt = (load_exported(export_dir, prefer_stablehlo=False, device="cuda")[0](images)
+                   if compiled else served)
+        pt2_err = norm_rel(torch.from_numpy(served), torch.from_numpy(rebuilt))
+        # Its logit gaps too, where forward.pt2 serves (the model's softmax
+        # keeps every class).
+        gap_err, gap_ok, kept = (gap_violation(served, rebuilt, CARD_PATHS_TOL, ref_probs=True)
+                                 if compiled else (0.0, True, "no"))
+        path = "compiled" if compiled else "rebuilt"
         # The activation scales are per tensor, over the batch: compare like batches.
         cpu = build(config, params=card.params(), state=card.state(), device="cpu")
         want = make_quantized_forward(cpu, return_logits=True)(torch.from_numpy(images[:cpu_batch]))
@@ -2326,10 +2691,14 @@ def phase_int8_serve(tmp, smi):
             fp32_logits = card(x[:cpu_batch], return_logits=True).cpu()
         ok = (manifest["quantize"] == "int8" and served.shape == (INT8_BATCH, classes)
               and bool(np.isfinite(served).all()) and served_err <= PREDICT_TOL
-              and err <= INT8_SERVE_TOL)
+              and err <= INT8_SERVE_TOL and pt2_err <= INT8_SERVE_TOL and gap_ok
+              and predict.routes[path] == 1)
         log(f"[int8_serve] {label}: export -> load_exported -> predict at batch {INT8_BATCH} "
-            f"against softmax of make_quantized_forward norm-rel {served_err:.2e} (tol "
-            f"{PREDICT_TOL:g}); card int8 logits vs CPU int8 logits on {cpu_batch} images norm-rel "
+            f"({predict.routes}) against softmax of make_quantized_forward "
+            f"norm-rel {served_err:.2e} (tol {PREDICT_TOL:g}), against the rebuilt path norm-rel "
+            f"{pt2_err:.2e} (tol {INT8_SERVE_TOL:g}), its logit gaps {gap_err:.2e} over {kept} "
+            f"classes (tol rtol=atol={CARD_PATHS_TOL:g}); card int8 logits vs CPU int8 logits on "
+            f"{cpu_batch} images norm-rel "
             f"{err:.2e} (tol {INT8_SERVE_TOL:g}); int8 against fp32 logits norm-rel "
             f"{norm_rel(got, fp32_logits):.2e} (quantization error, no "
             f"tolerance) ({smi}): {'ok' if ok else 'FAIL'}")
@@ -2747,7 +3116,7 @@ def phase_records(tmp, smi):
         raise AssertionError("the records-fed ResNet-50's loss is not finite")
 
     metrics = trainer.evaluate("val", num_steps=RECORDS_IMAGES // HARNESS_BATCH)
-    exported = export_model(card, os.path.join(tmp, "records_resnet50"))
+    exported = export_model(card, os.path.join(tmp, "records_resnet50"), stablehlo=False)
     predict, manifest = load_exported(exported, device="cuda")
     sample = images[:HARNESS_BATCH].astype(np.float32)
     with torch.no_grad():
@@ -2913,6 +3282,96 @@ def phase_mnist(smi):
 
 # A step over a mesh against the same step without one (PERF.md §2): the
 # loss relative, the grad-norm row relative, each parameter absolute.
+EXAMPLES = "differential_equations_resnet_tpu_torch.examples"
+# Each example with its arguments on the card: the gradient-flow experiment
+# at its full 64L x 16F on the fused route for one device-resident epoch of
+# a small seeded synthetic set, the others at their own defaults or cut
+# sizes (large_batch_training with its bf16 and int8 arms).
+EXAMPLE_RUNS = (
+    ("cifar10_gradient_flow_experiment",
+     ("--num-layers", "64", "--num-filters", "16", "--epochs", "1", "--device-data",
+      "--synthetic-train-size", "2048", "--synthetic-val-size", "512")),
+    ("antisymmetric_kernel_properties", ()),
+    ("depth_doubling_continuation",
+     ("--synthetic-train-size", "1024", "--synthetic-val-size", "256")),
+    ("large_batch_training",
+     ("--epochs", "1", "--train-size", "2048", "--val-size", "256", "--compare-bf16",
+      "--compare-int8", "--int8-backward", "wgrad")),
+    ("int8_full_nan_repro", ("--num-layers", "16", "--batch", "32", "--steps", "3")),
+)
+
+
+def example_json(name, body):
+    """The JSON an example printed (the last of its output before the
+    launches line; indented or on one line)."""
+    lines = body.splitlines()
+    start = max(i for i, line in enumerate(lines) if line in ("{", "[") or line.startswith("{\""))
+    return json.loads("\n".join(lines[start:]))
+
+
+def example_ok(name, body):
+    """Whether an example's output has what its JAX original prints."""
+    if name == "antisymmetric_kernel_properties":
+        return "after training" in body and body.count("skew-consistent") == 3
+    out = example_json(name, body)
+    if name == "cifar10_gradient_flow_experiment":
+        keys = {"best_val_accuracy", "best_val_mean_loss", "grad_norm_relative_deviation",
+                "grad_norm_std_over_layers", "grad_norm_last_first_ratio", "training_csv"}
+        return set(out) == {"antisymmetric", "regular"} and all(
+            set(row) == keys and np.isfinite(row["best_val_mean_loss"]) for row in out.values())
+    if name == "depth_doubling_continuation":
+        return ([row["layers"] for row in out] == [8, 16, 32]
+                and all(np.isfinite(row["mean_loss"]) for row in out))
+    if name == "large_batch_training":
+        return (len(out["runs"]) == 8 and len(out["convergence_delta_vs_base"]) == 7
+                and all(np.isfinite(r["final_train_loss"]) for r in out["runs"]))
+    return out["verdict"] == "clean" and out["residual_stack_bytes"] > 0
+
+
+def phase_examples(tmp, smi):
+    """The five examples of this slice, each in a subprocess (all started
+    together) through its ``main(argv)``, which then prints the B1/B2
+    launches it made: each must exit 0 and print its JAX original's keys.
+    Returns the launches of the band and wide B1 and B2, summed."""
+    t_phase = time.perf_counter()
+    procs = {}
+    for name, args in EXAMPLE_RUNS:
+        if name == "cifar10_gradient_flow_experiment":
+            args = args + ("--out-dir", os.path.join(tmp, "gradient_flow"))
+        code = ("import json, sys\n"
+                f"from {EXAMPLES} import {name}\n"
+                "from differential_equations_resnet_tpu_torch.ops.kernels import "
+                "fused_integrator as fi\n"
+                f"rc = {name}.main({list(args)!r})\n"
+                "print(json.dumps([w.launches for w in fi.COUNTED_WRAPPERS]))\n"
+                "sys.exit(rc)\n")
+        procs[name] = run_python("-c", code)
+    launches = np.zeros(4, dtype=np.int64)
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+                p.communicate()
+            raise
+        if proc.returncode != 0:
+            raise AssertionError(f"example {name} exited with {proc.returncode}:\n{err[-4000:]}")
+        body, counts = out.strip().rsplit("\n", 1)
+        counts = json.loads(counts)
+        ok = example_ok(name, body)
+        log(f"[examples] {name}: exit 0, B1/B2/wide B1/wide B2 launches {counts}, "
+            f"last output line {body.splitlines()[-1][:300]}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"example {name} printed a bad result:\n{body[-4000:]}")
+        launches += counts
+    if launches[0] == 0 or launches[1] == 0:
+        raise AssertionError("the examples launched no B1 or no B2")
+    log(f"[examples] five examples {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{launches.tolist()} ({smi})")
+    return [int(n) for n in launches]
+
+
 MESH_LOSS_TOL = 1e-5
 MESH_ROW_TOL = 1e-3
 MESH_PARAM_TOL = 1e-3
@@ -3213,6 +3672,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+
+    def elapsed(after):
+        log(f"[time] {time.perf_counter() - t_start:.1f} s since the start, after {after}")
+
     smi = phase_device()
     phase_build()
     phase_plan()
@@ -3220,6 +3684,8 @@ def main() -> int:
     bwd_err = phase_kernels_bwd()
     wide_errs = phase_kernels_wide()
     serve_launches, predict, requests = phase_serve()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths_fwd, paths_wide_fwd = phase_serve_paths(tmp, smi)
     (train_fwd, train_bwd), step, batch = phase_train(smi)
     fwd_timing = phase_time_kernel()
     bwd_timing = phase_time_bwd()
@@ -3227,44 +3693,57 @@ def main() -> int:
     phase_time_train(step, batch)
     phase_profile(step, batch)
     phase_deterministic(smi)
+    elapsed('the kernels, serving, training and their timing')
     arrays = cifar_arrays()
     harness_fwd, harness_bwd = phase_harness(smi, arrays)
+    check_compile_cache()
+    elapsed('the harness')
     types_fwd, types_bwd = phase_kernel_types(smi)
     wide_fwd, wide_bwd, wide_only_fwd, wide_only_bwd = phase_wide(smi)
     wide_timing = phase_time_wide(smi)
     phase_time_narrow(smi)
     epochs_fwd, epochs_bwd = phase_epochs(smi, arrays)
+    elapsed('the kernel types, the wide phase and the epochs')
     phase_bf16(smi)
+    elapsed('bf16')
     with tempfile.TemporaryDirectory() as tmp:
         phase_subcommands(tmp, smi)
         phase_bottleneck(tmp, smi)
         phase_int8_ops(smi)
         phase_int8_serve(tmp, smi)
+        elapsed('the subcommands, the bottleneck family, int8 ops and serving')
     phase_int8_train(smi)
     phase_s2d(smi)
+    elapsed('int8 training and s2d')
     with tempfile.TemporaryDirectory() as tmp:
         records_launches = phase_records(tmp, smi)
     mnist_fwd, mnist_bwd = phase_mnist(smi)
+    elapsed('records and MNIST')
+    with tempfile.TemporaryDirectory() as tmp:
+        ex_fwd, ex_bwd, ex_wide_fwd, ex_wide_bwd = phase_examples(tmp, smi)
+        elapsed('the examples')
     mesh_fwd, mesh_bwd = phase_mesh(smi, arrays)
+    elapsed('the meshes')
     source = "differential_equations_resnet_tpu_torch/csrc/"
     replaces = "differential_equations_resnet_tpu/ops/pallas/fused_integrator.py:"
     kernels = [
         {"name": "fused_euler_fwd", "route": "cuda", "source": source + "fused_euler_fwd.cu",
          "replaces": replaces + "146",
-         "launches": (serve_launches + train_fwd + harness_fwd + types_fwd + epochs_fwd
-                      + wide_fwd - wide_only_fwd + records_launches[0] + mnist_fwd + mesh_fwd),
+         "launches": (serve_launches + paths_fwd + train_fwd + harness_fwd + types_fwd
+                      + epochs_fwd + wide_fwd - wide_only_fwd + records_launches[0] + mnist_fwd
+                      + ex_fwd - ex_wide_fwd + mesh_fwd),
          "max_abs_err": fwd_err, **fwd_timing, "library_ms": None},
         {"name": "fused_euler_bwd", "route": "cuda", "source": source + "fused_euler_bwd.cu",
          "replaces": replaces + "216",
          "launches": (train_bwd + harness_bwd + types_bwd + epochs_bwd + wide_bwd - wide_only_bwd
-                      + records_launches[1] + mnist_bwd + mesh_bwd),
+                      + records_launches[1] + mnist_bwd + ex_bwd - ex_wide_bwd + mesh_bwd),
          "max_abs_err": bwd_err, **bwd_timing, "library_ms": None},
         {"name": "fused_euler_fwd_wide", "route": "cuda", "source": source + "fused_euler_wide.cu",
-         "replaces": replaces + "146", "launches": wide_only_fwd,
+         "replaces": replaces + "146", "launches": wide_only_fwd + paths_wide_fwd + ex_wide_fwd,
          "max_abs_err": wide_errs["fused_euler_fwd_wide"],
          **wide_timing["fused_euler_fwd_wide"], "library_ms": None},
         {"name": "fused_euler_bwd_wide", "route": "cuda", "source": source + "fused_euler_wide.cu",
-         "replaces": replaces + "216", "launches": wide_only_bwd,
+         "replaces": replaces + "216", "launches": wide_only_bwd + ex_wide_bwd,
          "max_abs_err": wide_errs["fused_euler_bwd_wide"],
          **wide_timing["fused_euler_bwd_wide"], "library_ms": None},
     ]

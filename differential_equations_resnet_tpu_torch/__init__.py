@@ -53,11 +53,49 @@ Module map (each module names its JAX counterpart):
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["constant_cache", "lazy_names", "ops", "resolve_device"]
+
+
+def lazy_names(package: str, names: dict):
+    """A module ``__getattr__`` for ``package`` that imports each name of
+    ``names`` from its submodule (``names[name]``) on first use; a submodule
+    named None is the name itself.  The port's package inits re-export the
+    JAX package's names so, without importing every module at once."""
+
+    def __getattr__(name):
+        if name not in names:
+            raise AttributeError(f"module {package!r} has no attribute {name!r}")
+        import importlib
+
+        if names[name] is None:
+            return importlib.import_module(f"{package}.{name}")
+        return getattr(importlib.import_module(f"{package}.{names[name]}"), name)
+
+    return __getattr__
+
+
+__getattr__ = lazy_names(__name__, {"ops": None})  # the JAX package's top-level name
+
+
+def constant_cache(fn):
+    """``functools.lru_cache`` for a function that makes constant tensors
+    once per (arguments, device), so that no host-to-device copy lands in a
+    captured CUDA graph, except while `torch.export` (or `torch.compile`)
+    traces: a traced call makes its tensor anew, as a constant of the graph,
+    and caches nothing, since what it made is a fake tensor."""
+    cached = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def constant(*args):
+        return fn(*args) if torch.compiler.is_compiling() else cached(*args)
+
+    constant.cache_clear = cached.cache_clear
+    return constant
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

@@ -540,14 +540,17 @@ def cmd_reproduce(args) -> int:
 
 def cmd_export(args) -> int:
     """Serving export: the model's config and parameters (from
-    ``--checkpoint`` when given, else its seeded init).  The JAX package's
-    StableHLO artifact has no counterpart here, so ``--no-stablehlo``
-    changes nothing; ``--int8`` marks the export for int8 serving."""
+    ``--checkpoint`` when given, else its seeded init) and, unless
+    ``--no-stablehlo``, ``forward.pt2``: the eval forward at
+    ``--batch-size`` traced by `torch.export` (the counterpart of the JAX
+    package's StableHLO artifact; `utils.serving`).  ``--int8`` exports
+    for int8 serving."""
     from differential_equations_resnet_tpu_torch.utils.serving import export_model
 
     model = _build_model(args)
     path = export_model(model, args.output, checkpoint=args.checkpoint,
-                        batch_size=args.batch_size, quantize="int8" if args.int8 else None)
+                        batch_size=args.batch_size, stablehlo=not args.no_stablehlo,
+                        quantize="int8" if args.int8 else None)
     print(json.dumps({"export_dir": path}))
     return 0
 
@@ -744,13 +747,23 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--no-stablehlo", action="store_true",
-                   help="accepted; the port writes no compiled artifact")
+                   help="write no forward.pt2 (the torch.export program of the forward)")
     p.add_argument("--int8", action="store_true",
                    help="serve with dynamic-w8a8 int8 convs (single-block trunks >= 128 wide, "
                         "bottleneck stages of mid width >= 256)")
     p.set_defaults(fn=cmd_export)
 
     args = parser.parse_args(argv)
+    if getattr(args, "device", None) == "cuda":
+        # The kernels' builds go to the compile cache's directory: a repeat
+        # run loads them and starts no compiler.  Host-only subcommands and
+        # --help never get here; DEQRES_COMPILE_CACHE=0 opts out
+        # (utils/compile_cache.py).
+        from differential_equations_resnet_tpu_torch.utils.compile_cache import (
+            enable_compile_cache,
+        )
+
+        enable_compile_cache()
     return args.fn(args)
 
 

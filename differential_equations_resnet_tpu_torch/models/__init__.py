@@ -1,6 +1,9 @@
 """Model families of the port: the single-block ODE-ResNet and the bottleneck
-ResNet-50/101/152, and their int8 serving forward."""
+ResNet-50/101/152, and their int8 serving forward.  The JAX package's other
+names here (the layer parameters and batch norm of `models.blocks`, the
+single-block factory) are imported on first use."""
 
+from differential_equations_resnet_tpu_torch import lazy_names
 from differential_equations_resnet_tpu_torch.models.bottleneck_resnet import (
     BottleneckResNet,
     BottleneckResNetConfig,
@@ -36,3 +39,17 @@ __all__ = [
     "make_quantized_forward",
     "resnet_preset",
 ]
+
+_LAZY = {
+    "BatchNormParams": "blocks",
+    "BatchNormState": "blocks",
+    "ConvParams": "blocks",
+    "DenseParams": "blocks",
+    "batch_norm": "blocks",
+    "init_batch_norm": "blocks",
+    "init_conv": "blocks",
+    "init_dense": "blocks",
+    "get_single_block_resnet_build_function": "single_block_resnet",
+}
+
+__getattr__ = lazy_names(__name__, _LAZY)

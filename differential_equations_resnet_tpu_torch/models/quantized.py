@@ -16,9 +16,10 @@ forward: on the card a narrow single-block Euler trunk runs on B1.
 
 The activation scales are per tensor over the whole batch, so an image's
 output depends on the batch it is served in, as in the JAX package.
-`make_quantized_forward` quantizes the weights once and returns the
-serving function; `apply_quantized` (and the per-family functions) are the
-pure forward, quantizing on each call, as the JAX functions are.
+`QuantizedForward` (and `make_quantized_forward`, its serving function)
+quantizes the weights once; `apply_quantized` (and the per-family
+functions) are the pure forward, quantizing on each call, as the JAX
+functions are.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 import torch
+from torch import nn
 
 from differential_equations_resnet_tpu_torch.models import bottleneck_resnet as bottleneck
 from differential_equations_resnet_tpu_torch.models.blocks import batch_norm, max_pool_2x2
@@ -34,8 +36,10 @@ from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
     _apply_conv_block,
     _apply_identity_blocks,
     _dense_blocks,
+    _named_leaves,
     _stem,
     head,
+    map_leaves,
     stage_plans,
 )
 from differential_equations_resnet_tpu_torch.ops.conv import conv2d_same
@@ -231,6 +235,45 @@ def apply_quantized(params, state, x: torch.Tensor, config,
     return apply_resnet_quantized(params, state, x, config, return_logits=return_logits)
 
 
+class QuantizedForward(nn.Module):
+    """``module(images) -> output``: ``model`` (either family) served with
+    int8 convs, its weights quantized once here.  Every tensor it reads
+    (the parameters, the quantized weights and scales, the running
+    statistics) is one of its buffers, so `torch.export` traces it into a
+    program that carries them (`utils.serving.export_model`).  ``params``
+    and ``model_state`` default to the model's own; ``min_channels``
+    overrides the family's gate (trunk width 128 for the single-block
+    family, mid width 256 for the bottleneck one)."""
+
+    def __init__(self, model, params: Optional[dict] = None, model_state: Any = None,
+                 min_channels: Optional[int] = None, return_logits: bool = False):
+        super().__init__()
+        config = self.config = model.config
+        params = model.params() if params is None else params
+        state = model.state() if model_state is None else model_state
+        with torch.no_grad():
+            if isinstance(config, SingleBlockResNetConfig):
+                quantized = quantize_single_block(
+                    params, config, MIN_CHANNELS if min_channels is None else min_channels)
+                self._apply = _single_block_forward
+            else:
+                quantized = quantize_resnet(
+                    params, config,
+                    BOTTLENECK_MIN_MID_CHANNELS if min_channels is None else min_channels)
+                self._apply = _resnet_forward
+        self._trees = (params, quantized, state)
+        self._names = []
+        for name, leaf in _named_leaves(self._trees):
+            self.register_buffer(name, leaf.detach())
+            self._names.append(name)
+        self.return_logits = return_logits
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        leaves = iter([self._buffers[name] for name in self._names])
+        params, quantized, state = map_leaves(lambda _: next(leaves), self._trees)
+        return self._apply(params, quantized, state, x, self.config, self.return_logits)
+
+
 def make_quantized_forward(
     model,
     params: Optional[dict] = None,
@@ -239,26 +282,12 @@ def make_quantized_forward(
     return_logits: bool = False,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``fn(images) -> output`` serving ``model`` (either family) with int8
-    convs, its weights quantized once here.  ``params`` and
-    ``model_state`` default to the model's own; ``min_channels`` overrides
-    the family's gate (trunk width 128 for the single-block family, mid
-    width 256 for the bottleneck one).  ``fn`` runs in inference mode."""
-    config = model.config
-    params = model.params() if params is None else params
-    state = model.state() if model_state is None else model_state
-    with torch.no_grad():
-        if isinstance(config, SingleBlockResNetConfig):
-            quantized = quantize_single_block(
-                params, config, MIN_CHANNELS if min_channels is None else min_channels)
-            forward = _single_block_forward
-        else:
-            quantized = quantize_resnet(
-                params, config,
-                BOTTLENECK_MIN_MID_CHANNELS if min_channels is None else min_channels)
-            forward = _resnet_forward
+    convs, its weights quantized once here (`QuantizedForward`).  ``fn``
+    runs in inference mode."""
+    module = QuantizedForward(model, params, model_state, min_channels, return_logits)
 
     def fn(x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return forward(params, quantized, state, x, config, return_logits)
+            return module(x)
 
     return fn

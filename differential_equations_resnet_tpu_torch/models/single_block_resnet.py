@@ -95,7 +95,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from differential_equations_resnet_tpu_torch import resolve_device
+from differential_equations_resnet_tpu_torch import constant_cache, resolve_device
 from differential_equations_resnet_tpu_torch.models.blocks import (
     BatchNormState,
     ConvParams,
@@ -451,7 +451,7 @@ def _input_constant(value, device: torch.device, dtype: torch.dtype) -> torch.Te
     return _device_constant(tuple(values.ravel().tolist()), values.shape, device, dtype)
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _device_constant(values: Tuple[float, ...], shape, device: torch.device,
                      dtype: torch.dtype) -> torch.Tensor:
     with torch.inference_mode(False):  # usable by autograd whoever asked first
@@ -846,8 +846,10 @@ class TreeModel(nn.Module):
         self.tree = map_leaves(
             lambda t: nn.Parameter(t.detach().to(device, torch.float32, copy=True)), params
         )
+        self._param_names = []
         for name, leaf in _named_leaves(self.tree):
             self.register_parameter(name, leaf)
+            self._param_names.append(name)
         want = dict(_named_leaves(template))
         values = want if state is None else dict(_named_leaves(state))
         misfit = sorted(k for k in set(values) | set(want) if k not in values or k not in want
@@ -872,7 +874,11 @@ class TreeModel(nn.Module):
         """``apply(params, state, x, config, train, return_logits)``; in train
         mode the new state is written into the buffers, in place (so a CUDA
         graph that captured them sees it)."""
-        out, new_state = apply(self.tree, self.state(), x, self.config, train, return_logits)
+        leaves = iter([self._parameters[name] for name in self._param_names])
+        # The registered parameters, not the tree's own references: while
+        # `torch.export` traces, they are the ones it swapped in.
+        params = map_leaves(lambda _: next(leaves), self.tree)
+        out, new_state = apply(params, self.state(), x, self.config, train, return_logits)
         if train and self._state_names:
             new = dict(_named_leaves(new_state))
             with torch.no_grad():
@@ -965,3 +971,9 @@ def build_single_block_resnet(
     elif kwargs:
         raise TypeError("Pass either a config object or keyword arguments, not both.")
     return SingleBlockResNet(config, params, state, generator=generator, device=device)
+
+
+def get_single_block_resnet_build_function(**kwargs):
+    """Factory form: a function of no arguments that builds the model
+    (`build_single_block_resnet` with ``kwargs``)."""
+    return lambda: build_single_block_resnet(**kwargs)

@@ -43,6 +43,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from differential_equations_resnet_tpu_torch import constant_cache
+
 
 class Antisym3x3Params(NamedTuple):
     """Packed free parameters of a 3x3 antisymmetric conv, optionally with a
@@ -141,14 +143,14 @@ def _diag_blocks(a, b, c, d, gamma: float, axis: int) -> torch.Tensor:
     )
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _cross_index_tensors(channels: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """`cross_pair_indices` as long tensors on ``device``, made once per
     (channels, device): a host-to-device copy on every materialization
     cannot be captured in a CUDA graph.  Never written to; made outside
     inference mode, so that autograd may use them whoever asked first."""
     with torch.inference_mode(False):
-        return tuple(torch.as_tensor(arr, dtype=torch.long, device=device)
+        return tuple(torch.tensor(np.ascontiguousarray(arr), dtype=torch.long, device=device)
                      for arr in cross_pair_indices(channels))
 
 
@@ -215,7 +217,7 @@ def init_antisym_3x3_dense(
     return dense_from_packed(init_antisym_3x3(generator, channels, use_bias, dtype))
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _lower_and_eye(channels: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The strictly lower (c_in > c_out) mask and the identity, (C, C), on
     ``device``, made once (capture-safe, as `_cross_index_tensors`)."""
@@ -314,7 +316,7 @@ def _diag_gather(kernel_size: int, antisymmetric: bool):
     return source, sign, centre
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _diag_gather_tensors(kernel_size: int, antisymmetric: bool, device: torch.device):
     """`_diag_gather` as tensors on ``device``, made once (capture-safe, as
     `_cross_index_tensors`)."""

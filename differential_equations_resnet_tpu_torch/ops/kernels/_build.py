@@ -1,13 +1,15 @@
 """Build the port's native sources into plain-C shared libraries at first use.
 
-Each source is compiled into ``build/<subdir>/lib<name>-<hash>.so`` at the
-root of the checkout, keyed by a hash of the source, its shared headers and
-the flags, and loaded with `ctypes`:
+Each source is compiled into ``<BUILD_ROOT>/<subdir>/lib<name>-<hash>.so``,
+keyed by a hash of the source, its shared headers and the flags, and loaded
+with `ctypes`.  ``BUILD_ROOT`` is ``build/`` at the root of the checkout,
+or the directory `utils.compile_cache.enable_compile_cache` sets; it is read
+when a library is built or loaded, never at import:
 
 - the CUDA kernels under ``csrc/`` by ``nvcc`` for ``sm_90a`` into
-  ``build/kernels/`` (their headers are ``csrc/*.cuh``);
+  ``kernels/`` (their headers are ``csrc/*.cuh``);
 - the record codec and loader under ``native/`` by ``g++`` into
-  ``build/native/``.
+  ``native/``.
 
 A build goes to a temporary file that is renamed into place, so processes
 that build at once (test workers) never load a half-written library.

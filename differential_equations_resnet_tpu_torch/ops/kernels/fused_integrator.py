@@ -19,7 +19,13 @@ to `fused_euler_dense` itself.
 `fused_euler_dense` is the entry point.  On CPU tensors it runs the plain
 versions (`reference_euler_dense`, `reference_euler_dense_bwd`); on CUDA
 tensors it launches the forward kernel B1 and, in the backward, B2, or
-raises: there is no fallback.  Both take every shape the JAX gate takes (a
+raises: there is no fallback.  B1 is reached through a dispatcher op,
+``deqres_torch::fused_euler_fwd`` (`fused_euler_fwd_op`, a
+`torch.library` op: the plain version for CPU tensors, `_launch` for CUDA
+ones, a shape-only fake for tracing), so that `torch.export`
+records it as one node of a served program (`utils.serving`) and the
+program launches it when it runs; B2 stays a call of its wrapper inside
+`FusedEulerDense.backward`.  Both take every shape the JAX gate takes (a
 4-D contiguous fp32 state with C <= 128 and H*W <= 4096, any batch:
 `fused_euler_eligible`, `fused_euler_bwd_eligible`, `in_reference_reach`),
 each in one of two variants chosen from the shape alone before anything is
@@ -682,10 +688,46 @@ def _device_type(x: torch.Tensor) -> str:
     return x.device.type
 
 
+# B1 as a dispatcher op, so that `torch.export` records it as one node of
+# the graph and the exported program launches it when it runs.  Its kernels
+# are registered with the dispatcher directly (`torch.library.Library.impl`):
+# bound through `torch.library.custom_op`'s wrappers instead, it made the
+# eager 64L x 16F train step 0.35-0.70 ms slower on an H100's host; bound
+# so, the step stays within the unbound kernel's spread (PERF.md, §6).
+_LIBRARY = torch.library.Library("deqres_torch", "DEF")
+_LIBRARY.define("fused_euler_fwd(Tensor x, Tensor kernels, Tensor biases, float h, "
+                "ScalarType matmul_dtype) -> Tensor")
+
+
+def _fused_euler_fwd_cpu(x, kernels, biases, h, matmul_dtype):
+    """The op on CPU tensors: `reference_euler_dense`."""
+    y = reference_euler_dense(x, kernels, biases, h, matmul_dtype)
+    return y.clone() if y is x else y  # an op's output never aliases its input
+
+
+def _fused_euler_fwd_cuda(x, kernels, biases, h, matmul_dtype):
+    """The op on CUDA tensors: `_launch`, whose band plan, operand padding,
+    stream and launch count are all decided when the op runs, never while
+    it is traced.  An exported graph keeps the strides of the device it was
+    traced on; the kernel reads a contiguous NHWC state whatever they were."""
+    return _launch(x.contiguous(), kernels, biases, h, matmul_dtype)
+
+
+_LIBRARY.impl("fused_euler_fwd", _fused_euler_fwd_cpu, "CPU")
+_LIBRARY.impl("fused_euler_fwd", _fused_euler_fwd_cuda, "CUDA")
+
+
+@torch.library.register_fake("deqres_torch::fused_euler_fwd", lib=_LIBRARY)
+def _fused_euler_fwd_fake(x, kernels, biases, h, matmul_dtype):
+    return torch.empty_like(x)
+
+
+fused_euler_fwd_op = torch.ops.deqres_torch.fused_euler_fwd.default
+
+
 def _forward(x, kernels, biases, h, matmul_dtype):
-    if _device_type(x) == "cpu":
-        return reference_euler_dense(x, kernels, biases, h, matmul_dtype)
-    return _launch(x, kernels, biases, h, matmul_dtype)
+    _device_type(x)  # raises on other devices; the op's fake would serve the meta device
+    return fused_euler_fwd_op(x, kernels, biases, float(h), matmul_dtype)
 
 
 def fused_euler_dense_bwd(

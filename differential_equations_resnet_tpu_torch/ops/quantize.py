@@ -39,13 +39,13 @@ data gradient fp against the dequantized transposed kernel) and 'full'
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from differential_equations_resnet_tpu_torch import constant_cache
 from differential_equations_resnet_tpu_torch.parallel.collectives import data_group
 from differential_equations_resnet_tpu_torch.ops.conv import (
     conv2d_same,
@@ -71,7 +71,7 @@ class QuantizedConvParams(NamedTuple):
     bias: Optional[torch.Tensor] = None
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _int8_max(device: torch.device) -> torch.Tensor:
     """127.0 as a 0-d fp32 tensor on ``device``, made once per device (a
     host-to-device copy cannot be captured in a CUDA graph)."""

@@ -26,6 +26,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from differential_equations_resnet_tpu_torch import constant_cache
+
 
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     """(B, H, W, C) -> (B, H/b, W/b, b*b*C), phase-major channel layout."""
@@ -70,7 +72,7 @@ def _pack_kernel_indices(block: int) -> Tuple[np.ndarray, np.ndarray]:
     return tap, valid
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _device_indices(block: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """`_pack_kernel_indices` as tensors on ``device`` (the flat tap index
     and the (3, 3, b, b, b, b, 1, 1) mask of the out-of-range

@@ -5,6 +5,7 @@ parallelism on `torch.distributed` (the JAX package's `parallel/`).
 and `pipeline` are imported on first use, since the models themselves
 import `collectives`."""
 
+from differential_equations_resnet_tpu_torch import lazy_names
 from differential_equations_resnet_tpu_torch.parallel.mesh import (  # noqa: F401
     batch_sharding,
     create_mesh,
@@ -21,11 +22,4 @@ _LAZY = {
     "pipeline_scan": "pipeline",
 }
 
-
-def __getattr__(name):
-    if name in _LAZY:
-        import importlib
-
-        module = importlib.import_module(f"{__name__}.{_LAZY[name]}")
-        return getattr(module, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__getattr__ = lazy_names(__name__, _LAZY)

@@ -490,3 +490,124 @@ def test_captured_bottleneck_step_leaves_the_running_statistics_as_an_eager_step
         assert norm_rel(a, b) <= 1e-5, name
     for p, q in zip(replayed.parameters(), eager.parameters()):
         assert torch.equal(p, q)
+
+
+def test_b1_op_on_cuda_is_one_launch_of_the_kernel(card):
+    """``deqres_torch::fused_euler_fwd`` on CUDA tensors launches B1 once
+    and returns what `_launch` returns, bit for bit, whatever the state's
+    memory layout."""
+    x, kernels, biases, _ = case(2, 16, 16, 8, 3, 71)
+    fi.reset_launch_counts()
+    got = torch.ops.deqres_torch.fused_euler_fwd(x, kernels, biases, 0.125, torch.float32)
+    assert fi.fused_euler_dense.launches == 1
+    assert torch.equal(got, fi._launch(x, kernels, biases, 0.125, torch.float32))
+    # A state in another memory layout (as an exported graph may hand it
+    # over) runs as its contiguous copy.
+    transposed = x.permute(0, 2, 1, 3)
+    assert torch.equal(
+        torch.ops.deqres_torch.fused_euler_fwd(transposed, kernels, biases, 0.125, torch.float32),
+        fi._launch(transposed.contiguous(), kernels, biases, 0.125, torch.float32))
+
+
+def test_compiled_export_serves_on_the_card(card, tmp_path):
+    """An export traced on the CPU and one traced on the card, both served
+    on the card through forward.pt2: one B1 launch a request, the same
+    answer, within TOL of the CPU's."""
+    from differential_equations_resnet_tpu_torch.models import (
+        build_single_block_resnet,
+        cifar10_single_block_config,
+    )
+    from differential_equations_resnet_tpu_torch.utils.serving import export_model, load_exported
+
+    config = cifar10_single_block_config(num_layers=4, num_filters=16)
+    cpu = build_single_block_resnet(config, generator=torch.Generator().manual_seed(9),
+                                    device="cpu")
+    gpu = build_single_block_resnet(config, params=cpu.params(), device="cuda")
+    x = np.random.default_rng(9).uniform(0, 255, (4, 32, 32, 3)).astype(np.float32)
+    want, _ = load_exported(export_model(cpu, str(tmp_path / "cpu"), batch_size=4), device="cpu")
+    answers = []
+    for name, model in (("from_cpu", cpu), ("from_card", gpu)):
+        predict, _ = load_exported(export_model(model, str(tmp_path / name), batch_size=4),
+                                   device="cuda")
+        predict(x)  # the capture
+        fi.reset_launch_counts()
+        answers.append(predict(x))
+        assert fi.fused_euler_dense.launches == 1 and predict.routes["compiled"] == 2
+    np.testing.assert_array_equal(answers[0], answers[1])
+    np.testing.assert_allclose(answers[0], want(x), rtol=TOL, atol=TOL)
+
+
+def _logit_gaps(probs, ref):
+    """Each class's logit less its row's top class's (top by ``ref``),
+    from probabilities: log p_i - log p_j = z_i - z_j.  Classes either
+    gives 0 are left out."""
+    p, q = (torch.as_tensor(np.asarray(a), dtype=torch.float64) for a in (probs, ref))
+    top = q.argmax(-1, keepdim=True)
+    kept = (p > 0) & (q > 0)
+    return [(t.log() - t.log().gather(-1, top))[kept] for t in (p, q)]
+
+
+@pytest.mark.parametrize("route", ["fused", "per_layer"])
+def test_served_program_is_fp32_in_one_graph_for_several_threads(card, tmp_path, monkeypatch,
+                                                                 route):
+    """On the card, with cuDNN's TF32 flag on as PyTorch sets it: the
+    served forward.pt2 answers as the rebuilt model does, within 1e-5 of
+    its logit gaps, a tolerance the program run in TF32 misses on the
+    per-layer route's 3x3 convolutions; a predictor holds one captured
+    graph whatever batch sizes come; requests from several threads at once
+    get their own answers."""
+    import os
+    import threading
+
+    from differential_equations_resnet_tpu_torch.models import (
+        build_single_block_resnet,
+        cifar10_single_block_config,
+    )
+    from differential_equations_resnet_tpu_torch.utils import serving
+
+    config = cifar10_single_block_config(num_layers=8, num_filters=16,
+                                         kernel_type="antisymmetric" if route == "fused"
+                                         else "centrosymmetric", kernel_size=3 if route == "fused"
+                                         else 5)
+    model = build_single_block_resnet(config, generator=torch.Generator().manual_seed(12),
+                                      device="cuda")
+    export_dir = serving.export_model(model, str(tmp_path / "e"), batch_size=8)
+    made = []
+
+    class Counted(serving._Replayed):
+        def __init__(self, *args):
+            super().__init__(*args)
+            made.append(self)
+
+    monkeypatch.setattr(serving, "_Replayed", Counted)
+    draw = lambda n, seed: np.random.default_rng(seed).uniform(0, 255, (n, 32, 32, 3)).astype(
+        np.float32)
+    x = draw(8, 12)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        compiled, _ = serving.load_exported(export_dir, device="cuda")
+        rebuilt, _ = serving.load_exported(export_dir, prefer_stablehlo=False, device="cuda")
+        got, want = compiled(x), rebuilt(x)
+        raw = torch.export.load(os.path.join(export_dir, serving.FORWARD_FILE)).module()
+        with torch.no_grad():
+            tf32 = raw(torch.from_numpy(x).cuda()).cpu().numpy()
+        for n in (1, 3, 8, 5, 8):
+            compiled(draw(n, n)), rebuilt(draw(n, n))
+        requests = [draw(8 if i % 2 else 3, 20 + i) for i in range(8)]
+        answers = [compiled(r) for r in requests]
+        served = [None] * len(requests)
+
+        def serve(i):
+            for _ in range(3):
+                served[i] = compiled(requests[i])
+
+        threads = [threading.Thread(target=serve, args=(i,)) for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    torch.testing.assert_close(*_logit_gaps(got, want), rtol=1e-5, atol=1e-5)
+    if route == "per_layer":
+        assert not torch.allclose(*_logit_gaps(tf32, want), rtol=1e-5, atol=1e-5)
+    assert len(made) == 2 and [len(r.graphs) for r in made] == [1, 1]
+    for s, a in zip(served, answers):
+        np.testing.assert_array_equal(s, a)

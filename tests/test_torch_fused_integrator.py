@@ -251,9 +251,12 @@ def test_function_declines_before_the_forward_launch(monkeypatch):
     """A CUDA input that the band B1 takes and the band B2 declines (C = 60
     at 32x32) trains: the forward launches the band B1 and the backward the
     wide B2, with no raise; under no_grad the forward alone runs.  A shape
-    past the JAX reach raises before any launch."""
+    past the JAX reach raises before any launch.  The dispatcher routes B1's
+    op by the tensor's real device, so the op is replaced by its CUDA
+    kernel here."""
     launched = []
     monkeypatch.setattr(fi, "_launch", lambda *args: launched.append("fwd") or args[0])
+    monkeypatch.setattr(fi, "fused_euler_fwd_op", fi._fused_euler_fwd_cuda)
     monkeypatch.setattr(fi, "_launch_bwd", lambda x, k, b, g, *rest: launched.append("bwd") or (
         g, torch.zeros_like(k), torch.zeros_like(b)))
     x = torch.zeros(1, 32, 32, 60)

@@ -210,11 +210,14 @@ def test_a_width_b2_declines_raises_on_the_card(monkeypatch):
     use_pallas and antisymmetric kernels, where the JAX package runs Pallas,
     it trains on B1 (band) and B2 (wide); a regular one takes `wide_route`;
     under no_grad B1 alone runs.  CUDA-looking CPU tensors stand in for the
-    card, with the kernels' launches recorded instead of made."""
+    card, with the kernels' launches recorded instead of made; B1's op is
+    replaced by its CUDA kernel, which the dispatcher picks from the
+    tensor's real device."""
     from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
 
     launched = []
     monkeypatch.setattr(fi, "_launch", lambda *args: launched.append("B1") or args[0])
+    monkeypatch.setattr(fi, "fused_euler_fwd_op", fi._fused_euler_fwd_cuda)
     monkeypatch.setattr(fi, "_launch_bwd", lambda x, k, b, g, *rest: launched.append("B2") or (
         g, torch.zeros_like(k), torch.zeros_like(b)))
 

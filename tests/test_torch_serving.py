@@ -77,10 +77,14 @@ def test_own_export_round_trip_is_exact(tmp_path):
     x = images(3, seed=2)
     with torch.no_grad():
         want = model(torch.from_numpy(x)).numpy()
+    # At the exported batch the compiled forward.pt2 serves, bit for bit.
     np.testing.assert_array_equal(predict(x), want)
+    assert predict.routes == {"compiled": 1, "rebuilt": 0}
+    rebuilt, _ = load_exported(export_dir, prefer_stablehlo=False, device="cpu")
+    np.testing.assert_array_equal(rebuilt(x), want)
 
 
-def test_int8_manifest_raises(tmp_path):
+def test_int8_manifest_is_served(tmp_path):
     """An export marked int8 (which raised naming ROADMAP A13 before the
     port served int8) is served by the quantized forward: at 4 filters,
     under the 128 gate, that is the fp model's answer, bit for bit.  The
