@@ -13,10 +13,10 @@ Phases, each of which raises on failure (exit code != 0):
    B2 and their wide variants), with each library's ptxas register and
    spill report, and each instantiation of the wide kernels' registers and
    spill bytes (none may spill);
-3. plan: each kernel's band plan (blocks of an image's thread-block
-   cluster) at the main path's shapes and cudaOccupancyMaxActiveClusters for
-   every band count, and the wide variants' launch plans at the widths the
-   band variants decline;
+3. plan: each kernel's band plan (blocks an image) at the main path's
+   shapes and the images the card holds at once for every band count
+   (`fi.resident_images`), and the wide variants' launch plans at the
+   widths the band variants decline;
 4. kernels: each kernel against its plain PyTorch version on the card, TF32
    off, at the main path's shape, at small shapes and at band edges (batch
    1 and 7, uneven and short bands, one band, 64x64x16), in fp32 and
@@ -307,27 +307,30 @@ MAIN = (32, 32, 16)  # H, W, C of the main path's identity stack
 
 
 def describe_bands(shape, backward=False):
-    """'n bands (rows a, b, ...), B*n blocks' for a batch shape on B1 or B2."""
+    """'n bands (rows a, b, ...), B*n blocks, s threads a tile' for a batch
+    shape on B1 or B2."""
     batch, height = shape[0], shape[1]
-    bands = fi.kernel_bands(shape, backward=backward,
-                            sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bands = fi.kernel_bands(shape, backward=backward, sms=sms)
     rows = sorted({stop - start for start, stop in fi.band_plan(batch, height, bands)})
-    return bands, f"{bands} bands of {'/'.join(map(str, rows))} rows, {batch * bands} blocks"
+    split = fi.kernel_split(*shape[1:], bands)
+    return bands, (f"{bands} bands of {'/'.join(map(str, rows))} rows, {batch * bands} blocks, "
+                   f"{split} thread{'s' if split > 1 else ''} a tile")
 
 
 def phase_plan():
-    """The band plan at the main path's shapes and the card's
-    cudaOccupancyMaxActiveClusters for each band count."""
+    """The band plan at the main path's shapes and the images the card
+    holds at once (every band of an image resident) for each band count."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, backward, batches in (("fused_euler_fwd", False, (1, 7, 32)),
                                     ("fused_euler_bwd", True, (1, 8, 32))):
         smem = fi.bwd_smem_bytes if backward else fi.state_smem_bytes
-        occupancy = {n: (fi.max_active_clusters(*MAIN, n, backward), smem(*MAIN, n))
-                     for n in (1, 2, 4, 8, 16)
-                     if smem(*MAIN, n) <= fi.SMEM_LIMIT_BYTES}
-        log(f"[plan] {name} {'x'.join(map(str, MAIN))}: cudaOccupancyMaxActiveClusters by "
-            "band count: " + ", ".join(f"n={n}: {c} clusters ({c * n} blocks, {b} B smem a block)"
-                                         for n, (c, b) in occupancy.items()))
+        occupancy = {n: (fi.resident_images(*MAIN, n, backward), smem(*MAIN, n))
+                     for n in (1, 2, 4, 8, 16, 32)
+                     if n <= MAIN[0] and smem(*MAIN, n) <= fi.SMEM_LIMIT_BYTES}
+        log(f"[plan] {name} {'x'.join(map(str, MAIN))}: images resident at once by band "
+            "count: " + ", ".join(f"n={n}: {c} images ({c * n} blocks, {b} B smem a block)"
+                                   for n, (c, b) in occupancy.items()))
         for batch in batches:
             bands, text = describe_bands((batch, *MAIN), backward)
             blocks = min(batch, occupancy[bands][0]) * bands  # resident at once
@@ -442,15 +445,15 @@ def phase_kernels():
     at a later layer, which then changes its operand by one bf16 ulp.
     Returns the fp32 error at the serving path's shape."""
     cases = [  # (batch, H, W, C, L, h)
-        (32, 32, 32, 16, 64, 0.125),  # the serving path's shape: 8 bands
-        (1, 32, 32, 16, 64, 0.125),   # a serving request: 8 bands
+        (32, 32, 32, 16, 64, 0.125),  # the serving path's shape: 4 bands
+        (1, 32, 32, 16, 64, 0.125),   # a serving request: 32 bands of one row
         (7, 32, 32, 16, 64, 0.125),
         (3, 8, 8, 8, 3, 0.125),
         (3, 8, 8, 32, 3, 0.125),
         (2, 64, 64, 8, 3, 0.125),     # > 2048 pixels
         (3, 16, 16, 6, 3, 0.25),      # C not a multiple of 4
         (2, 13, 9, 8, 3, 0.125),      # H not divisible by the band count
-        (1, 3, 5, 4, 3, 0.125),       # fewer rows than the usual 8 bands
+        (1, 3, 5, 4, 3, 0.125),       # fewer rows than the plan's bands
         (70, 8, 8, 8, 3, 0.125),      # one band an image
         (1, 64, 64, 16, 4, 0.125),    # 64x64x16: at least 4 bands to fit
         (1, 32, 32, 56, 3, 0.125),    # C = 56: one kernel buffer, loaded after the barrier
@@ -491,20 +494,20 @@ def phase_kernels_bwd():
     direct B2 - plain difference is printed beside it.  Returns the max
     |B2 - plain| over gx, gk and gb at the training path's shape, fp32."""
     cases = [  # (batch, H, W, C, L, h)
-        (32, 32, 32, 16, 64, 0.125),  # the training path's shape: 8 bands
-        (8, 32, 32, 16, 64, 0.125),   # the card-against-CPU train steps' batch: 8 bands
-        (1, 32, 32, 16, 16, 0.125),   # batch 1: 8 bands
+        (32, 32, 32, 16, 64, 0.125),  # the training path's shape: 4 bands
+        (8, 32, 32, 16, 64, 0.125),   # the card-against-CPU train steps' batch: 16 bands
+        (1, 32, 32, 16, 16, 0.125),   # batch 1: 32 bands
         (3, 8, 8, 8, 3, 0.125),
         (3, 8, 8, 32, 3, 0.125),
         (2, 48, 40, 4, 4, 0.125),
         (2, 64, 64, 4, 3, 0.125),     # > 2048 pixels
         (3, 16, 16, 6, 3, 0.25),      # C not a multiple of 4
         (2, 13, 9, 8, 3, 0.125),      # H not divisible by the band count
-        (1, 3, 5, 4, 3, 0.125),       # fewer rows than the usual 8 bands
+        (1, 3, 5, 4, 3, 0.125),       # fewer rows than the plan's bands
         (70, 8, 8, 8, 3, 0.125),      # one band an image
         (1, 64, 64, 16, 4, 0.125),    # 64x64x16: at least 8 bands to fit
         (2, 32, 32, 22, 3, 0.125),    # C = 22: declined by one block per image
-        (1, 32, 32, 56, 3, 0.125),    # C = 56: one K^T buffer, 16 bands (non-portable cluster)
+        (1, 32, 32, 56, 3, 0.125),    # C = 56: one buffer of each, 16 bands
         # Unstructured (regular) kernels at the training path's shapes, 16 and 8 filters.
         (32, 32, 32, 16, 64, 0.125, "regular"),
         (32, 32, 32, 8, 64, 0.125, "regular"),
@@ -771,11 +774,13 @@ def phase_time_kernel():
         small[batch] = cuda_time_ms(lambda: fi.fused_euler_dense(x[:batch], kernels, biases, h))
         log(f"[time] fused_euler_fwd B={batch} {hh}x{ww}x{c} L={layers} "
             f"({describe_bands(x[:batch].shape)[1]}): kernel {small[batch]:.4f} ms")
-    # Band counts beside the plan's: the non-portable cluster of 16 at batch
-    # 1, clusters of 4 (one block an SM where they fit) at batch 32.
-    for batch, bands in ((1, 16), (32, 4)):
+    # Band counts beside the plan's: 8 bands at batch 1 and 32 (two blocks
+    # an SM), one thread a tile.
+    for batch, bands in ((1, 8), (32, 8)):
         ms = cuda_time_ms(lambda: fi._launch(x[:batch], kernels, biases, h, torch.float32, bands))
-        log(f"[time] fused_euler_fwd B={batch} in {bands} bands (not the plan): kernel {ms:.4f} ms")
+        log(f"[time] fused_euler_fwd B={batch} in {bands} bands, "
+            f"{fi.kernel_split(hh, ww, c, bands)} thread(s) a tile (not the plan): "
+            f"kernel {ms:.4f} ms")
     kernel_ms = cuda_time_ms(lambda: fi.fused_euler_dense(x, kernels, biases, h))
     plain_ms = cuda_time_ms(lambda: fi.reference_euler_dense(x, kernels, biases, h))
     bound = kernel_bounds(b, hh, ww, c, layers)
@@ -798,16 +803,19 @@ def phase_time_bwd():
     one_ms = cuda_time_ms(lambda: fi.fused_euler_dense_bwd(x[:1], kernels, biases, g[:1], h))
     log(f"[time] fused_euler_bwd B=1 {hh}x{ww}x{c} L={layers} "
         f"({describe_bands(x[:1].shape, backward=True)[1]}): kernel {one_ms:.4f} ms")
-    ms4 = cuda_time_ms(lambda: fi._launch_bwd(x, kernels, biases, g, h, torch.float32, 4))
-    log(f"[time] fused_euler_bwd B={b} in 4 bands (not the plan): kernel {ms4:.4f} ms")
+    ms8 = cuda_time_ms(lambda: fi._launch_bwd(x, kernels, biases, g, h, torch.float32, 8))
+    log(f"[time] fused_euler_bwd B={b} in 8 bands (not the plan): kernel {ms8:.4f} ms")
     kernel_ms = cuda_time_ms(lambda: fi.fused_euler_dense_bwd(x, kernels, biases, g, h))
     plain_ms = cuda_time_ms(lambda: fi.reference_euler_dense_bwd(x, kernels, biases, g, h))
     bound = kernel_bounds(b, hh, ww, c, layers, backward=True)
     flops, nbytes, flop_ms, byte_ms, bound_ms, bound_by = bound.values()
     bands = fi.kernel_bands(x.shape, backward=True)
-    scratch_bytes = (4 * 2 * layers * x.numel()                    # trajectory out and in
-                     + 2 * 4 * layers * x[..., 0].numel()           # mask words out and in
-                     + 4 * b * bands * (kernels.numel() + biases.numel()))  # partials
+    padded, _, rows, row = fi._band_geometry(hh, ww, c, bands)
+    items = rows * -(-ww // 4) * padded // 4 * fi.kernel_split(hh, ww, c, bands)
+    scratch_bytes = (4 * layers * b * (2 * hh + 2 * (bands - 1)) * row  # trajectory out, in with halos
+                     + 2 * 2 * layers * b * bands * items             # relu-mask words out and in
+                     + 2 * 4 * layers * b * bands * (9 * padded * padded + padded)  # dK partials
+                     + 2 * 4 * 2 * layers * b * bands * 2 * row)      # edge rows out and in
     log(f"[time] fused_euler_bwd B={b} {hh}x{ww}x{c} L={layers} "
         f"({describe_bands(x.shape, backward=True)[1]}): kernel {kernel_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms (CUDA events, 25 calls back to back, median of 5)")
@@ -815,7 +823,7 @@ def phase_time_bwd():
         f"{FP32_CUDA_CORE_FLOPS / 1e12:g} TFLOP/s (H100 SXM fp32 CUDA cores) = {flop_ms:.4f} ms; "
         f"{nbytes / 1e6:.3f} MB / {HBM_BYTES_PER_S / 1e12:g} TB/s = {byte_ms:.5f} ms; bound "
         f"{bound_ms:.4f} ms by {bound_by}; kernel at {bound_ms / kernel_ms:.1%} of it "
-        f"(its trajectory, mask and partials add {scratch_bytes / 1e6:.1f} MB = "
+        f"(its trajectory, masks, dK partials and edge rows add {scratch_bytes / 1e6:.1f} MB = "
         f"{scratch_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms of traffic)")
     log(f"[time] fused_euler_bwd B=32: {kernel_ms:.4f} ms against the target of <= 2.5 ms: "
         f"{'met' if kernel_ms <= 2.5 else 'NOT met'}")

@@ -32,19 +32,22 @@ each in one of two variants chosen from the shape alone before anything is
 launched (`kernel_variant`):
 
 - "band" (``csrc/fused_euler_fwd.cu``, ``csrc/fused_euler_bwd.cu``): an
-  image is a thread-block cluster of n blocks, each holding a band of rows
-  of the zero-padded state and a layer's kernel in shared memory for all L
-  layers (`band_plan` chooses n).  It takes the shapes whose band fits one
-  block's shared memory in some band count (`min_bands`): at 32x32, B1 C <=
-  64 and B2 C <= 56;
+  image is n blocks, each holding a band of rows of the zero-padded state
+  and a layer's kernel in shared memory for all L layers, trading edge rows
+  with its neighbours through device memory after each step (`band_plan`
+  chooses n).  It takes the shapes whose band fits one block's shared
+  memory in some band count (`min_bands`): at 32x32, B1 C <= 64 and B2 C
+  <= 56;
 - "wide" (``csrc/fused_euler_wide.cu``), every other shape of the reach: the
   state stays in device memory between layers and each layer is a tiled
   implicit GEMM fed by cp.async (`wide_plan`): L launches for B1, 3L for
   B2.
 
-Each wrapper counts its kernel's launches on the card in ``launches`` (a
-call of either variant is one launch of B1 or B2), and the wide variants'
-calls also in ``WIDE_FWD.launches`` / ``WIDE_BWD.launches``.  Under a
+Each wrapper counts its kernel's launches on the card in ``launches``: a
+band call counts the launches it made (one, or one for each group of
+images where the card cannot hold every band of the batch at once), a wide
+call counts one, and the wide variants' calls count also in
+``WIDE_FWD.launches`` / ``WIDE_BWD.launches``.  Under a
 CUDA-graph capture the kernel is recorded into the graph, not launched: the
 wrapper counts it in ``captured`` instead, and each replay of the graph adds
 the launches it holds (`count_replay`).
@@ -77,10 +80,10 @@ MAX_CHANNELS = 128
 MAX_PIXELS = 64 * 64
 # Streaming multiprocessors of an H100 SXM: the band plan's default.
 SM_COUNT = 132
-# Bands (thread-block cluster blocks) an image: the plan fills SMs with up to
-# 8, the portable cluster size; shapes whose band does not fit one block's
-# shared memory otherwise may take up to 16 (sm_90's non-portable size).
-PLAN_BANDS = 8
+# Bands (blocks) an image: the plan fills SMs with up to 32, one block an SM;
+# shapes whose band does not fit one block's shared memory otherwise may take
+# up to 16 (`min_bands`).
+PLAN_BANDS = 32
 MAX_BANDS = 16
 
 _MATMUL_DTYPES = (torch.float32, torch.bfloat16)
@@ -97,45 +100,62 @@ def _col_off(column: int, padded_channels: int) -> int:
 
 
 def _band_geometry(height: int, width: int, channels: int, bands: int):
-    """(Cp, floats of one padded band buffer, tallest band's rows, mask
-    words a pixel) of the kernels' banded shared-memory layout, as
+    """(Cp, floats of one padded band buffer, tallest band's rows, floats of
+    a padded row) of the kernels' banded shared-memory layout, as
     ``csrc/euler_common.cuh::make_band`` computes them."""
     cp = _ceil(channels, 4) * 4
     base = _col_off(4 * _ceil(width, 4) + 2, cp)
     row = base + (8 - base % 32) % 32
     rows = _ceil(height, bands)
-    return cp, (rows + 2) * row, rows, _ceil(cp, 32)
+    return cp, (rows + 2) * row, rows, row
 
 
-def _fitting(floats_with_kernel_buffers) -> int:
-    """Bytes of the first of (two kernel buffers, one) whose floats fit one
-    block's shared memory, else those of one."""
-    for buffers in (2, 1):
-        need = 4 * floats_with_kernel_buffers(buffers)
-        if need <= SMEM_LIMIT_BYTES:
-            return need
-    return need
+# Floats ahead of the buffers in a block's shared memory: the mbarriers of
+# the bulk copies (B1: its two kernel buffers'; B2: also its y_l and K^T
+# buffers').
+FWD_HEADER_FLOATS = 4
+BWD_HEADER_FLOATS = 12
+# B2's reverse-sweep layouts, in order of preference: (y_l buffers, K^T
+# buffers); two load a layer ahead.
+BWD_LAYOUTS = ((2, 2), (2, 1), (1, 2), (1, 1))
 
 
 def state_smem_bytes(height: int, width: int, channels: int, bands: int = 1) -> int:
-    """Shared memory of one B1 block of an image in ``bands`` bands: the
-    band's zero-padded fp32 state twice (double buffered, halo rows
-    included) and one or two layers' (9Cp, Cp) kernel and bias, two where
-    they fit (the next layer's loads while this one computes)."""
+    """Shared memory of one B1 block of an image in ``bands`` bands: two
+    mbarriers, the band's zero-padded fp32 state twice (double buffered,
+    halo rows included) and one or two layers' (9Cp, Cp) kernel and bias,
+    two where they fit (the next layer's loads while this one computes)."""
     cp, band, _, _ = _band_geometry(height, width, channels, bands)
-    return _fitting(lambda buffers: 2 * band + buffers * (9 * cp * cp + cp))
+    for buffers in (2, 1):
+        need = 4 * (FWD_HEADER_FLOATS + 2 * band + buffers * (9 * cp * cp + cp))
+        if need <= SMEM_LIMIT_BYTES:
+            break
+    return need
+
+
+def bwd_layout(height: int, width: int, channels: int, bands: int = 1):
+    """(bytes, (kernel buffers, y_l buffers, K^T buffers)) of one B2 block:
+    the first of `BWD_LAYOUTS` (with two forward kernel buffers, else one)
+    whose larger phase fits, else the last tried.  B2 takes a shape in its
+    band variant where this fits in some band count (`min_bands`).  The forward phase is B1's
+    block with six mbarriers; the reverse sweep holds y_l, g_z twice, g of
+    the band's pixels and K^T."""
+    cp, band, rows, _ = _band_geometry(height, width, channels, bands)
+    layer = 9 * cp * cp + cp
+    for ny, nk in BWD_LAYOUTS:
+        for nkb in (2, 1):
+            forward = BWD_HEADER_FLOATS + 2 * band + nkb * layer
+            reverse = (BWD_HEADER_FLOATS + (ny + 2) * band + rows * width * cp
+                       + nk * 9 * cp * cp)
+            need = 4 * max(forward, reverse)
+            if need <= SMEM_LIMIT_BYTES:
+                return need, (nkb, ny, nk)
+    return need, (nkb, ny, nk)
 
 
 def bwd_smem_bytes(height: int, width: int, channels: int, bands: int = 1) -> int:
-    """Shared memory of one B2 block: the larger of its forward phase (B1's
-    block and the band's relu-mask words of two layers) and its reverse
-    sweep (y_l, g_z twice, g of the band's pixels, one or two layers' K^T,
-    one layer's mask words)."""
-    cp, band, rows, words = _band_geometry(height, width, channels, bands)
-    mask = rows * width * words
-    return _fitting(lambda buffers: max(
-        2 * band + buffers * (9 * cp * cp + cp) + 2 * mask,
-        3 * band + rows * width * cp + buffers * 9 * cp * cp + mask))
+    """Shared memory of one B2 block (`bwd_layout`)."""
+    return bwd_layout(height, width, channels, bands)[0]
 
 
 @functools.lru_cache(maxsize=1024)
@@ -152,19 +172,20 @@ def min_bands(height: int, width: int, channels: int, smem_bytes=state_smem_byte
 
 def band_plan(batch: int, height: int, fewest: int = 1, sms: int = SM_COUNT):
     """Rows of each band of an image: ((start, stop), ...), one band per
-    block of the image's thread-block cluster.
+    block.
 
-    The band count n is the largest power of two <= min(8, H) with
-    ``batch * n <= 2 * sms`` (two blocks a streaming multiprocessor: 8 at
-    batch 1-33 on 132 SMs, 4 at batch 34-66), and at least ``fewest`` (the
-    fewest bands whose block fits in shared memory).  On an H100 at
-    32x32x16 both kernels ran fastest in 8 bands at batch 1, 8 and 32
-    (PERF.md): clusters of 4 cannot all get SMs of their own, since a
-    cluster must sit in one GPC, and smaller bands shorten each layer.
-    Band r holds rows [r*H//n, (r+1)*H//n): every row once, heights
+    The band count n is the largest power of two <= min(32, H) with
+    ``batch * n <= sms`` (one block a streaming multiprocessor: on 132 SMs
+    32 at batch 1-4, 16 at batch 5-8, 8 at batch 9-16, 4 at batch 17-33),
+    and at least ``fewest`` (the fewest bands whose block fits in shared
+    memory).  On an H100 at 32x32x16 both kernels ran fastest so: at batch
+    32 in 4 bands (against 8, and 8 against 4 with clusters), at batch 1 in
+    32 (PERF.md); a larger band spreads each layer's exchange over more
+    work, a smaller one shortens the layer's serial chain where SMs are
+    free.  Band r holds rows [r*H//n, (r+1)*H//n): every row once, heights
     differing by at most one."""
     bands = 1
-    while 2 * bands <= min(PLAN_BANDS, height) and batch * 2 * bands <= 2 * sms:
+    while 2 * bands <= min(PLAN_BANDS, height) and batch * 2 * bands <= sms:
         bands *= 2
     bands = max(bands, fewest)
     return tuple((r * height // bands, (r + 1) * height // bands) for r in range(bands))
@@ -191,7 +212,8 @@ def _declined(x: torch.Tensor) -> str:
 def kernel_variant(x_shape, backward: bool = False) -> str:
     """The variant of B1 (or B2 with ``backward=True``) that runs a (B, H, W,
     C) state of the reach: "band" where a band of rows fits one block's
-    shared memory in some band count (`min_bands`), else "wide"."""
+    shared memory in some band count (`min_bands` of `state_smem_bytes`,
+    for B2 of `bwd_smem_bytes`), else "wide"."""
     _, height, width, channels = x_shape
     smem_bytes = bwd_smem_bytes if backward else state_smem_bytes
     return "band" if min_bands(height, width, channels, smem_bytes) is not None else "wide"
@@ -279,11 +301,47 @@ def launch_plan(x_shape, backward: bool = False, sms: int = SM_COUNT) -> dict:
         return wide_plan(x_shape, backward)
     bands = kernel_bands(x_shape, backward, sms)
     smem_bytes = bwd_smem_bytes if backward else state_smem_bytes
-    cp, _, rows, _ = _band_geometry(height, width, channels, bands)
-    items = rows * _ceil(width, 4) * (cp // 4)
     return {"variant": "band", "bands": bands, "blocks": batch * bands,
-            "threads": min(32 * _ceil(items, 32), 512),
+            "threads": band_threads(height, width, channels, bands,
+                                    kernel_split(height, width, channels, bands)),
             "smem_bytes": smem_bytes(height, width, channels, bands)}
+
+
+def band_threads(height: int, width: int, channels: int, bands: int, split: int = 2) -> int:
+    """Threads of a band block: one per work item (4 pixels x 4 outputs,
+    the inputs in ``split`` parts) of the tallest band, in whole warps, at
+    most 512."""
+    cp, _, rows, _ = _band_geometry(height, width, channels, bands)
+    items = rows * _ceil(width, 4) * (cp // 4) * split
+    return min(32 * _ceil(items, 32), 512)
+
+
+def kernel_split(height: int, width: int, channels: int, bands: int) -> int:
+    """Threads of a band kernel's 4 x 4 tile (its input channels in that
+    many parts, ``csrc/euler_common.cuh``) for an image in ``bands`` bands:
+    2 where one thread a tile would leave a block fewer than 4 warps (the
+    shorter chain and the added warps pay: batch 1 in 32 bands), else 1
+    (the halves' shuffle and the extra instructions cost more than they
+    gain; PERF.md)."""
+    tiles = _ceil(height, bands) * _ceil(width, 4) * _ceil(channels, 4)
+    return 2 if tiles < 128 else 1
+
+
+def dk_items(height: int, width: int, channels: int, bands: int, split: int = 2):
+    """(row chunks R, items, items a warp, rounds) of B2's dK pass in a band
+    block: items are (tap row, 4 inputs, 4 outputs, a chunk of rows), R a
+    power of two <= 32 and <= the tallest band with no more items than
+    threads; the items spread evenly over the warps, whole chunk groups a
+    warp (``csrc/fused_euler_bwd.cu::row_chunks``, ``weight_grads``)."""
+    cp, _, rows, _ = _band_geometry(height, width, channels, bands)
+    threads = band_threads(height, width, channels, bands, split)
+    groups = 3 * (cp // 4) ** 2
+    chunks = 1
+    while chunks < 32 and 2 * chunks <= rows and groups * 2 * chunks <= threads:
+        chunks *= 2
+    items, warps = groups * chunks, threads // 32
+    per_warp = min(32, _ceil(_ceil(items, warps), chunks) * chunks)
+    return chunks, items, per_warp, _ceil(items, warps * per_warp)
 
 
 def in_reference_reach(x_shape) -> bool:
@@ -329,6 +387,7 @@ def fused_euler_bwd_eligible(x: torch.Tensor, blocks) -> bool:
     return fused_euler_eligible(x, blocks)
 
 
+@functools.lru_cache(maxsize=1024)
 def kernel_bands(x_shape, backward: bool = False, sms: int = SM_COUNT):
     """Bands an image of a batch of shape (B, H, W, C) runs in, on B1 (or on
     B2 with ``backward=True``): `band_plan`'s count with the fewest bands
@@ -396,15 +455,16 @@ _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (argtypes, restype) of every C function of each kernel library.
 _SIGNATURES = {
     "fused_euler_fwd": {
-        "deqres_euler_fwd": ([_PTR] * 4 + [_I32] * 6 + [_F32, _I32, _PTR], _I32),
+        "deqres_euler_fwd": ([_PTR] * 6 + [_I32] * 7 + [_F32, _I32, _PTR], _I32),
         "deqres_euler_fwd_smem": ([_I32] * 4, ctypes.c_longlong),
-        "deqres_euler_fwd_max_clusters": ([_I32] * 5, _I32),
+        "deqres_euler_fwd_resident_images": ([_I32] * 6, _I32),
         "deqres_cuda_error_string": ([_I32], ctypes.c_char_p),
     },
     "fused_euler_bwd": {
-        "deqres_euler_bwd": ([_PTR] * 10 + [_I32] * 6 + [_F32, _I32, _PTR], _I32),
+        "deqres_euler_bwd": ([_PTR] * 11 + [_I32] * 7 + [_F32, _I32, _PTR], _I32),
         "deqres_euler_bwd_smem": ([_I32] * 4, ctypes.c_longlong),
-        "deqres_euler_bwd_max_clusters": ([_I32] * 5, _I32),
+        "deqres_euler_bwd_layout": ([_I32] * 4, _I32),
+        "deqres_euler_bwd_resident_images": ([_I32] * 6, _I32),
         "deqres_cuda_error_string": ([_I32], ctypes.c_char_p),
     },
     "fused_euler_wide": {
@@ -447,17 +507,19 @@ def wide_library_smem_bytes(channels: int) -> int:
     return _library("fused_euler_wide").deqres_euler_wide_smem(channels)
 
 
-def max_active_clusters(height: int, width: int, channels: int, bands: int,
-                        backward: bool = False, bf16: bool = False) -> int:
-    """``cudaOccupancyMaxActiveClusters`` of B1 (or B2) on the current
-    device for clusters of ``bands`` blocks at this shape: how many images
-    run at once."""
+def resident_images(height: int, width: int, channels: int, bands: int,
+                    backward: bool = False, bf16: bool = False) -> int:
+    """How many images of this shape in ``bands`` bands B1 (or B2) runs at
+    once on the current device: every band of an image is a block, and all
+    of an image's blocks are resident together (they trade edge rows), so
+    a launch holds at most this many images and a larger batch goes in
+    several launches."""
     name, short = _kernel(backward)
     lib = _library(name)
-    count = getattr(lib, f"deqres_euler_{short}_max_clusters")(
-        height, width, channels, bands, int(bf16))
+    count = getattr(lib, f"deqres_euler_{short}_resident_images")(
+        height, width, channels, bands, kernel_split(height, width, channels, bands), int(bf16))
     if count < 0:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for {bands} bands of "
+        raise RuntimeError(f"resident images failed for {bands} bands of "
                            f"{height}x{width}x{channels}: {count}")
     return count
 
@@ -536,15 +598,15 @@ WIDE_FWD = LaunchCounter()
 WIDE_BWD = LaunchCounter()
 
 
-def _count_launch(*counters) -> None:
-    """One launch of each counter's kernel, or one recorded into the CUDA
-    graph being captured on the current stream."""
+def _count_launch(*counters, launches: int = 1) -> None:
+    """``launches`` launches of each counter's kernel, or as many recorded
+    into the CUDA graph being captured on the current stream."""
     capturing = torch.cuda.is_current_stream_capturing()
     for counter in counters:
         if capturing:
-            counter.captured += 1
+            counter.captured += launches
         else:
-            counter.launches += 1
+            counter.launches += launches
 
 
 def _stream(x):
@@ -563,16 +625,32 @@ def _launch(x, kernels, biases, h, matmul_dtype, bands=None) -> torch.Tensor:
     padded = _band_geometry(height, width, channels, bands)[0]
     kernels, biases = _kernel_operands(kernels, biases, padded, matmul_dtype)
     out = torch.empty_like(x)
+    _, edges, steps = _edge_exchange(x, batch, height, width, channels, bands)
+    split = kernel_split(height, width, channels, bands)
     lib = _library("fused_euler_fwd")
     with torch.cuda.device(x.device):
-        err = lib.deqres_euler_fwd(
+        launches = lib.deqres_euler_fwd(
             x.data_ptr(), kernels.data_ptr(), biases.data_ptr(), out.data_ptr(),
-            batch, height, width, channels, kernels.shape[0], bands, float(h),
-            int(matmul_dtype == torch.bfloat16), _stream(x),
+            edges, steps, batch, height, width, channels,
+            kernels.shape[0], bands, split, float(h), int(matmul_dtype == torch.bfloat16),
+            _stream(x),
         )
-    _raise_on_error(lib, err, "fused_euler_fwd")
-    _count_launch(fused_euler_dense)
+    _raise_on_error(lib, -min(launches, 0), "fused_euler_fwd")  # minus the error, or the launches
+    _count_launch(fused_euler_dense, launches=launches)
     return out
+
+
+def _edge_exchange(x, batch, height, width, channels, bands):
+    """The band kernels' scratch for trading edge rows, in one allocation:
+    (2, B*n, 2, RS) fp32 rows (every element a kernel reads is written
+    first), then B*n 32-bit step counters, which the launch zeroes.
+    Returns (the buffer, its rows' address, its counters' address); (None,
+    0, 0) where one band an image trades nothing."""
+    if bands == 1:
+        return None, 0, 0
+    rows = 2 * batch * bands * 2 * _band_geometry(height, width, channels, bands)[3]
+    scratch = x.new_empty(rows + batch * bands)
+    return scratch, scratch.data_ptr(), scratch.data_ptr() + 4 * rows
 
 
 def _launch_wide(x, kernels, biases, h, matmul_dtype) -> torch.Tensor:
@@ -620,29 +698,37 @@ def _launch_bwd(x, kernels, biases, g, h, matmul_dtype, bands=None):
     num_layers = kernels.shape[0]
     if bands is None:
         bands = kernel_bands(x.shape, backward=True, sms=_sm_count(x.device.index or 0))
-    padded, _, _, words = _band_geometry(height, width, channels, bands)
+    padded, _, rows, row = _band_geometry(height, width, channels, bands)
     g = g.contiguous()
     kernels_t, _ = _kernel_operands(_transposed(kernels), biases, padded, matmul_dtype)
     kernels, biases = _kernel_operands(kernels, biases, padded, matmul_dtype)
     gx = torch.empty_like(x)
-    gk = x.new_empty((batch * bands, num_layers, 9, channels, channels))
-    gb = x.new_empty((batch * bands, num_layers, channels))
-    trajectory = x.new_empty((num_layers, batch, height, width, padded))
-    mask = torch.empty((num_layers, batch, height, width, words), dtype=torch.int32,
-                       device=x.device)
+    layer = 9 * padded * padded + padded
+    partials = x.new_empty((batch * bands, num_layers, layer))  # dK and db, one row a band
+    trajectory = x.new_empty((num_layers, batch, height, row))
+    split = kernel_split(height, width, channels, bands)
+    # A 16-bit relu-mask word a work item and layer (4 / split pixels x 4
+    # outputs).
+    mask = torch.empty((num_layers, batch * bands, rows * _ceil(width, 4) * padded // 4 * split),
+                       dtype=torch.int16, device=x.device)
+    _, edges, steps = _edge_exchange(x, batch, height, width, channels, bands)
     lib = _library("fused_euler_bwd")
     with torch.cuda.device(x.device):
-        err = lib.deqres_euler_bwd(
+        launches = lib.deqres_euler_bwd(
             x.data_ptr(), kernels.data_ptr(), biases.data_ptr(), kernels_t.data_ptr(),
-            g.data_ptr(), gx.data_ptr(), gk.data_ptr(), gb.data_ptr(),
-            trajectory.data_ptr(), mask.data_ptr(), batch, height, width, channels,
-            num_layers, bands, float(h), int(matmul_dtype == torch.bfloat16), _stream(x),
+            g.data_ptr(), gx.data_ptr(), partials.data_ptr(), trajectory.data_ptr(),
+            mask.data_ptr(), edges, steps, batch, height, width,
+            channels, num_layers, bands, split, float(h), int(matmul_dtype == torch.bfloat16),
+            _stream(x),
         )
-    _raise_on_error(lib, err, "fused_euler_bwd")
-    _count_launch(fused_euler_dense_bwd)
-    # Per-band partials summed here, in a fixed order, where the JAX wrapper
-    # sums its tiles'.
-    return gx, gk.sum(dim=0).reshape(num_layers, 3, 3, channels, channels), gb.sum(dim=0)
+    _raise_on_error(lib, -min(launches, 0), "fused_euler_bwd")  # minus the error, or the launches
+    _count_launch(fused_euler_dense_bwd, launches=launches)
+    # The bands' partials summed here, in a fixed order, where the JAX
+    # wrapper sums its tiles'.
+    total = partials.sum(dim=0)
+    gk = total[:, :9 * padded * padded].reshape(num_layers, 3, 3, padded, padded)
+    gb = total[:, 9 * padded * padded:]
+    return gx, gk[..., :channels, :channels].contiguous(), gb[:, :channels].contiguous()
 
 
 def _launch_bwd_wide(x, kernels, biases, g, h, matmul_dtype):

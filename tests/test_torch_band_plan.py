@@ -1,5 +1,5 @@
-"""The banded kernels' plan on the CPU: how many bands (thread-block cluster
-blocks) an image runs in, which rows each band holds, and the shared memory a
+"""The banded kernels' plan on the CPU: how many bands (blocks) an image
+runs in, which rows each band holds, and the shared memory a
 band's block needs, which decides the kernels' gates.  The kernels
 themselves run on the card (tests/test_torch_cuda_kernels.py)."""
 
@@ -37,35 +37,36 @@ def test_band_plan_covers_every_row_once(batch, height, fewest):
     assert min(heights) >= 1 and max(heights) - min(heights) <= 1
     bands = len(plan)
     assert bands & (bands - 1) == 0                             # a power of two
-    assert fewest <= bands <= max(fi.PLAN_BANDS, fewest) <= fi.MAX_BANDS
+    assert fewest <= bands <= max(fi.PLAN_BANDS, fewest) and fewest <= fi.MAX_BANDS
     assert bands <= height
     if bands > fewest:
-        assert batch * bands <= 2 * fi.SM_COUNT                # two blocks a multiprocessor
+        assert batch * bands <= fi.SM_COUNT                    # one block a multiprocessor
 
 
 def test_band_plan_at_the_main_shapes():
-    assert len(fi.band_plan(32, 32)) == 8                       # 256 blocks on 132 SMs
-    assert len(fi.band_plan(1, 32)) == 8                        # 8 SMs for a single request
-    assert len(fi.band_plan(7, 32)) == 8
-    assert len(fi.band_plan(34, 32)) == 4
-    assert len(fi.band_plan(67, 32)) == 2
+    assert len(fi.band_plan(32, 32)) == 4                       # 128 blocks on 132 SMs
+    assert len(fi.band_plan(1, 32)) == 32                       # 32 SMs for a single request
+    assert len(fi.band_plan(7, 32)) == 16
+    assert len(fi.band_plan(9, 32)) == 8
+    assert len(fi.band_plan(34, 32)) == 2
+    assert len(fi.band_plan(67, 32)) == 1
     assert len(fi.band_plan(133, 32)) == 1
-    assert len(fi.band_plan(32, 32, sms=64)) == 4               # another card's SM count
-    assert fi.band_plan(32, 32) == tuple((4 * r, 4 * r + 4) for r in range(8))
+    assert len(fi.band_plan(32, 32, sms=64)) == 2               # another card's SM count
+    assert fi.band_plan(32, 32) == tuple((8 * r, 8 * r + 8) for r in range(4))
     assert fi.band_plan(1, 13) == ((0, 1), (1, 3), (3, 4), (4, 6), (6, 8), (8, 9),
                                    (9, 11), (11, 13))
 
 
 @pytest.mark.parametrize("shape,backward,bands", [
-    ((32, 32, 32, 16), False, 8),
-    ((32, 32, 32, 16), True, 8),
-    ((64, 32, 32, 16), True, 4),
-    ((1, 32, 32, 16), False, 8),
-    ((1, 32, 32, 16), True, 8),
-    ((8, 32, 32, 16), True, 8),
+    ((32, 32, 32, 16), False, 4),
+    ((32, 32, 32, 16), True, 4),
+    ((64, 32, 32, 16), True, 2),
+    ((1, 32, 32, 16), False, 32),
+    ((1, 32, 32, 16), True, 32),
+    ((8, 32, 32, 16), True, 16),
     ((200, 32, 32, 16), False, 1),
     ((200, 32, 32, 16), True, 2),   # the whole image's g_z, y and g do not fit one block
-    ((1, 64, 64, 16), False, 8),
+    ((1, 64, 64, 16), False, 32),
     ((200, 64, 64, 16), False, 4),
     ((200, 64, 64, 16), True, 8),
     ((1, 1, 1, 100), False, None),  # one layer's kernel is over the limit
@@ -77,28 +78,36 @@ def test_kernel_bands(shape, backward, bands):
 
 def test_shared_memory_formulas():
     """The banded layout: Cp = C rounded up to 4, rows padded per 4-column
-    group and to 8 (mod 32) floats, two state buffers, and one or two
-    kernel buffers (two where they fit)."""
+    group and to 8 (mod 32) floats; B1: two mbarriers, two state buffers and
+    one or two kernel buffers (two where they fit); B2: the first layout of
+    `BWD_LAYOUTS` that fits."""
     # 32x32x16 in 4 bands: rows of 34*16 + 8*4 = 576 floats, padded to 584;
     # 10 padded rows a buffer; kernels 9*16*16 + 16 floats.
-    band = 10 * 584
-    assert fi.state_smem_bytes(32, 32, 16, 4) == 4 * (2 * band + 2 * (9 * 256 + 16)) == 65_280
-    # B2's reverse sweep: y, g_z twice, g of 8x32 pixels, K^T twice, one
-    # layer's mask words (one a pixel).
-    assert fi.bwd_smem_bytes(32, 32, 16, 4) == (
-        4 * (3 * band + 8 * 32 * 16 + 2 * 9 * 256 + 8 * 32)) == 105_920
-    assert fi.state_smem_bytes(32, 32, 16, 8) == 46_592
+    band, layer = 10 * 584, 9 * 256 + 16
+    assert fi.state_smem_bytes(32, 32, 16, 4) == 4 * (4 + 2 * band + 2 * layer) == 65_296
+    # B2's reverse sweep: six mbarriers, y twice, g_z twice, g of 8x32
+    # pixels, K^T twice.
+    assert fi.bwd_layout(32, 32, 16, 4) == (
+        4 * (12 + 4 * band + 8 * 32 * 16 + 2 * 9 * 256), (2, 2, 2))
+    assert fi.bwd_smem_bytes(32, 32, 16, 4) == 128_304
+    assert fi.state_smem_bytes(32, 32, 16, 8) == 46_608
+    assert fi.bwd_smem_bytes(32, 32, 16, 8) == 82_736  # two blocks an SM
     # C = 6 pads to 8 channels.
     assert fi.state_smem_bytes(16, 16, 6, 2) == fi.state_smem_bytes(16, 16, 8, 2)
-    # More bands never need more.
+    # More bands never need more (B2: where a band count fits, every larger
+    # one does).
     for height, width, channels in ((32, 32, 16), (64, 64, 16), (13, 9, 6), (32, 32, 56)):
-        for formula in (fi.state_smem_bytes, fi.bwd_smem_bytes):
-            sizes = [formula(height, width, channels, n) for n in (1, 2, 4, 8, 16)
-                     if n <= height]
-            assert sizes == sorted(sizes, reverse=True)
+        sizes = [fi.state_smem_bytes(height, width, channels, n) for n in (1, 2, 4, 8, 16)
+                 if n <= height]
+        assert sizes == sorted(sizes, reverse=True)
+        fits = [fi.bwd_smem_bytes(height, width, channels, n) <= fi.SMEM_LIMIT_BYTES
+                for n in (1, 2, 4, 8, 16) if n <= height]
+        assert fits == sorted(fits)
     # One kernel buffer where two do not fit: 32x32x64 in 16 bands.
     assert fi.state_smem_bytes(32, 32, 64, 16) <= fi.SMEM_LIMIT_BYTES
     assert fi.state_smem_bytes(32, 32, 64, 16) < 4 * 2 * (9 * 64 * 64 + 64)
+    # B2 at its widest band shape, 32x32x56 in 16 bands: one buffer of each.
+    assert fi.bwd_layout(32, 32, 56, 16)[1] == (1, 1, 1)
 
 
 @pytest.mark.parametrize("shape", [

@@ -153,7 +153,7 @@ def test_band_edges_on_cuda(card, shape):
         bands = fi.kernel_bands(x.shape, backward=backward)
         assert bands == len(fi.band_plan(batch, height, fi.min_bands(
             height, width, channels, fi.bwd_smem_bytes if backward else fi.state_smem_bytes)))
-        assert fi.max_active_clusters(height, width, channels, bands, backward) >= 1
+        assert fi.resident_images(height, width, channels, bands, backward) >= 1
     for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 1e-2)):
         got = fi.fused_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
         want = fi.reference_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
@@ -169,13 +169,105 @@ def test_band_edges_on_cuda(card, shape):
 @pytest.mark.parametrize("shape", [(32, 32, 16), (13, 9, 8), (64, 64, 16), (3, 5, 6), (1, 1, 76)])
 def test_library_shared_memory_matches_the_gate(card, shape):
     """The C side asks for the shared memory the Python gate counts, at every
-    band count, and refuses exactly what the gate refuses."""
+    band count, and refuses exactly what the gate refuses; B2 takes the
+    layout `bwd_layout` names."""
     height, width, channels = shape
     for backward, formula in ((False, fi.state_smem_bytes), (True, fi.bwd_smem_bytes)):
-        for bands in range(1, min(fi.MAX_BANDS, height) + 1):
+        for bands in range(1, min(fi.PLAN_BANDS, height) + 1):
             want = formula(height, width, channels, bands)
             got = fi.library_smem_bytes(height, width, channels, bands, backward)
             assert got == (want if want <= fi.SMEM_LIMIT_BYTES else -1), (backward, bands)
+    lib = fi._library("fused_euler_bwd")
+    for bands in range(1, min(fi.PLAN_BANDS, height) + 1):
+        need, (nkb, ny, nk) = fi.bwd_layout(height, width, channels, bands)
+        want = nkb + 4 * ny + 16 * nk if need <= fi.SMEM_LIMIT_BYTES else -1
+        assert lib.deqres_euler_bwd_layout(height, width, channels, bands) == want, bands
+
+
+# Shapes at the edges of the band schedule (batch, H, W, C, L, bands or None
+# for the plan's); the band count fixes the threads a tile (`kernel_split`).
+SCHEDULE_EDGES = {
+    "W=28 (7 column groups), 4 bands of 7 rows": (32, 28, 28, 16, 3, None),
+    "W=7, C=8, one thread a tile": (2, 32, 7, 8, 3, 1),
+    "W=7, C=8, two threads a tile": (2, 9, 7, 8, 3, None),
+    "C=1": (2, 16, 16, 1, 2, None),
+    "C=3, one thread a tile": (2, 32, 16, 3, 2, 1),
+    "C=13 (Cp=16 of 13)": (2, 16, 16, 13, 2, None),
+    "L=1": (3, 32, 32, 16, 1, None),
+    "H=28 in 8 bands of 3/4 rows": (2, 28, 28, 16, 3, 8),
+    "batch 1 in 16 bands": (1, 32, 32, 16, 3, 16),
+    "batch 1 in 32 bands of one row (the plan)": (1, 32, 32, 16, 3, None),
+    "batch 1 in 8 bands, one thread a tile": (1, 32, 32, 16, 3, 8),
+    "one band, two threads a tile": (2, 4, 16, 16, 3, 1),
+    "batch 32, 8 bands, one thread a tile": (32, 32, 32, 16, 2, 8),
+    "C=64 in 16 bands (B1's widest at 32x32)": (1, 32, 32, 64, 2, 16),
+    "C=56 in 16 bands (B2's widest at 32x32)": (1, 32, 32, 56, 2, 16),
+    "81x45x32: B2 in 16 bands, a shape it took on the wide variant before":
+        (2, 81, 45, 32, 2, None),
+    "batch 150 at 64x64x16: more bands than the card holds, several launches":
+        (150, 64, 64, 16, 2, None),
+}
+
+
+@pytest.mark.parametrize("shape", SCHEDULE_EDGES.values(), ids=SCHEDULE_EDGES.keys())
+def test_band_schedule_edges_on_cuda(card, shape):
+    """The band kernels' schedule (a tile's inputs over one or two threads,
+    the bands trading edge rows through device memory) against the plain
+    versions where it splits unevenly: W and C not multiples of 4, one
+    layer, uneven, one-row, single and many bands, both splits, the widest
+    band shapes of the reach, a batch whose bands the card cannot hold at
+    once (each of its launches counted); fp32 and bf16 operands.  B2 is
+    judged by a float64 run of the plain version (as
+    `test_band_edges_on_cuda`), and two B2 calls give bit-identical
+    results.  (C = 64 is B1's alone: B2 takes it on the wide variant.)"""
+    batch, height, width, channels, layers, bands = shape
+    x, kernels, bias, g = case(batch, height, width, channels, layers, seed=19)
+    backward_too = fi.kernel_variant(x.shape, backward=True) == "band"
+    for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 1e-2)):
+        before = fi.fused_euler_dense.launches
+        got = fi._launch(x, kernels, bias, 0.125, dtype, bands)
+        n = bands or fi.kernel_bands(x.shape)
+        groups = 1 if n == 1 else -(-batch // fi.resident_images(height, width, channels, n))
+        assert fi.fused_euler_dense.launches - before == groups
+        want = fi.reference_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        if not backward_too:
+            continue
+        got = fi._launch_bwd(x, kernels, bias, g, 0.125, dtype, bands)
+        want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
+        judge = fi.reference_euler_dense_bwd(*[t.double() for t in (x, kernels, bias, g)],
+                                             0.125, dtype)
+        for name, a, w, j in zip(("gx", "gk", "gb"), got, want, judge):
+            assert norm_rel(a, j) <= 2 * norm_rel(w, j) + 1e-5, (dtype, name)
+        again = fi._launch_bwd(x, kernels, bias, g, 0.125, dtype, bands)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), dtype
+
+
+def test_band_kernels_on_two_streams_at_once(card):
+    """B1 and B2 launched on two streams at once, each launch's bands
+    filling the card, again and again: the blocks of an image wait for
+    each other, so a launch whose bands were not all resident together
+    would never end.  The launches are cooperative (every block resident,
+    or the launch waits), so they finish, with the bits of one stream
+    alone."""
+    x, kernels, bias, g = case(32, 32, 32, 16, 8, seed=19)
+    want = (fi._launch(x, kernels, bias, 0.125, torch.float32),
+            *fi._launch_bwd(x, kernels, bias, g, 0.125, torch.float32))
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for stream in streams:
+        stream.wait_stream(torch.cuda.current_stream())
+    results = []
+    for turn in range(6):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                if (turn + i) % 2:
+                    results.append((fi._launch(x, kernels, bias, 0.125, torch.float32),))
+                else:
+                    results.append(fi._launch_bwd(x, kernels, bias, g, 0.125, torch.float32))
+    torch.cuda.synchronize()
+    for got in results:
+        expected = want[:1] if len(got) == 1 else want[1:]
+        assert all(torch.equal(a, b) for a, b in zip(got, expected))
 
 
 def test_weight_gradients_are_deterministic_on_cuda(card):

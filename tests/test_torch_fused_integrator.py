@@ -205,9 +205,9 @@ def test_backward_eligibility_gate():
     zeros = lambda *shape: torch.zeros(shape)
     assert fi.fused_euler_bwd_eligible(x, blocks)
     assert not fi.fused_euler_bwd_eligible(x, blocks._replace(bias=None))
-    # The training shape in its 4 bands: 105,920 B a block (one block per
-    # image needed 166,464 B); a whole image no longer fits one block.
-    assert fi.bwd_smem_bytes(32, 32, 16, 4) == 105_920
+    # The training shape in its 4 bands: 128,304 B a block (y_l and K^T
+    # double buffered); a whole image does not fit one block.
+    assert fi.bwd_smem_bytes(32, 32, 16, 4) == 128_304
     assert fi.bwd_smem_bytes(32, 32, 16) > fi.SMEM_LIMIT_BYTES
     assert fi.fused_euler_bwd_eligible(zeros(32, 32, 32, 16), blocks)
     # At 32x32 the band B2 takes C <= 56 (it took C <= 21), B1 C <= 64; the
