@@ -75,6 +75,7 @@ from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator
 from differential_equations_resnet_tpu_torch.parallel.collectives import all_gather_single, data_parallel
 from differential_equations_resnet_tpu_torch.parallel.mesh import axis_size, shard_batch
 from differential_equations_resnet_tpu_torch.train.telemetry import gradient_mean_norms
+from differential_equations_resnet_tpu_torch.utils.tracing import span
 
 Metrics = Dict[str, torch.Tensor]
 # Warm-up calls on a side stream before a capture (PyTorch's recipe for
@@ -432,12 +433,14 @@ class _Replayed:
     def __call__(self, *inputs: torch.Tensor):
         key = tuple((tuple(t.shape), t.dtype) for t in inputs)
         if key not in self.graphs:
-            static = [t.clone() for t in inputs]
-            self.graphs[key] = (static, *_capture(self.what, self.fn, static, self.keep()))
+            with span("deqres.capture"):
+                static = [t.clone() for t in inputs]
+                self.graphs[key] = (static, *_capture(self.what, self.fn, static, self.keep()))
         static, graph, outputs, in_graph = self.graphs[key]
-        for s, t in zip(static, inputs):
-            s.copy_(t)
-        graph.replay()
+        with span("deqres.replay"):
+            for s, t in zip(static, inputs):
+                s.copy_(t)
+            graph.replay()
         fused_integrator.count_replay(in_graph)
         return outputs
 
@@ -490,10 +493,11 @@ def make_multi_step(
         lrs = torch.as_tensor(lrs, dtype=torch.float32).to(images.device)
         rows = None
         for i in range(images.shape[0]):
-            row = runner(*_local(mesh, images[i], labels[i]), lrs[i])
-            if rows is None:
-                rows = row.new_empty((images.shape[0], row.numel()))
-            rows[i].copy_(row)
+            with span("deqres.step"):
+                row = runner(*_local(mesh, images[i], labels[i]), lrs[i])
+                if rows is None:
+                    rows = row.new_empty((images.shape[0], row.numel()))
+                rows[i].copy_(row)
         return unpack_rows(rows)
 
     return multi
@@ -548,21 +552,23 @@ def make_device_epoch(
                 f"steps * batch_size ({steps} * {batch_size}) exceeds the "
                 f"{n} examples in the device-resident dataset."
             )
-        lrs = torch.as_tensor(lrs, dtype=torch.float32).to(features.device)
-        perm = torch.randperm(n, generator=generator, device=features.device)
+        with span("deqres.epoch.begin"):
+            lrs = torch.as_tensor(lrs, dtype=torch.float32).to(features.device)
+            perm = torch.randperm(n, generator=generator, device=features.device)
         rows = None
         for i in range(steps):
-            idx = perm[i * batch_size:(i + 1) * batch_size]
-            if augment is None:
-                (idx,) = _local(mesh, idx)
-            x = features.index_select(0, idx).to(torch.float32)
-            y = labels.index_select(0, idx)
-            if augment is not None:
-                x, y = _local(mesh, augment(generator, x), y)
-            row = runner(x, y, lrs[i])
-            if rows is None:
-                rows = row.new_empty((steps, row.numel()))
-            rows[i].copy_(row)
+            with span("deqres.step"):
+                idx = perm[i * batch_size:(i + 1) * batch_size]
+                if augment is None:
+                    (idx,) = _local(mesh, idx)
+                x = features.index_select(0, idx).to(torch.float32)
+                y = labels.index_select(0, idx)
+                if augment is not None:
+                    x, y = _local(mesh, augment(generator, x), y)
+                row = runner(x, y, lrs[i])
+                if rows is None:
+                    rows = row.new_empty((steps, row.numel()))
+                rows[i].copy_(row)
         return unpack_rows(rows)
 
     return epoch

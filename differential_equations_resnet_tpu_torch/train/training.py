@@ -71,6 +71,7 @@ from differential_equations_resnet_tpu_torch.train.train_step import (
     make_predict_step,
     unpack_rows,
 )
+from differential_equations_resnet_tpu_torch.utils.tracing import span
 
 
 class _ProducerStopped(Exception):
@@ -268,7 +269,12 @@ class Training:
         changes nothing (see the module docstring).  ``device_data=True``
         uploads the training arrays once and runs each epoch through
         `make_device_epoch`.  ``profile_dir`` writes a `torch.profiler`
-        chrome trace of epoch ``profile_epoch``."""
+        chrome trace of epoch ``profile_epoch``, its CSV and summary rows
+        included.
+
+        Under any open `torch.profiler` window (``profile_dir`` opens one)
+        the epoch records the named host ranges that `utils.tracing`
+        lists; without a window nothing is recorded."""
         if self._train_iter is None:
             raise ValueError("No training dataset was provided.")
         if monitor not in ("loss", "accuracy"):
@@ -321,7 +327,9 @@ class Training:
                     rows, lrs = self._device_data_epoch(steps_per_epoch, learning_rate_schedule)
                 else:
                     rows, lrs = self._streaming_epoch(steps_per_epoch, learning_rate_schedule)
-            train_results = self._log_epoch(rows, lrs, epoch_first_step, summaries_frequency)
+                with span("deqres.epoch.log"):
+                    train_results = self._log_epoch(rows, lrs, epoch_first_step,
+                                                    summaries_frequency)
             self.history["train"].append({"epoch": epoch, "step": self.global_step, **train_results})
             if verbose:
                 dt = time.time() - epoch_start
@@ -379,10 +387,11 @@ class Training:
     def _device_data_epoch(self, steps: int, schedule):
         """One device-resident epoch: (telemetry rows (steps, 3 + W) on the
         device, learning rates)."""
-        lrs = [float(schedule(self.global_step + i)) for i in range(steps)]
-        features, labels = self._device_data("train")
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(_fold_in(self._data_seed, self.global_step))
+        with span("deqres.epoch.begin"):
+            lrs = [float(schedule(self.global_step + i)) for i in range(steps)]
+            features, labels = self._device_data("train")
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(_fold_in(self._data_seed, self.global_step))
         metrics, grad_norms = self._device_epoch(
             features, labels, generator, np.asarray(lrs, np.float32))
         self.state.step += steps
@@ -430,27 +439,30 @@ class Training:
                 except _ProducerStopped:
                     pass
 
-        producer = threading.Thread(
-            target=_producer, args=(self.global_step, steps_per_epoch),
-            daemon=True, name="deqres-staging-producer",
-        )
-        producer.start()
+        with span("deqres.epoch.begin"):
+            producer = threading.Thread(
+                target=_producer, args=(self.global_step, steps_per_epoch),
+                daemon=True, name="deqres-staging-producer",
+            )
+            producer.start()
         try:
             while True:
-                item = stage_q.get()
+                with span("deqres.feed.wait"):
+                    item = stage_q.get()
                 kind = item[0]
                 if kind == "error":
                     raise item[1]
                 if kind == "end":
                     break
-                _, images, labels, lr = item
-                row = self._train_step(images.to(self.device, non_blocking=True),
-                                       labels.to(self.device, non_blocking=True), lr)
-                if rows is None:
-                    rows = row.new_empty((steps_per_epoch, row.numel()))
-                rows[len(lrs)].copy_(row)
-                lrs.append(lr)
-                self.state.step += 1
+                with span("deqres.step"):
+                    _, images, labels, lr = item
+                    row = self._train_step(images.to(self.device, non_blocking=True),
+                                           labels.to(self.device, non_blocking=True), lr)
+                    if rows is None:
+                        rows = row.new_empty((steps_per_epoch, row.numel()))
+                    rows[len(lrs)].copy_(row)
+                    lrs.append(lr)
+                    self.state.step += 1
         except BaseException:
             # The dispatch loop died mid-epoch (checkpoint I/O error, user
             # interrupt).  The producer may have run ahead and may be stuck

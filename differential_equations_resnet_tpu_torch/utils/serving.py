@@ -70,6 +70,7 @@ from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
 )
 from differential_equations_resnet_tpu_torch.ops.conv import cudnn_tf32_off
 from differential_equations_resnet_tpu_torch.train.train_step import _Replayed
+from differential_equations_resnet_tpu_torch.utils.tracing import span
 from differential_equations_resnet_tpu_torch.utils.weight_utils import (
     ParamsUnpickler,
     params_from_jax,
@@ -301,7 +302,8 @@ def load_exported(
     lock = threading.Lock()
 
     def predict(images: np.ndarray) -> np.ndarray:
-        x = torch.as_tensor(np.asarray(images, dtype=np.float32)).to(device)
+        with span("deqres.predict.h2d"):
+            x = torch.as_tensor(np.asarray(images, dtype=np.float32)).to(device)
         fits = tuple(x.shape) == batch_shape
         route = "compiled" if paths["compiled"] is not None and fits else "rebuilt"
         with lock, torch.no_grad():
@@ -313,7 +315,9 @@ def load_exported(
                 if route not in replayed:
                     replayed[route] = _Replayed(f"{route} serving forward", forward)
                 forward = replayed[route]
-            return forward(x).cpu().numpy()
+            out = forward(x)
+            with span("deqres.predict.d2h"):
+                return out.cpu().numpy()
 
     # Requests served by each path.  ``predict`` must not refer to itself:
     # in a reference cycle its captured graphs would be destroyed whenever
