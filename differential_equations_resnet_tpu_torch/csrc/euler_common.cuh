@@ -323,25 +323,31 @@ __device__ __forceinline__ void publish_step(const Edges& e, int band, int step)
   if (threadIdx.x == 0) store_release(e.steps + band, static_cast<unsigned>(step) + 1u);
 }
 
-// Thread 0 waits until both neighbours of band `rank` (of `n`) have
-// published step `step`; its acquire orders its later reads (and, through
-// a barrier, its block's) after their edge rows.
+// The calling thread waits until both neighbours of band `rank` (of `n`)
+// have published step `step`; its acquire orders its later reads after
+// what they wrote before it.
+__device__ __forceinline__ void neighbours_published(const Edges& e, int band, int rank, int n,
+                                                     int step) {
+  const unsigned done = static_cast<unsigned>(step) + 1u;
+  while ((rank > 0 && load_acquire(e.steps + band - 1) < done) ||
+         (rank + 1 < n && load_acquire(e.steps + band + 1) < done)) {
+  }
+}
+
+// Thread 0 waits (`neighbours_published`); through a barrier, its block's
+// later reads follow their edge rows.
 __device__ __forceinline__ void wait_neighbours(const Edges& e, int band, int rank, int n,
                                                 int step) {
-  if (threadIdx.x == 0) {
-    const unsigned done = static_cast<unsigned>(step) + 1u;
-    while ((rank > 0 && load_acquire(e.steps + band - 1) < done) ||
-           (rank + 1 < n && load_acquire(e.steps + band + 1) < done)) {
-    }
-  }
+  if (threadIdx.x == 0) neighbours_published(e, band, rank, n, step);
 }
 
 // The neighbours' edge rows of step `step` into the halo rows of `buf` (a
 // band buffer of `rows` own rows), once they are published; warp 0 waits and
 // copies the image columns (the zero columns at either end stay zero, so
-// the edge buffer needs no zeroing), the block's barrier ends it.  Image top
-// and bottom have no neighbour: their halo rows stay zero.
-__device__ __forceinline__ void take_halos(const Edges& e, const Band& b, int image, int rank,
+// the edge buffer needs no zeroing), and a barrier of the warps that read
+// `buf` ends it (`take_halos`: the block's).  Image top and bottom have no
+// neighbour: their halo rows stay zero.
+__device__ __forceinline__ void copy_halos(const Edges& e, const Band& b, int image, int rank,
                                            int rows, int step, float* buf) {
   if (threadIdx.x < 32) {
     const int band = image * b.n + rank;
@@ -356,6 +362,11 @@ __device__ __forceinline__ void take_halos(const Edges& e, const Band& b, int im
       if (rank + 1 < b.n) st4(bottom + i, __ldcg(reinterpret_cast<const float4*>(below + i)));
     }
   }
+}
+
+__device__ __forceinline__ void take_halos(const Edges& e, const Band& b, int image, int rank,
+                                           int rows, int step, float* buf) {
+  copy_halos(e, b, image, rank, rows, step, buf);
   __syncthreads();
 }
 

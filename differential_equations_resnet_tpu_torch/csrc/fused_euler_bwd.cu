@@ -44,25 +44,31 @@
 //      VMEM); each work item's relu mask 1[z_l > 0] (4 / split pixels x 4
 //      outputs) goes to a 16-bit word of a global scratch (L, B*n, items a
 //      band), which the same thread reads back in reverse.
-//   2. Reverse sweep, per layer: y_l (band and halo rows, from the
-//      trajectory) and K_l^T arrive by bulk copy a layer ahead where two
-//      buffers fit; g_z of the layer is in shared memory (two buffers by layer
-//      parity).  Each thread first runs its dK work item, if it has one
-//      (own g_z rows: the neighbours' g_z edge rows arrive meanwhile), then
-//      warp 0 copies those edge rows into the halo rows and one block
-//      barrier ends the copy; then every thread runs its work item of the
-//      K^T conv (B1's tile mapping), whose epilogue adds into g (the band's
-//      pixels, in shared memory) and at once forms the next layer's g_z = h
-//      * mask * g, its edge rows also to the edge buffer.  So the conv of
-//      every warp still waits, at that barrier, for the whole block's dK.
-//      What this sweep removed is the previous design's separate g_z phase
-//      with its barrier and the cluster barrier a layer.  dK in warps of its
-//      own beside the conv, with every thread busy, is the next step.
+//   2. Reverse sweep, in two roles of warps that meet at no block barrier
+//      inside a layer.  The conv warps (B1's tile mapping; `choose_roles`)
+//      take K_l^T by bulk copy a layer ahead where two buffers fit; warp 0
+//      copies the neighbours' g_z edge rows into the halo rows, a barrier of
+//      the conv warps ends the copy, then each conv thread runs its work
+//      items of the K^T conv, whose epilogue adds into g (the band's pixels,
+//      in shared memory) and at once forms the next layer's g_z = h * mask
+//      * g, its edge rows also to the edge buffer.  The dK warps take y_l
+//      (band and halo rows, from the trajectory) by bulk copy a layer ahead
+//      where two buffers fit and run the dK work items on g_z's own rows.
+//      g_z sits in two buffers by layer parity.  The roles hand the buffers
+//      over on named barriers, one a buffer each way: "g_z of layer l is
+//      written" (conv to dK) and "dK of layer l is done" (dK to conv, which
+//      then overwrites that buffer with g_z of layer l - 2).  So dK of layer
+//      l runs beside the conv of layer l and may lag it by one layer: the
+//      conv chain, layer to layer, no longer waits for dK.
+//      clock64() counters at 32x32x16, batch 32 (PERF.md): the previous
+//      sweep (dK, then a block barrier, then the conv) took 25564 cycles a
+//      reverse layer, 12611 of them dK; this one about 21200, the dK warps
+//      busy nearly all of it.
 //   dK pass: a work item is (tap row, 4 inputs, 4 outputs, a chunk of rows);
 //   it walks each of its rows 4 pixels at a time, reading their 6 window
 //   columns of y and 4 of g_z (10 float4 reads for 192 FMAs); the row chunks
 //   of an item sit in adjacent lanes and are summed with warp shuffles, and
-//   the items spread evenly over the warps (so over the schedulers).
+//   the items spread evenly over the dK warps (so over the schedulers).
 
 #include "euler_common.cuh"
 
@@ -74,6 +80,23 @@ namespace {
 // reverse sweep's two y_l buffers and two K^T buffers.
 constexpr int kHeaderFloats = 12;
 constexpr int kKBar = 0, kYBar = 2, kTBar = 4;
+
+// The reverse sweep's named barriers (0 is the block's): the conv warps',
+// the dK warps', then "g_z of layer l is written" and "dK of layer l is
+// done", one of each a g_z buffer (layer l's is l & 1).
+constexpr int kConvBar = 1, kDkBar = 2, kReadyBar = 3, kFreeBar = 5;
+
+// Named barrier `id` over `threads` threads (whole warps, warp-uniform
+// calls): bar_sync waits for all of them, bar_arrive counts the calling
+// warp in without waiting.  The shared-memory writes before either are
+// visible to the threads past the bar_sync.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // How the shared memory is shared out: forward kernel buffers (nkb), and in
 // the reverse sweep y_l buffers (ny) and K^T buffers (nk).
@@ -109,12 +132,38 @@ Layout choose_layout(const Band& b) {
   return Layout{0, 0, 0};
 }
 
-// Row chunks of a dK work item: a power of two <= 32 (one warp) and <= the
-// tallest band, with no more items than threads.
-int row_chunks(const Band& b, int threads) {
-  const int per_r = 3 * (b.Cp / 4) * (b.Cp / 4);
-  int r = 1;
-  while (r < 32 && 2 * r <= b.Rmax && per_r * 2 * r <= threads) r *= 2;
+// The reverse sweep's roles: conv threads (the first of the block), dK
+// threads (the rest) and the row chunks R of a dK work item.
+struct Roles {
+  int conv, dk, R;
+};
+
+// dK threads that the row chunks fill at most: one warp a scheduler.
+constexpr int kDkThreads = 128;
+
+// The conv warps are a block of B1's (`band_threads`: one thread a work
+// item) where that leaves room for one dK item of each (tap row, input
+// group, output group), or up to 256 threads; else at most 256 threads
+// (half of kMaxThreads, as the two roles do the same FMAs), the work items
+// in even rounds.  R is a power of two <= 32 (one warp) and <= the tallest
+// band whose items fill at most one warp a scheduler (kDkThreads) and the
+// room beside the conv warps, and the dK warps as many as those items fill,
+// at most the room.  At 32x32x16 in 4 bands two dK warps on one scheduler
+// beside its two conv warps held the layer back: B2 took 1.156 ms with six
+// dK warps (R = 4) and 1.117-1.121 ms with three (R = 2; PERF.md).
+Roles choose_roles(const Band& b) {
+  const auto whole_warps = [](int n) { return (n + 31) / 32 * 32; };
+  const int half = kMaxThreads / 2;
+  const int items = b.Rmax * row_items(b), groups = 3 * (b.Cp / 4) * (b.Cp / 4);
+  Roles r{band_threads(b), 0, 1};
+  const int reserve = whole_warps(groups) < half ? whole_warps(groups) : half;
+  if (r.conv + reserve > kMaxThreads) {
+    const int rounds = (items + half - 1) / half;
+    r.conv = whole_warps((items + rounds - 1) / rounds);
+  }
+  const int room = kMaxThreads - r.conv, fill = room < kDkThreads ? room : kDkThreads;
+  while (r.R < 32 && 2 * r.R <= b.Rmax && whole_warps(groups * 2 * r.R) <= fill) r.R *= 2;
+  r.dk = whole_warps(groups * r.R) < room ? whole_warps(groups * r.R) : room;
   return r;
 }
 
@@ -191,14 +240,15 @@ __device__ __forceinline__ void dk_rows(const Band& b, int rows, int R, int chun
 // (own rows) in shared memory, into out: (9, Cp, Cp) then (Cp), in shared
 // memory or device memory.  Items are (tap row, input group, output group,
 // row chunk), R (a power of two <= 32) chunks an item in adjacent lanes; the
-// items spread evenly over the warps.  Every thread of the block calls this
-// (the shuffles need full warps).
+// items spread evenly over the warps of `threads` threads (whole warps), of
+// which the caller is thread `tid`.  Every one of them calls this (the
+// shuffles need full warps).
 template <int CP>
 __device__ __forceinline__ void weight_grads(const Band& b, int rows, int R, const float* Y,
-                                             const float* Gz, float* out) {
+                                             const float* Gz, float* out, int tid, int threads) {
   const int Cp = CP ? CP : b.Cp, ncog = Cp / 4, per_dr = ncog * ncog;
   const int items = 3 * per_dr * R;
-  const int nwarps = blockDim.x / 32, warp = threadIdx.x / 32, ln = threadIdx.x % 32;
+  const int nwarps = threads / 32, warp = tid / 32, ln = tid % 32;
   int per_warp = ((items + nwarps - 1) / nwarps + R - 1) / R * R;
   if (per_warp > 32) per_warp = 32;
   for (int round = 0; round < items; round += nwarps * per_warp) {
@@ -271,7 +321,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
               const float* __restrict__ bias, const float* __restrict__ KT,
               const float* __restrict__ g_in, float* __restrict__ gx, float* __restrict__ gk,
               float* __restrict__ traj, unsigned short* __restrict__ mask, Edges e, Band b,
-              int B, int Bn, Layout lay, int R, float h) {
+              int B, int Bn, Layout lay, Roles roles, float h) {
   const int image = blockIdx.x / b.n, rank = blockIdx.x % b.n;
   const int start = band_start(b, rank), rows = band_rows(b, rank);
   const int Cp = CP ? CP : b.Cp, W = b.W, L = b.L;
@@ -394,69 +444,89 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   } else {
     __syncthreads();
   }
-  if (issuer) {
-    // The neighbours' trajectories are complete once they publish step L.
-    if (b.n > 1) wait_neighbours(e, blockIdx.x, rank, b.n, L);
-    fence_proxy_global();
-    issue_y(L - 1);
-    issue_kt(L - 1);
-  }
 
-  for (int l = L - 1; l >= 0; --l) {
-    const int step = 2 * L - l;  // publishes g_z of layer l - 1
-    const int ys = lay.ny == 2 ? (l & 1) : 0, ks = lay.nk == 2 ? (l & 1) : 0;
-    float* Gz = G + (l & 1) * band;
-    float* Gn = G + ((l + 1) & 1) * band;  // g_z of layer l - 1
-    if (issuer) {
-      if (lay.ny == 2 && l > 0) issue_y(l - 1);
-      if (lay.nk == 2 && l > 0) issue_kt(l - 1);
-      if (lay.nk == 1 && l < L - 1) issue_kt(l);
-    }
-    // This thread's first mask byte of layer l - 1, read early.
-    const unsigned short first_bits =
-        l > 0 && static_cast<int>(threadIdx.x) < items ? mask_words(l - 1)[threadIdx.x] : 0;
-    mbar_wait(bars + kYBar + ys, phases, kYBar + ys);
-    weight_grads<CP>(b, rows, R, Y + ys * band, Gz,
-                     gk + (static_cast<size_t>(blockIdx.x) * L + l) * layer);
-    if (lay.ny == 1 && l > 0) {
-      __syncthreads();  // every read of y_l is done
-      if (issuer) issue_y(l - 1);
-    }
-    mbar_wait(bars + kTBar + ks, phases, kTBar + ks);
-    // g += g_z * K^T over the band's pixels, and g_z of layer l - 1 from it,
-    // once the neighbours' g_z edge rows are in the halo rows.
-    const float* Kt = KTs + ks * kt_floats;
-    float* first = own_edge(e, b, step, 0);
-    float* last = own_edge(e, b, step, 1);
-    if (b.n > 1) take_halos(e, b, image, rank, rows, step - 1, Gz);
-    for (int base = 0; base < items; base += blockDim.x) {
-      const int it = base + threadIdx.x;
-      const bool active = it < items;
-      const HalfTile t = half_tile<S>(b, active ? it : 0);
-      float acc[4][4] = {};
-      if (active) conv_half<BF16, CP, S>(Gz, b, t, Kt, acc);
-      float d[4][4];
-      combine_halves<S>(acc, t.s, d);
-      if (!active) continue;
-      const unsigned bits = l == 0 ? 0u : base == 0 ? first_bits : mask_words(l - 1)[it];
-#pragma unroll
-      for (int kk = 0; kk < 4 / S; ++kk) {
-        const int q = 4 * t.g + (4 / S) * t.s + kk;
-        if (q >= W) break;
-        float* gp = gs + (t.r * W + q) * Cp + t.co;
-        const float4 g = add4(ld4(gp), make_float4(d[kk][0], d[kk][1], d[kk][2], d[kk][3]));
-        st4(gp, g);
-        if (l > 0) store_gz(b, rows, t, q, kk, g, bits, h, Gn, first, last);
+  // Both roles, on the hand-off barriers: the conv of layer l arrives at
+  // kReadyBar of g_z of layer l - 1 (l >= 1), which the dK warps wait for
+  // before dK of layer l - 1 (g_z of layer L - 1 is the block's, above); dK
+  // of layer m arrives at kFreeBar of its buffer where the conv of layer m
+  // - 1 writes g_z of layer m - 2 there (m >= 2), and that conv waits for
+  // it before its first store.  Each barrier is ahead of its waiters by
+  // one arrival at most.
+  const int both = roles.conv + roles.dk;
+  if (static_cast<int>(threadIdx.x) < roles.conv) {
+    // Conv warps: g += g_z * K^T over the band's pixels, and g_z of layer l
+    // - 1 from it, once the neighbours' g_z edge rows are in the halo rows.
+    if (issuer) issue_kt(L - 1);  // K^T is the wrapper's: nothing to wait for
+    for (int l = L - 1; l >= 0; --l) {
+      const int step = 2 * L - l;  // publishes g_z of layer l - 1
+      const int ks = lay.nk == 2 ? (l & 1) : 0;
+      float* Gz = G + (l & 1) * band;
+      float* Gn = G + ((l + 1) & 1) * band;  // g_z of layer l - 1, held g_z of l + 1
+      if (issuer) {
+        if (lay.nk == 2 && l > 0) issue_kt(l - 1);
+        if (lay.nk == 1 && l < L - 1) issue_kt(l);
       }
+      // This thread's first mask byte of layer l - 1, read early.
+      const unsigned short first_bits =
+          l > 0 && static_cast<int>(threadIdx.x) < items ? mask_words(l - 1)[threadIdx.x] : 0;
+      mbar_wait(bars + kTBar + ks, phases, kTBar + ks);
+      const float* Kt = KTs + ks * kt_floats;
+      float* first = own_edge(e, b, step, 0);
+      float* last = own_edge(e, b, step, 1);
+      if (b.n > 1) {
+        copy_halos(e, b, image, rank, rows, step - 1, Gz);
+        bar_sync(kConvBar, roles.conv);
+      }
+      for (int base = 0; base < items; base += roles.conv) {
+        const int it = base + threadIdx.x;
+        const bool active = it < items;
+        const HalfTile t = half_tile<S>(b, active ? it : 0);
+        float acc[4][4] = {};
+        if (active) conv_half<BF16, CP, S>(Gz, b, t, Kt, acc);
+        float d[4][4];
+        combine_halves<S>(acc, t.s, d);
+        if (base == 0 && l > 0 && l + 1 < L) bar_sync(kFreeBar + ((l + 1) & 1), both);
+        if (!active) continue;
+        const unsigned bits = l == 0 ? 0u : base == 0 ? first_bits : mask_words(l - 1)[it];
+#pragma unroll
+        for (int kk = 0; kk < 4 / S; ++kk) {
+          const int q = 4 * t.g + (4 / S) * t.s + kk;
+          if (q >= W) break;
+          float* gp = gs + (t.r * W + q) * Cp + t.co;
+          const float4 g = add4(ld4(gp), make_float4(d[kk][0], d[kk][1], d[kk][2], d[kk][3]));
+          st4(gp, g);
+          if (l > 0) store_gz(b, rows, t, q, kk, g, bits, h, Gn, first, last);
+        }
+      }
+      if (l > 0) bar_arrive(kReadyBar + ((l - 1) & 1), both);
+      // g_z of layer l - 1 is written and its edge rows are out; the reads
+      // of g_z of layer l and K_l^T are done.
+      bar_sync(kConvBar, roles.conv);
+      if (issuer && l > 0 && b.n > 1) store_release(e.steps + blockIdx.x, step + 1u);
     }
-    // g_z of layer l - 1 is written and its edge rows are out; the reads of
-    // y_l, g_z of layer l and K_l^T are done.
-    if (l > 0 && b.n > 1) {
-      publish_step(e, blockIdx.x, step);
-    } else {
-      __syncthreads();
+  } else {
+    // dK warps: dK_l and db_l from y_l and g_z of layer l.
+    const int tid = threadIdx.x - roles.conv;
+    const bool loader = tid == 0;
+    if (loader) {
+      // The neighbours' trajectories are complete once they publish step L.
+      if (b.n > 1) neighbours_published(e, blockIdx.x, rank, b.n, L);
+      fence_proxy_global();
+      issue_y(L - 1);
+    }
+    for (int l = L - 1; l >= 0; --l) {
+      const int ys = lay.ny == 2 ? (l & 1) : 0;
+      if (loader && lay.ny == 2 && l > 0) issue_y(l - 1);
+      if (l < L - 1) bar_sync(kReadyBar + (l & 1), both);
+      mbar_wait(bars + kYBar + ys, phases, kYBar + ys);
+      weight_grads<CP>(b, rows, roles.R, Y + ys * band, G + (l & 1) * band,
+                       gk + (static_cast<size_t>(blockIdx.x) * L + l) * layer, tid, roles.dk);
+      if (l >= 2) bar_arrive(kFreeBar + (l & 1), both);
+      bar_sync(kDkBar, roles.dk);  // every read of y_l is done
+      if (loader && lay.ny == 1 && l > 0) issue_y(l - 1);
     }
   }
+  __syncthreads();
 
   for (int i = threadIdx.x; i < rows * W * b.C; i += blockDim.x) {
     const int c = i % b.C, p = i / b.C;
@@ -496,6 +566,18 @@ int deqres_euler_bwd_layout(int H, int W, int C, int n) {
   return lay.nkb ? lay.nkb + 4 * lay.ny + 16 * lay.nk : -1;
 }
 
+// The reverse sweep's roles in a block of this shape in n bands, each
+// tile's inputs split in `split` parts: out[0] conv threads, out[1] dK
+// threads, out[2] the dK items' row chunks.  0, or -1 on a bad shape.
+int deqres_euler_bwd_roles(int H, int W, int C, int n, int split, int* out) {
+  if (!valid_band(H, W, C, n) || split < 1 || split > 2) return -1;
+  const Roles r = choose_roles(make_band(H, W, C, 1, n, split));
+  out[0] = r.conv;
+  out[1] = r.dk;
+  out[2] = r.R;
+  return 0;
+}
+
 // Images of this shape in n bands, each tile's inputs split in `split`
 // parts, that run at once (every band of an image resident together), or a
 // negative number on error.
@@ -503,7 +585,8 @@ int deqres_euler_bwd_resident_images(int H, int W, int C, int n, int split, int 
   const long long smem = deqres_euler_bwd_smem(H, W, C, n);
   if (smem < 0 || split < 1 || split > 2) return -1;
   const Band b = make_band(H, W, C, 1, n, split);
-  return resident_images(bwd_kernel(b, bf16), n, band_threads(b), static_cast<int>(smem));
+  const Roles r = choose_roles(b);
+  return resident_images(bwd_kernel(b, bf16), n, r.conv + r.dk, static_cast<int>(smem));
 }
 
 const char* deqres_cuda_error_string(int err) {
@@ -532,7 +615,7 @@ int deqres_euler_bwd(const float* x, const float* K, const float* bias, const fl
   if (B == 0) return 0;
   const Band b = make_band(H, W, C, L, n, split);
   const Layout lay = choose_layout(b);
-  const int threads = band_threads(b), R = row_chunks(b, threads);
+  const Roles roles = choose_roles(b);
   const auto s = static_cast<cudaStream_t>(stream);
   auto kernel = bwd_kernel(b, bf16);
   if (n > 1) {
@@ -542,7 +625,7 @@ int deqres_euler_bwd(const float* x, const float* K, const float* bias, const fl
   const size_t image = static_cast<size_t>(H) * W * C;
   const size_t partials = static_cast<size_t>(n) * L * layer_floats(b);
   const int mstride = b.Rmax * row_items(b);
-  return launch_images(kernel, B, n, threads, static_cast<int>(smem), s,
+  return launch_images(kernel, B, n, roles.conv + roles.dk, static_cast<int>(smem), s,
                        [&](const cudaLaunchConfig_t& config, int first, int count) {
     const Edges e{edges + 2LL * first * n * b.RS, static_cast<unsigned*>(steps) + first * n,
                   2LL * B * n * b.RS};
@@ -550,7 +633,7 @@ int deqres_euler_bwd(const float* x, const float* K, const float* bias, const fl
         &config, kernel, x + first * image, K, bias, KT, g + first * image, gx + first * image,
         gk + first * partials, traj + static_cast<size_t>(first) * H * b.RS,
         static_cast<unsigned short*>(mask) + static_cast<size_t>(first) * n * mstride, e, b, B,
-        B * n, lay, R, h);
+        B * n, lay, roles, h);
   });
 }
 

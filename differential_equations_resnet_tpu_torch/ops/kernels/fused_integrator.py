@@ -300,11 +300,15 @@ def launch_plan(x_shape, backward: bool = False, sms: int = SM_COUNT) -> dict:
     if kernel_variant(x_shape, backward) == "wide":
         return wide_plan(x_shape, backward)
     bands = kernel_bands(x_shape, backward, sms)
-    smem_bytes = bwd_smem_bytes if backward else state_smem_bytes
-    return {"variant": "band", "bands": bands, "blocks": batch * bands,
-            "threads": band_threads(height, width, channels, bands,
-                                    kernel_split(height, width, channels, bands)),
-            "smem_bytes": smem_bytes(height, width, channels, bands)}
+    split = kernel_split(height, width, channels, bands)
+    if not backward:
+        return {"variant": "band", "bands": bands, "blocks": batch * bands,
+                "threads": band_threads(height, width, channels, bands, split),
+                "smem_bytes": state_smem_bytes(height, width, channels, bands)}
+    conv, dk, chunks = bwd_roles(height, width, channels, bands, split)
+    return {"variant": "band", "bands": bands, "blocks": batch * bands, "threads": conv + dk,
+            "smem_bytes": bwd_smem_bytes(height, width, channels, bands),
+            "conv_threads": conv, "dk_warps": dk // 32, "row_chunks": chunks}
 
 
 def band_threads(height: int, width: int, channels: int, bands: int, split: int = 2) -> int:
@@ -327,19 +331,47 @@ def kernel_split(height: int, width: int, channels: int, bands: int) -> int:
     return 2 if tiles < 128 else 1
 
 
-def dk_items(height: int, width: int, channels: int, bands: int, split: int = 2):
-    """(row chunks R, items, items a warp, rounds) of B2's dK pass in a band
-    block: items are (tap row, 4 inputs, 4 outputs, a chunk of rows), R a
-    power of two <= 32 and <= the tallest band with no more items than
-    threads; the items spread evenly over the warps, whole chunk groups a
-    warp (``csrc/fused_euler_bwd.cu::row_chunks``, ``weight_grads``)."""
+# The dK threads that B2's row chunks fill at most: one warp a scheduler
+# (at 32x32x16 in 4 bands, six dK warps, two on some schedulers beside their
+# two conv warps, left B2 3% slower than three; PERF.md).
+DK_FILL_THREADS = 128
+
+
+def bwd_roles(height: int, width: int, channels: int, bands: int, split: int = 2):
+    """(conv threads, dK threads, row chunks R) of B2's reverse sweep in a
+    band block, whose threads are the two roles' (the forward recompute
+    runs on all of them): the conv warps run the K^T conv, B1's work items
+    (`band_threads`), and the dK warps beside them the dK items, (tap row,
+    4 inputs, 4 outputs, a chunk of rows).  The conv warps are
+    `band_threads` where that leaves room for one dK item of each (tap row,
+    input group, output group), or up to 256 threads; else at most 256
+    threads (half the block's most, as the roles do the same FMAs) with the
+    work items in even rounds.  R is the largest power of two <= 32 and <=
+    the tallest band whose items fill no more whole warps than one a
+    scheduler (`DK_FILL_THREADS`) and the room beside the conv warps, and
+    the dK warps as many as those items fill, at most the room
+    (``csrc/fused_euler_bwd.cu::choose_roles``)."""
     cp, _, rows, _ = _band_geometry(height, width, channels, bands)
-    threads = band_threads(height, width, channels, bands, split)
+    items = rows * _ceil(width, 4) * (cp // 4) * split
     groups = 3 * (cp // 4) ** 2
+    conv = band_threads(height, width, channels, bands, split)
+    if conv + min(32 * _ceil(groups, 32), 256) > 512:
+        conv = 32 * _ceil(_ceil(items, _ceil(items, 256)), 32)
+    room = 512 - conv
     chunks = 1
-    while chunks < 32 and 2 * chunks <= rows and groups * 2 * chunks <= threads:
+    while (chunks < 32 and 2 * chunks <= rows
+           and 32 * _ceil(groups * 2 * chunks, 32) <= min(room, DK_FILL_THREADS)):
         chunks *= 2
-    items, warps = groups * chunks, threads // 32
+    return conv, min(32 * _ceil(groups * chunks, 32), room), chunks
+
+
+def dk_items(height: int, width: int, channels: int, bands: int, split: int = 2):
+    """(row chunks R, items, items a warp, rounds) of B2's dK pass on the dK
+    warps of a band block (`bwd_roles`): the items spread evenly over
+    those warps, whole chunk groups a warp (``weight_grads``)."""
+    _, threads, chunks = bwd_roles(height, width, channels, bands, split)
+    items = 3 * (_band_geometry(height, width, channels, bands)[0] // 4) ** 2 * chunks
+    warps = threads // 32
     per_warp = min(32, _ceil(_ceil(items, warps), chunks) * chunks)
     return chunks, items, per_warp, _ceil(items, warps * per_warp)
 
@@ -464,6 +496,7 @@ _SIGNATURES = {
         "deqres_euler_bwd": ([_PTR] * 11 + [_I32] * 7 + [_F32, _I32, _PTR], _I32),
         "deqres_euler_bwd_smem": ([_I32] * 4, ctypes.c_longlong),
         "deqres_euler_bwd_layout": ([_I32] * 4, _I32),
+        "deqres_euler_bwd_roles": ([_I32] * 5 + [_PTR], _I32),
         "deqres_euler_bwd_resident_images": ([_I32] * 6, _I32),
         "deqres_cuda_error_string": ([_I32], ctypes.c_char_p),
     },
@@ -498,6 +531,19 @@ def library_smem_bytes(height: int, width: int, channels: int, bands: int,
     compute, from the C side.  Builds the library."""
     name, short = _kernel(backward)
     return getattr(_library(name), f"deqres_euler_{short}_smem")(height, width, channels, bands)
+
+
+def library_bwd_roles(height: int, width: int, channels: int, bands: int,
+                      split: int) -> Tuple[int, int, int]:
+    """(conv threads, dK threads, row chunks) the built B2 library gives a
+    block of this shape: what `bwd_roles` computes, from the C side.
+    Builds the library."""
+    out = (ctypes.c_int * 3)()
+    err = _library("fused_euler_bwd").deqres_euler_bwd_roles(
+        height, width, channels, bands, split, ctypes.cast(out, ctypes.c_void_p))
+    if err:
+        raise ValueError(f"no band block at {height}x{width}x{channels} in {bands} bands")
+    return tuple(out)
 
 
 def wide_library_smem_bytes(channels: int) -> int:

@@ -1,8 +1,8 @@
 """The band kernels' schedule on the CPU: their reach (which shapes the band
 variants take, in how few bands), pinned against a table; each launch's
 threads, shared memory and band count; the split of a tile over threads;
-and B2's dK work items.  The kernels run on the card
-(tests/test_torch_cuda_kernels.py)."""
+and B2's two roles of warps, the conv warps and the dK warps with their
+work items.  The kernels run on the card (tests/test_torch_cuda_kernels.py)."""
 
 import pytest
 
@@ -62,47 +62,113 @@ def test_band_launches_fit(height, width, channels, fwd, bwd):
             assert 0 < plan["smem_bytes"] <= fi.SMEM_LIMIT_BYTES
             split = fi.kernel_split(height, width, channels, plan["bands"])
             assert split in (1, 2)
-            assert plan["threads"] == fi.band_threads(height, width, channels, plan["bands"], split)
+            threads = fi.band_threads(height, width, channels, plan["bands"], split)
+            if not backward:
+                assert plan["threads"] == threads
+                continue
+            # B2: the conv warps, then the dK warps beside them.
+            conv, dk, chunks = fi.bwd_roles(height, width, channels, plan["bands"], split)
+            assert plan["threads"] == conv + dk
+            assert (plan["conv_threads"], plan["dk_warps"], plan["row_chunks"]) == (
+                conv, dk // 32, chunks)
+            assert conv % 32 == 0 and dk % 32 == 0 and dk >= 32
+            assert conv == threads or conv <= 256
 
 
 @pytest.mark.parametrize("height,width,channels,fwd,bwd", REACH,
                          ids=[f"{h}x{w}x{c}" for h, w, c, _, _ in REACH])
 def test_dk_items_cover_the_band(height, width, channels, fwd, bwd):
-    """B2's dK pass at every band count it may run in: row chunks a power of
-    two <= 32 and <= the tallest band, items in whole chunk groups a warp,
-    every item run once, no round left empty."""
+    """B2's dK pass at every band count it may run in, on the dK warps: row
+    chunks a power of two <= 32 and <= the tallest band, items in whole
+    chunk groups a warp, every item run once on the dK warps (as
+    ``weight_grads`` hands them out), no round left empty, the block at most
+    512 threads."""
     if bwd is None:
         return
     for bands in (n for n in (1, 2, 4, 8, 16, 32) if bwd <= n <= height):
         padded, _, rows, _ = fi._band_geometry(height, width, channels, bands)
         for split in (1, 2):
-            threads = fi.band_threads(height, width, channels, bands, split)
+            conv, threads, _ = fi.bwd_roles(height, width, channels, bands, split)
+            assert conv + threads <= 512
             chunks, items, per_warp, rounds = fi.dk_items(height, width, channels, bands, split)
             assert chunks & (chunks - 1) == 0 and chunks <= min(32, rows)
             assert items == 3 * (padded // 4) ** 2 * chunks
             assert per_warp % chunks == 0 and per_warp <= 32
             warps = threads // 32
             assert rounds * warps * per_warp >= items > (rounds - 1) * warps * per_warp
-            if chunks > 1:  # the chunks fill the block
+            ran = [r + w * per_warp + lane for r in range(0, items, warps * per_warp)
+                   for w in range(warps) for lane in range(per_warp)
+                   if r + w * per_warp + lane < items]
+            assert sorted(ran) == list(range(items))
+            # A chunk group's lanes sit in one warp (its shuffles).
+            assert all((r + w * per_warp) % chunks == 0
+                       for r in range(0, items, warps * per_warp) for w in range(warps))
+            if chunks > 1:  # the chunks fill the dK warps
                 assert items <= threads
+
+
+def test_every_dk_lane_has_an_item_at_the_training_shape():
+    """Batch 32 at 32x32x16, 4 bands of 8 rows: 8 conv warps (256 threads,
+    one a 4x4 tile) and 3 dK warps, one a scheduler on three of the four,
+    whose 96 items (R = 2) fill every lane."""
+    assert fi.bwd_roles(32, 32, 16, 4, 1) == (256, 96, 2)
+    assert fi.dk_items(32, 32, 16, 4, 1) == (2, 96, 32, 1)
+    plan = fi.launch_plan((32, 32, 32, 16), backward=True)
+    assert (plan["threads"], plan["conv_threads"], plan["dk_warps"]) == (352, 256, 3)
+
+
+# B2's band counts at each shape of REACH and batch of BATCHES (None: the
+# wide variant), as they were before its reverse sweep ran in two roles:
+# the roles change no band count or variant.
+BWD_BANDS = {
+    (32, 32, 1): (32, 16, 4, 1), (32, 32, 3): (32, 16, 4, 1), (32, 32, 4): (32, 16, 4, 1),
+    (32, 32, 8): (32, 16, 4, 1), (32, 32, 13): (32, 16, 4, 2), (32, 32, 16): (32, 16, 4, 2),
+    (32, 32, 21): (32, 16, 4, 4), (32, 32, 22): (32, 16, 4, 4), (32, 32, 32): (32, 16, 4, 4),
+    (32, 32, 38): (32, 16, 8, 8), (32, 32, 39): (32, 16, 8, 8), (32, 32, 48): (32, 16, 8, 8),
+    (32, 32, 56): (32, 16, 16, 16), (32, 32, 57): None, (32, 32, 60): None, (32, 32, 64): None,
+    (32, 32, 65): None, (32, 32, 72): None, (32, 32, 100): None, (32, 32, 128): None,
+    (28, 28, 16): (16, 16, 4, 2), (28, 28, 64): None, (64, 64, 4): (32, 16, 4, 2),
+    (64, 64, 8): (32, 16, 4, 4), (64, 64, 16): (32, 16, 8, 8), (64, 64, 32): (32, 16, 16, 16),
+    (64, 64, 48): None, (48, 48, 8): (32, 16, 4, 2), (64, 40, 4): (32, 16, 4, 1),
+    (16, 16, 6): (16, 16, 4, 1), (16, 16, 64): (16, 16, 8, 8), (13, 9, 8): (8, 8, 4, 1),
+    (9, 7, 8): (8, 8, 4, 1), (3, 5, 6): (2, 2, 2, 1), (1, 1, 76): (1, 1, 1, 1),
+    (1, 1, 100): None, (8, 8, 128): None, (8, 8, 96): None, (1, 4096, 1): None,
+    (2, 825, 1): (2, 2, 2, 1), (4, 1024, 1): (4, 4, 4, 4), (4096, 1, 8): None,
+    (7, 9, 40): (4, 4, 4, 1), (81, 45, 32): (32, 16, 16, 16), (3, 85, 36): (2, 2, 2, 2),
+    (1, 88, 44): (1, 1, 1, 1), (5, 124, 28): (4, 4, 4, 4), (129, 23, 40): (32, 16, 16, 16),
+    (1, 325, 16): (1, 1, 1, 1),
+}
+
+
+@pytest.mark.parametrize("height,width,channels,fwd,bwd", REACH,
+                         ids=[f"{h}x{w}x{c}" for h, w, c, _, _ in REACH])
+def test_backward_bands_and_variant_are_pinned(height, width, channels, fwd, bwd):
+    """B2's variant and band count at every batch, as `BWD_BANDS` has them."""
+    want = BWD_BANDS[(height, width, channels)]
+    for i, batch in enumerate(BATCHES):
+        shape = (batch, height, width, channels)
+        assert fi.kernel_variant(shape, backward=True) == ("wide" if want is None else "band")
+        assert fi.kernel_bands(shape, backward=True) == (None if want is None else want[i])
+        if want is not None:
+            assert fi.launch_plan(shape, backward=True)["bands"] == want[i]
 
 
 def test_band_plan_and_split_at_the_main_shapes():
     """One block an SM: batch 32 in 4 bands of 8 rows, one thread a 4x4
     tile; batch 1 in 32 bands of one row, two threads a tile (a tile's
-    inputs in two halves)."""
+    inputs in two halves); B2's block adds its dK warps."""
     for backward in (False, True):
         assert fi.kernel_bands((32, 32, 32, 16), backward) == 4
         assert fi.kernel_split(32, 32, 16, 4) == 1
-        assert fi.launch_plan((32, 32, 32, 16), backward)["threads"] == 256
+        assert fi.launch_plan((32, 32, 32, 16), backward)["threads"] == (352 if backward else 256)
         assert fi.kernel_bands((1, 32, 32, 16), backward) == 32
         assert fi.kernel_split(32, 32, 16, 32) == 2
-        assert fi.launch_plan((1, 32, 32, 16), backward)["threads"] == 64
+        assert fi.launch_plan((1, 32, 32, 16), backward)["threads"] == (128 if backward else 64)
         assert fi.kernel_bands((32, 28, 28, 16), backward) == 4      # MNIST: 7 rows a band
         assert fi.kernel_split(28, 28, 16, 4) == 1
         assert fi.kernel_bands((32, 32, 32, 8), backward) == 4
         assert fi.kernel_split(32, 32, 8, 4) == 1
-        assert fi.launch_plan((32, 32, 32, 8), backward)["threads"] == 128
+        assert fi.launch_plan((32, 32, 32, 8), backward)["threads"] == (224 if backward else 128)
     # B2's layout at the training shape: y_l and K^T double buffered.
     assert fi.bwd_layout(32, 32, 16, 4)[1] == (2, 2, 2)
 

@@ -170,7 +170,7 @@ def test_band_edges_on_cuda(card, shape):
 def test_library_shared_memory_matches_the_gate(card, shape):
     """The C side asks for the shared memory the Python gate counts, at every
     band count, and refuses exactly what the gate refuses; B2 takes the
-    layout `bwd_layout` names."""
+    layout `bwd_layout` names and the roles `bwd_roles` names."""
     height, width, channels = shape
     for backward, formula in ((False, fi.state_smem_bytes), (True, fi.bwd_smem_bytes)):
         for bands in range(1, min(fi.PLAN_BANDS, height) + 1):
@@ -182,6 +182,9 @@ def test_library_shared_memory_matches_the_gate(card, shape):
         need, (nkb, ny, nk) = fi.bwd_layout(height, width, channels, bands)
         want = nkb + 4 * ny + 16 * nk if need <= fi.SMEM_LIMIT_BYTES else -1
         assert lib.deqres_euler_bwd_layout(height, width, channels, bands) == want, bands
+        for split in (1, 2):
+            assert fi.library_bwd_roles(height, width, channels, bands, split) == fi.bwd_roles(
+                height, width, channels, bands, split), (bands, split)
 
 
 # Shapes at the edges of the band schedule (batch, H, W, C, L, bands or None
@@ -241,6 +244,65 @@ def test_band_schedule_edges_on_cuda(card, shape):
             assert norm_rel(a, j) <= 2 * norm_rel(w, j) + 1e-5, (dtype, name)
         again = fi._launch_bwd(x, kernels, bias, g, 0.125, dtype, bands)
         assert all(torch.equal(a, b) for a, b in zip(got, again)), dtype
+
+
+# B2's two roles of warps (batch, H, W, C, L, bands or None for the plan's):
+# every dK lane an item, the conv warps' work items in several rounds, the
+# dK items in several rounds, one row a band, and a last column group
+# short of 4 pixels (the dK pass's tail).
+ROLE_CASES = {
+    "32x32x16 in 4 bands: every dK lane an item": (2, 32, 32, 16, 5, 4),
+    "batch 1 in 32 bands of one row, two threads a tile": (1, 32, 32, 16, 5, None),
+    "81x45x32 in 16 bands: conv items in 3 rounds": (2, 81, 45, 32, 4, 16),
+    "64x40x4 in 1 band: one y_l buffer, R = 32": (2, 64, 40, 4, 4, 1),
+    "C=56 in 32 bands: dK items in 3 rounds": (1, 32, 32, 56, 4, None),
+    "W=13 (a tail of 1 pixel), 8 bands": (2, 32, 13, 16, 5, 8),
+    "W=30 (a tail of 2 pixels), 4 bands": (3, 30, 30, 8, 5, 4),
+}
+
+
+@pytest.mark.parametrize("shape", ROLE_CASES.values(), ids=ROLE_CASES.keys())
+def test_backward_roles_match_plain_version_on_cuda(card, shape):
+    """B2, whose reverse sweep runs in conv warps and dK warps, against its
+    plain version judged by float64 (as `test_band_edges_on_cuda`), fp32
+    and bf16 operands, bit-identical across two calls; each launch counted."""
+    batch, height, width, channels, layers, bands = shape
+    x, kernels, bias, g = case(batch, height, width, channels, layers, seed=19)
+    for dtype in (torch.float32, torch.bfloat16):
+        before = fi.fused_euler_dense_bwd.launches
+        got = fi._launch_bwd(x, kernels, bias, g, 0.125, dtype, bands)
+        assert fi.fused_euler_dense_bwd.launches - before >= 1
+        want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
+        judge = fi.reference_euler_dense_bwd(*[t.double() for t in (x, kernels, bias, g)],
+                                             0.125, dtype)
+        for name, a, w, j in zip(("gx", "gk", "gb"), got, want, judge):
+            assert norm_rel(a, j) <= 2 * norm_rel(w, j) + 1e-5, (dtype, name)
+        again = fi._launch_bwd(x, kernels, bias, g, 0.125, dtype, bands)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), dtype
+
+
+def test_replayed_training_step_takes_the_specialised_b2(card):
+    """At the training shape (batch 32, 32x32x16, 4 bands) every B2 launch
+    of a replayed step is a band launch, whose reverse sweep runs in conv
+    warps and dK warps: the counters count the replays' launches, none of
+    them wide."""
+    from differential_equations_resnet_tpu_torch.models import cifar10_single_block_config
+    from differential_equations_resnet_tpu_torch.train import make_adam, make_multi_step
+
+    plan = fi.launch_plan((32, 32, 32, 16), backward=True)
+    assert (plan["variant"], plan["conv_threads"], plan["dk_warps"]) == ("band", 256, 3)
+    model = _card_model(cifar10_single_block_config(num_layers=2, num_filters=16))
+    multi = make_multi_step(model, make_adam(model.parameters()))
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.uniform(0, 255, (2, 32, 32, 32, 3)).astype(np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 10, (2, 32))).cuda()
+    multi(images, labels, [1e-3] * 2)  # the warm-up calls and the capture
+    torch.cuda.synchronize()
+    counters = (fi.fused_euler_dense_bwd, fi.WIDE_BWD)
+    before = [c.launches for c in counters]
+    multi(images, labels, [1e-3] * 2)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 0]
 
 
 def test_band_kernels_on_two_streams_at_once(card):

@@ -13,7 +13,11 @@ the main shapes:
 For each kernel and shape it prints the uninstrumented and the
 instrumented time (CUDA events), and each phase's cycles per layer and
 warp: the counters' sums over every warp (lane 0's clock), divided by the
-warps and the layers.  A warp's cycles in a phase include the cycles its
+warps and the layers.  B2's reverse sweep runs in two roles of warps, so
+its phases are each role's, over that role's warps: ``conv_*`` (K^T wait,
+halo wait, the K^T conv, the halves' combine, the wait for the dK warps to
+free a g_z buffer, the epilogue, the layer's end barrier) and ``dk_*``
+(the wait for g_z, the wait for y_l, dK, the dK warps' barrier).  A warp's cycles in a phase include the cycles its
 scheduler spent on other warps, so the phases add up to the layer's wall
 time, not to issue slots.  ``eff_clock_GHz`` (a warp's cycles over the
 kernel's time) falls below the SM clock where warps live shorter than the
@@ -54,15 +58,30 @@ PROF_DECL = (
     "__device__ __forceinline__ void record_smid() { if (threadIdx.x == 0) { unsigned s; "
     "asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(s)); deqres_smid[blockIdx.x] = s + 1; } }\n")
 
-# Phase names of each counter slot: B1, B2's forward recompute (slots 0-11)
-# and reverse sweep (slots 16-27); the slots of B1's and B2's totals.
+# Phase names of each counter slot: B1, B2's forward recompute (slots 0-11),
+# its reverse sweep's conv warps (16-27) and dK warps (32-43); slots 60 and
+# 61 count the conv and dK warps, 63 every warp; B1's and B2's totals.
 PHASES = {
     "fwd": ["conv", "combine", "epilogue", "kwait", "halo_wait", "publish", "loop", "total"],
     "bwd_fwd": ["conv", "combine", "epilogue", "kwait", "halo_wait", "publish", "fwd_total"],
-    "bwd_rev": ["ywait", "dK", "ktwait", "halo_wait", "KT_conv", "combine",
-                "conv+epi+halo", "publish", "rev_total", "total"],
+    "bwd_conv": {0: "kt_wait", 1: "halo_wait", 2: "KT_conv", 3: "combine", 4: "free_wait",
+                 5: "epilogue", 6: "end_barrier", 10: "rev_total", 11: "total"},
+    "bwd_dk": {0: "ready_wait", 1: "y_wait", 2: "dK", 3: "dk_barrier", 10: "rev_total",
+               11: "total"},
 }
-FWD_TOTAL, BWD_TOTAL = 7, 25
+FWD_TOTAL, BWD_TOTAL = 7, 27
+CONV_SLOTS, DK_SLOTS, CONV_WARPS, DK_WARPS = 16, 32, 60, 61
+
+BWD_FLUSH = (
+    "  if ((threadIdx.x & 31) == 0) {\n"
+    "    const int base = static_cast<int>(threadIdx.x) < roles.conv ? 16 : 32;\n"
+    "    for (int i = 0; i < 12; ++i) {\n"
+    "      atomicAdd(&deqres_prof[i], (unsigned long long)pt[i]);\n"
+    "      atomicAdd(&deqres_prof[base + i], (unsigned long long)rt[i]);\n"
+    "    }\n"
+    "    atomicAdd(&deqres_prof[63], 1ull);\n"
+    "    atomicAdd(&deqres_prof[base == 16 ? 60 : 61], 1ull);\n"
+    "  }\n")
 
 
 def patch(src: Path, out: Path, name: str, pairs) -> None:
@@ -106,19 +125,34 @@ def patch_sources(src: Path, out: Path) -> None:
          "      long long h0 = clock64();\n      if (l > 0 && b.n > 1) take_halos(e, b, image, rank, rows, l - 1, cur);\n      pt[4] += clock64() - h0;\n      layer_items<BF16, CP, S, true>(b, rows, cur, nxt, first, last, Ks, h, mask_words(l), pt);\n      long long p0 = clock64();"),
         ("        __syncthreads();\n      }\n    }\n    if (issuer) {\n      bulk_wait_all();",
          "        __syncthreads();\n      }\n      pt[5] += clock64() - p0;\n    }\n    pt[6] += clock64() - tstart;\n    if (issuer) {\n      bulk_wait_all();"),
-        ("  for (int l = L - 1; l >= 0; --l) {", "  const long long trev = clock64();\n  for (int l = L - 1; l >= 0; --l) {\n    long long r0 = clock64();"),
-        ("    mbar_wait(bars + kYBar + ys, phases, kYBar + ys);", "    mbar_wait(bars + kYBar + ys, phases, kYBar + ys);\n    long long r1 = clock64(); rt[0] += r1 - r0;"),
-        ("                     gk + (static_cast<size_t>(blockIdx.x) * L + l) * layer);", "                     gk + (static_cast<size_t>(blockIdx.x) * L + l) * layer);\n    long long r2 = clock64(); rt[1] += r2 - r1;"),
-        ("    mbar_wait(bars + kTBar + ks, phases, kTBar + ks);", "    mbar_wait(bars + kTBar + ks, phases, kTBar + ks);\n    long long r3 = clock64(); rt[2] += r3 - r2;"),
-        ("    if (b.n > 1) take_halos(e, b, image, rank, rows, step - 1, Gz);",
-         "    long long q0 = clock64();\n    if (b.n > 1) take_halos(e, b, image, rank, rows, step - 1, Gz);\n    rt[3] += clock64() - q0;"),
-        ("      if (active) conv_half<BF16, CP, S>(Gz, b, t, Kt, acc);\n      float d[4][4];\n      combine_halves<S>(acc, t.s, d);",
-         "      long long c0 = clock64();\n      if (active) conv_half<BF16, CP, S>(Gz, b, t, Kt, acc);\n      long long c1 = clock64(); rt[4] += c1 - c0;\n      float d[4][4];\n      combine_halves<S>(acc, t.s, d);\n      rt[5] += clock64() - c1;"),
-        ("    // g_z of layer l - 1 is written and its edge rows are out;", "    long long r6 = clock64(); rt[6] += r6 - r3;\n    // g_z of layer l - 1 is written and its edge rows are out;"),
-        ("      publish_step(e, blockIdx.x, step);\n    } else {\n      __syncthreads();\n    }\n  }",
-         "      publish_step(e, blockIdx.x, step);\n    } else {\n      __syncthreads();\n    }\n    rt[7] += clock64() - r6;\n  }\n  rt[8] += clock64() - trev;"),
+        ("  if (static_cast<int>(threadIdx.x) < roles.conv) {\n    // Conv warps:",
+         "  const long long trev = clock64();\n  if (static_cast<int>(threadIdx.x) < roles.conv) {\n    // Conv warps:"),
+        ("      mbar_wait(bars + kTBar + ks, phases, kTBar + ks);",
+         "      long long k0 = clock64();\n      mbar_wait(bars + kTBar + ks, phases, kTBar + ks);\n      rt[0] += clock64() - k0;"),
+        ("      if (b.n > 1) {\n        copy_halos(e, b, image, rank, rows, step - 1, Gz);\n        bar_sync(kConvBar, roles.conv);\n      }",
+         "      long long q0 = clock64();\n      if (b.n > 1) {\n        copy_halos(e, b, image, rank, rows, step - 1, Gz);\n        bar_sync(kConvBar, roles.conv);\n      }\n      rt[1] += clock64() - q0;"),
+        ("        if (active) conv_half<BF16, CP, S>(Gz, b, t, Kt, acc);\n        float d[4][4];\n        combine_halves<S>(acc, t.s, d);",
+         "        long long c0 = clock64();\n        if (active) conv_half<BF16, CP, S>(Gz, b, t, Kt, acc);\n        long long c1 = clock64(); rt[2] += c1 - c0;\n        float d[4][4];\n        combine_halves<S>(acc, t.s, d);\n        long long c2 = clock64(); rt[3] += c2 - c1;"),
+        ("        if (base == 0 && l > 0 && l + 1 < L) bar_sync(kFreeBar + ((l + 1) & 1), both);",
+         "        if (base == 0 && l > 0 && l + 1 < L) bar_sync(kFreeBar + ((l + 1) & 1), both);\n        long long e0 = clock64(); rt[4] += e0 - c2;"),
+        ("          if (l > 0) store_gz(b, rows, t, q, kk, g, bits, h, Gn, first, last);\n        }\n      }\n",
+         "          if (l > 0) store_gz(b, rows, t, q, kk, g, bits, h, Gn, first, last);\n        }\n        rt[5] += clock64() - e0;\n      }\n"),
+        ("      if (l > 0) bar_arrive(kReadyBar + ((l - 1) & 1), both);",
+         "      long long z0 = clock64();\n      if (l > 0) bar_arrive(kReadyBar + ((l - 1) & 1), both);"),
+        ("store_release(e.steps + blockIdx.x, step + 1u);\n    }\n  } else {",
+         "store_release(e.steps + blockIdx.x, step + 1u);\n      rt[6] += clock64() - z0;\n    }\n    rt[10] += clock64() - trev;\n  } else {"),
+        ("      if (l < L - 1) bar_sync(kReadyBar + (l & 1), both);",
+         "      long long d0 = clock64();\n      if (l < L - 1) bar_sync(kReadyBar + (l & 1), both);\n      long long d1 = clock64(); rt[0] += d1 - d0;"),
+        ("      mbar_wait(bars + kYBar + ys, phases, kYBar + ys);",
+         "      mbar_wait(bars + kYBar + ys, phases, kYBar + ys);\n      long long d2 = clock64(); rt[1] += d2 - d1;"),
+        ("                       gk + (static_cast<size_t>(blockIdx.x) * L + l) * layer, tid, roles.dk);",
+         "                       gk + (static_cast<size_t>(blockIdx.x) * L + l) * layer, tid, roles.dk);\n      long long d3 = clock64(); rt[2] += d3 - d2;"),
+        ("      bar_sync(kDkBar, roles.dk);  // every read of y_l is done",
+         "      bar_sync(kDkBar, roles.dk);  // every read of y_l is done\n      rt[3] += clock64() - d3;"),
+        ("      if (loader && lay.ny == 1 && l > 0) issue_y(l - 1);\n    }\n  }\n  __syncthreads();",
+         "      if (loader && lay.ny == 1 && l > 0) issue_y(l - 1);\n    }\n    rt[10] += clock64() - trev;\n  }\n  __syncthreads();"),
         ("    gx[img + (static_cast<size_t>(start) * W + p) * b.C + c] = gs[p * Cp + c];\n  }\n}",
-         "    gx[img + (static_cast<size_t>(start) * W + p) * b.C + c] = gs[p * Cp + c];\n  }\n  rt[9] += clock64() - tstart;\n  prof_flush(pt, 0);\n  prof_flush(rt, 16);\n}"),
+         "    gx[img + (static_cast<size_t>(start) * W + p) * b.C + c] = gs[p * Cp + c];\n  }\n  rt[11] += clock64() - tstart;\n" + BWD_FLUSH + "}"),
         ('extern "C" {', 'extern "C" {\n' + READ),
     ])
 
@@ -182,12 +216,15 @@ def main() -> int:
             sm = (ctypes.c_uint * 8192)()
             assert lib.deqres_smid_read(ctypes.cast(sm, ctypes.c_void_p)) == 0
             v = list(counters)
-            warps = v[63] // (2 if backward else 1)
+            warps = v[63]
             if backward:
                 cycles = {n: v[i] / warps / layers for i, n in enumerate(phases["bwd_fwd"])}
-                cycles.update({"rev_" + n: v[16 + i] / warps / layers
-                               for i, n in enumerate(phases["bwd_rev"])})
-                total = v[bwd_total] / warps
+                for role, slots, count in (("conv", CONV_SLOTS, v[CONV_WARPS]),
+                                           ("dk", DK_SLOTS, v[DK_WARPS])):
+                    cycles.update({f"{role}_{n}": v[slots + i] / count / layers
+                                   for i, n in phases[f"bwd_{role}"].items()})
+                    cycles[f"{role}_warps"] = count
+                total = v[bwd_total] / v[CONV_WARPS]
             else:
                 cycles = {n: v[i] / warps / layers for i, n in enumerate(phases["fwd"])}
                 total = v[fwd_total] / warps
