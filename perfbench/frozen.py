@@ -4,6 +4,8 @@ Each function copies one of the port's as it stood when the benchmark was
 written (``perfbench/tests/test_frozen.py`` holds each against the port's
 current one at small sizes):
 
+- the single-block model's stage plan (`differential_equations_resnet_tpu_
+  torch.models.single_block_resnet.stage_plans`);
 - the nominal model FLOPs (`differential_equations_resnet_tpu_torch.utils.
   flops`), here from a configuration file's ``model`` dict;
 - the H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W);
@@ -18,7 +20,7 @@ current one at small sizes):
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, NamedTuple, Tuple
 
 import torch
 
@@ -31,25 +33,83 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+class StagePlan(NamedTuple):
+    pool: bool
+    has_conv_block: bool
+    num_identity: int
+    filters: int
+    strides: Tuple[int, int]
+    in_channels: int
+
+
+def stage_plans(model: dict) -> Tuple[StagePlan, ...]:
+    """Each stage of a single-block model: whether it opens with a strided
+    or widening conv block, and how many identity blocks follow."""
+    plans = []
+    channels = model["filters_per_block"][0]
+    for s in range(model["num_stages"] - 1):
+        pool = bool(model["use_max_pooling"][s])
+        filters = model["filters_per_block"][s]
+        strides = tuple(model["strides"][s])
+        identity_only = ((s == 0) and not pool) or (
+            not pool
+            and model["filters_per_block"][s] == model["filters_per_block"][s - 1]
+            and strides == (1, 1)
+        )
+        if identity_only:
+            plans.append(StagePlan(pool, False, model["blocks_per_stage"][s], channels, strides,
+                                   channels))
+        else:
+            plans.append(StagePlan(pool, True, model["blocks_per_stage"][s] - 1, filters, strides,
+                                   channels))
+            channels = filters
+    return tuple(plans)
+
+
 def single_block_forward_flops(model: dict, batch: int) -> int:
-    """Nominal forward FLOPs of a single-block ODE-ResNet whose stages are
-    identity stacks after the stem (the configurations this benchmark runs:
-    one stage, stride 1, no pooling): 2 * rows * k*k*Cin*Cout a conv, the
-    head's dense layer; elementwise work left out."""
+    """Nominal forward FLOPs of a single-block ODE-ResNet, walking its stage
+    plan: 2 * rows * k*k*Cin*Cout a conv (a conv block's kxk main conv and
+    1x1 shortcut), the head's dense layer; elementwise work left out."""
     height, width, c_in = model["image_shape"]
     k = model["kernel_size"]
     sh, sw = model["strides"][0]
     height, width = _ceil_div(height, sh), _ceil_div(width, sw)
     channels = model["filters_per_block"][0]
     flops = 2 * batch * height * width * k * k * c_in * channels
-    if model["num_stages"] != 2 or any(model["use_max_pooling"]):
-        raise ValueError("the frozen count covers one identity stage without pooling")
-    evals = {"euler": 1, "midpoint": 2, "rk4": 4}[model["integrator"]]
-    flops += model["blocks_per_stage"][0] * evals * 2 * batch * height * width * k * k \
-        * channels * channels
+
+    field_evals = {"euler": 1, "midpoint": 2, "rk4": 4}[model["integrator"]]
+    for plan in stage_plans(model):
+        if plan.pool:
+            height, width = height // 2, width // 2
+        if plan.has_conv_block:
+            psh, psw = plan.strides
+            height, width = _ceil_div(height, psh), _ceil_div(width, psw)
+            rows = batch * height * width
+            flops += 2 * rows * (k * k + 1) * plan.in_channels * plan.filters
+            channels = plan.filters
+        rows = batch * height * width
+        flops += plan.num_identity * field_evals * 2 * rows * k * k * channels * channels
     if model["include_top"]:
         flops += 2 * batch * channels * model["num_classes"]
     return int(flops)
+
+
+def identity_stacks(model: dict) -> List[Tuple[int, int, int, int]]:
+    """(H, W, C, L) of each stage's identity stack of a single-block model,
+    in stage order: the shapes B1 and B2 run."""
+    height, width, _ = model["image_shape"]
+    sh, sw = model["strides"][0]
+    height, width = _ceil_div(height, sh), _ceil_div(width, sw)
+    stacks = []
+    for plan in stage_plans(model):
+        if plan.pool:
+            height, width = height // 2, width // 2
+        if plan.has_conv_block:
+            psh, psw = plan.strides
+            height, width = _ceil_div(height, psh), _ceil_div(width, psw)
+        if plan.num_identity:
+            stacks.append((height, width, plan.filters, plan.num_identity))
+    return stacks
 
 
 def bottleneck_forward_flops(model: dict, batch: int) -> int:

@@ -18,6 +18,10 @@ the control, TF32 on.
   less ``subtract_mean`` over ``divide_by_stddev``, a 3x3 stem conv with
   bias and relu, L forward-Euler layers ``y + h * relu(conv3x3(y, K_l) +
   b_l)`` with antisymmetric K_l, global average pooling, a dense head.
+  With more than one stage (He et al.'s CIFAR layout, arXiv:1512.03385
+  section 4.2), each later stage opens with a conv block ``relu(conv_kxk(y,
+  stride)) + conv_1x1(y, stride)``, each conv with bias, before its Euler
+  layers.
 - ResNet-50 v1 (He et al., arXiv:1512.03385) with antisymmetric 3x3
   mid-convs: zero pad 3, 7x7/2 VALID conv, batch norm, relu, zero pad 1,
   3x3/2 max pool; bottleneck blocks 1x1 (strided in v1), 3x3, 1x1, each
@@ -147,23 +151,48 @@ def head(p: Params, y: torch.Tensor) -> torch.Tensor:
 # -- the single-block ODE-ResNet ------------------------------------------------
 
 def check_single_block(model: dict) -> None:
-    wanted = dict(kernel_type="antisymmetric", kernel_size=3, num_stages=2, integrator="euler",
+    wanted = dict(kernel_type="antisymmetric", kernel_size=3, integrator="euler",
                   use_batch_norm=False, include_top=True)
     for key, value in wanted.items():
         if model[key] != value:
             raise NotImplementedError(f"the reference runs {key}={value!r}, not {model[key]!r}")
-    if list(model["strides"][0]) != [1, 1] or any(model["use_max_pooling"]):
-        raise NotImplementedError("the reference runs one stride-1 stage without pooling")
+    if model["num_stages"] < 2 or list(model["strides"][0]) != [1, 1] or \
+            any(model["use_max_pooling"][:model["num_stages"] - 1]):
+        raise NotImplementedError("the reference runs a stride-1 first stage and no pooling")
+    if any(sh != sw for sh, sw in (plan.strides for plan in frozen.stage_plans(model))):
+        raise NotImplementedError("the reference runs square strides")
 
 
 def single_block_logits(p: Params, state: Params, images, model: dict, train: bool):
     check_single_block(model)
+    if model["num_stages"] > 2:
+        return _multi_stage_logits(p, state, images, model)
     y = torch.relu(conv(normalize(images, model), p["stem__kernel"], p["stem__bias"]))
     s = "stages__0__blocks__"
     kernels = antisym_from_packed(*(p[s + f] for f in "abcd"), p[s + "cross"], model["gamma"])
     h = float(model["h"])
     for layer in range(kernels.shape[0]):
         y = y + h * torch.relu(conv(y, kernels[layer], p[s + "bias"][layer]))
+    return head(p, y), state
+
+
+def _multi_stage_logits(p: Params, state: Params, images, model: dict):
+    """The single-block model of more than one stage: after the stem, each
+    stage's conv block (where its plan has one), then its Euler layers."""
+    y = torch.relu(conv(normalize(images, model), p["stem__kernel"], p["stem__bias"]))
+    h = float(model["h"])
+    for stage, plan in enumerate(frozen.stage_plans(model)):
+        s = f"stages__{stage}__"
+        if plan.has_conv_block:
+            stride = plan.strides[0]
+            y = torch.relu(conv(y, p[s + "conv_main__kernel"], p[s + "conv_main__bias"], stride)) \
+                + conv(y, p[s + "conv_shortcut__kernel"], p[s + "conv_shortcut__bias"], stride)
+        if plan.num_identity:
+            s += "blocks__"
+            kernels = antisym_from_packed(*(p[s + f] for f in "abcd"), p[s + "cross"],
+                                          model["gamma"])
+            for layer in range(kernels.shape[0]):
+                y = y + h * torch.relu(conv(y, kernels[layer], p[s + "bias"][layer]))
     return head(p, y), state
 
 
@@ -257,8 +286,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def _mean_norm_row(family: str, model: dict, g: Params) -> List[float]:
     """The per-layer gradient mean norms the port logs: the stem kernel's
     norm over its size, then each antisymmetric 3x3 kernel's norm over its
-    free degrees of freedom 4C + 9C(C-1)/2, in layer order."""
-    row = [torch.linalg.vector_norm(g["stem__kernel"]) / g["stem__kernel"].numel()]
+    free degrees of freedom 4C + 9C(C-1)/2, in layer order; a single-block
+    stage's conv block gives its main kernel's norm over its size before
+    the stage's stack."""
+    def mean_norm(name):
+        return torch.linalg.vector_norm(g[name]) / g[name].numel()
+
+    row = [mean_norm("stem__kernel")]
 
     def antisym(prefix, stacked):
         leaves = [g[prefix + f] for f in ("a", "b", "c", "d", "cross")]
@@ -269,7 +303,11 @@ def _mean_norm_row(family: str, model: dict, g: Params) -> List[float]:
         return (torch.sqrt(sq) / free).reshape(-1)
 
     if family == "single_block":
-        row.append(antisym("stages__0__blocks__", True))
+        for stage, plan in enumerate(frozen.stage_plans(model)):
+            if plan.has_conv_block:
+                row.append(mean_norm(f"stages__{stage}__conv_main__kernel"))
+            if plan.num_identity:
+                row.append(antisym(f"stages__{stage}__blocks__", True))
     else:
         for stage, blocks in enumerate(model["blocks_per_stage"]):
             row.append(antisym(f"stages__{stage}__conv_block__conv2__", False))

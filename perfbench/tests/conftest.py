@@ -21,12 +21,26 @@ TINY_MODEL = {
                                           [8, None, 16]]),
 }
 
+# A single-block model of three stages (He et al.'s CIFAR layout, cut): an
+# identity stack, then two stages that each open with a strided conv block.
+TINY_MULTI_STAGE = dict(image_shape=[8, 8, 3], num_stages=4, blocks_per_stage=[2, 2, 2],
+                        filters_per_block=[4, 8, 16], strides=[[1, 1], [2, 2], [2, 2]], h=0.5)
 
-def tiny_cell(bench, name):
-    """(cell, config, traffic) of ``name`` at the CPU's size."""
+
+def train_cases(cells):
+    """pytest params (cell, model update) of each training cell, and of the
+    multi-stage model under the first cell's traffic and limits."""
+    return [pytest.param(name, None, id=name) for name in cells] + [
+        pytest.param(cells[0], TINY_MULTI_STAGE, id="multi-stage")]
+
+
+def tiny_cell(bench, name, model=None):
+    """(cell, config, traffic) of ``name`` at the CPU's size, its model
+    further updated by ``model``."""
     cell = bench.cell(name)
     config, traffic = bench.config(cell["config"]), bench.traffic(cell["traffic"])
     config["model"].update(TINY_MODEL[config["family"]])
+    config["model"].update(model or {})
     config["train_images"] = 32
     config["train"]["batch_size"] = 8
     config["data"]["serve_pool"] = 40
@@ -58,12 +72,13 @@ def bench():
 
 @pytest.fixture
 def run_tiny(bench):
-    """``run_tiny(cell name, trace=False) -> result line``, on the CPU with
-    the cell's own limits; the harness's look for a card is skipped."""
+    """``run_tiny(cell name, trace=False, model=None) -> result line``, on
+    the CPU with the cell's own limits, the model updated by ``model``; the
+    harness's look for a card is skipped."""
     from perfbench import run
 
-    def go(name, trace=False, seed=4_000_000_017, seconds=0.2):
-        cell, config, traffic = tiny_cell(bench, name)
+    def go(name, trace=False, seed=4_000_000_017, seconds=0.2, model=None):
+        cell, config, traffic = tiny_cell(bench, name, model)
         return run.execute(bench, cell, seed, seconds, trace, "cpu", time.perf_counter(),
                            config=config, traffic=traffic)
 

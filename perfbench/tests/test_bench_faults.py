@@ -8,8 +8,11 @@ import torch
 from differential_equations_resnet_tpu_torch.train import train_step
 from differential_equations_resnet_tpu_torch.utils import serving
 
+from conftest import train_cases
+
 TRAIN_CELLS = ["sb-antisym-64x16.train-resident", "resnet50-224.train-resident",
                "sb-antisym-64x16.train-stream"]
+TRAIN_CASES = train_cases(TRAIN_CELLS)
 
 
 @pytest.mark.parametrize("name", TRAIN_CELLS)
@@ -25,8 +28,8 @@ def test_a_step_that_leaves_its_state_unchanged_fails(run_tiny, monkeypatch, nam
     assert result["checks"]["change"]["value"] == pytest.approx(1.0)
 
 
-@pytest.mark.parametrize("name", TRAIN_CELLS)
-def test_half_the_batch_left_out_fails(run_tiny, monkeypatch, name):
+@pytest.mark.parametrize("name,model", TRAIN_CASES)
+def test_half_the_batch_left_out_fails(run_tiny, monkeypatch, name, model):
     whole = train_step.cross_entropy_from_logits
 
     def half(logits, labels):
@@ -34,7 +37,7 @@ def test_half_the_batch_left_out_fails(run_tiny, monkeypatch, name):
         return whole(logits[:n], labels[:n])
 
     monkeypatch.setattr(train_step, "cross_entropy_from_logits", half)
-    assert not run_tiny(name)["correct"]
+    assert not run_tiny(name, model=model)["correct"]
 
 
 def test_an_altered_answer_fails(run_tiny, monkeypatch):

@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import frozen, reference, trace
+from perfbench import frozen, fused, reference, trace
+from perfbench.program import MetricContext
 from differential_equations_resnet_tpu_torch.data.jit_augment import standard_cifar_augment
 from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     dense_from_packed,
@@ -17,20 +18,47 @@ from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     materialize_3x3_from_dense,
     materialize_3x3_stacked,
 )
-from differential_equations_resnet_tpu_torch.models.single_block_resnet import stack_trees
+from differential_equations_resnet_tpu_torch.models.single_block_resnet import (
+    stack_trees,
+    stage_plans,
+)
 from differential_equations_resnet_tpu_torch.train import training
 from differential_equations_resnet_tpu_torch.utils import flops as port_flops
 from differential_equations_resnet_tpu_torch.utils.serving import config_from_json
 
+from conftest import TINY_MULTI_STAGE
+
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
+HEADLINE = json.loads((CONFIGS / "sb-antisym-64x16-cifar10.json").read_text())
 
 
-@pytest.mark.parametrize("name", sorted(p.name for p in CONFIGS.glob("*.json")))
+def _multi_stage():
+    """The headline configuration with the multi-stage model."""
+    config = json.loads(json.dumps(HEADLINE))
+    config["model"].update(TINY_MULTI_STAGE)
+    return config
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in CONFIGS.glob("*.json")) + ["multi-stage"])
 @pytest.mark.parametrize("batch", [1, 32])
 def test_train_flops_match_the_port(name, batch):
-    config = json.loads((CONFIGS / name).read_text())
+    config = _multi_stage() if name == "multi-stage" else json.loads((CONFIGS / name).read_text())
     port = port_flops.train_flops(config_from_json(config["model"], config["family"]), batch)
     assert frozen.train_flops(config["family"], config["model"], batch) == port
+
+
+@pytest.mark.parametrize("model", [{}, TINY_MULTI_STAGE, dict(
+    TINY_MULTI_STAGE, num_stages=5, blocks_per_stage=[2, 3, 1, 2], filters_per_block=[4, 4, 8, 8],
+    strides=[[1, 1], [1, 1], [2, 2], [1, 1]], use_max_pooling=[False, True, False, False])])
+def test_stage_plans_match_the_port(model):
+    """The headline's one stage, the multi-stage model, and one with an
+    identity-only later stage, a pooled stage and a stage of one block."""
+    config = _multi_stage() if model else HEADLINE
+    config["model"].update(model)
+    port = stage_plans(config_from_json(config["model"], config["family"]))
+    assert [tuple(plan) for plan in frozen.stage_plans(config["model"])] == [
+        (p.pool, p.has_conv_block, p.num_identity, p.filters, tuple(p.strides), p.in_channels)
+        for p in port]
 
 
 @pytest.mark.parametrize("shape", [(32, 32, 32, 16, 64), (1, 32, 32, 16, 64), (8, 28, 28, 8, 4)])
@@ -45,6 +73,32 @@ def test_headline_bounds_are_the_recorded_ones():
     """B1 9.664 GFLOP and B2 28.991 GFLOP at 32x32x16, L = 64, batch 32."""
     assert round(frozen.kernel_bounds(32, 32, 32, 16, 64)["flops"] / 1e9, 3) == 9.664
     assert round(frozen.kernel_bounds(32, 32, 32, 16, 64, True)["flops"] / 1e9, 3) == 28.991
+
+
+class _Trace:
+    """A trace in which the matched operations took ``used_us`` in all."""
+
+    def __init__(self, used_us):
+        self.used_us = used_us
+
+    def device_time_us(self, match):
+        return self.used_us, 1
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_fused_bound_is_the_sum_over_the_stages(backward):
+    """One step's B1 (B2) bound: the headline's own stage alone, as
+    recorded; a multi-stage model's the sum over its identity stacks at
+    their shapes (8x8x4, 4x4x8, 2x2x16; 2, 1 and 1 layers)."""
+    headline = frozen.kernel_bounds(32, 32, 32, 16, 64, backward)["bound_ms"]
+    assert fused.bound_ms(HEADLINE["model"], 32, backward) == headline
+    model = _multi_stage()["model"]
+    stages = sum(frozen.kernel_bounds(32, *shape, backward)["bound_ms"]
+                 for shape in ((8, 8, 4, 2), (4, 4, 8, 1), (2, 2, 16, 1)))
+    assert fused.bound_ms(model, 32, backward) == stages
+    for config, bound in ((HEADLINE, headline), (_multi_stage(), stages)):
+        ctx = MetricContext(_Trace(2000.0), config, {}, {"kind": "train", "batch": 32, "calls": 4})
+        assert fused.roofline_pct(ctx, fused.B2_NAMES, backward) == 100.0 * bound / 0.5
 
 
 @pytest.mark.parametrize("seed,step", [(0, 0), (5, 3), (2 ** 40 + 7, 1561)])

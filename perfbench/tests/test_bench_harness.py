@@ -13,11 +13,12 @@ from perfbench import run
 from perfbench.kinds import serve
 from perfbench.registry import Benchmark
 
-from conftest import ROOT
+from conftest import ROOT, train_cases
 
 TRAIN_CELLS = ["sb-antisym-64x16.train-resident", "resnet50-224.train-resident",
                "sb-antisym-64x16.train-stream"]
 SERVE_CELLS = ["sb-antisym-64x16.serve-b1-poisson"]
+TRAIN_CASES = train_cases(TRAIN_CELLS)
 
 
 def test_files_dropped_in_are_found_by_name(tmp_path):
@@ -72,9 +73,9 @@ def test_poisson_schedule_repeats_and_keeps_its_gaps(seed):
     assert np.std(gaps) == pytest.approx(1 / 2000.0, rel=0.05)  # exponential: sd = mean
 
 
-@pytest.mark.parametrize("name", TRAIN_CELLS)
-def test_reference_matches_the_port_training_on_the_cpu(run_tiny, name):
-    result = run_tiny(name)
+@pytest.mark.parametrize("name,model", TRAIN_CASES)
+def test_reference_matches_the_port_training_on_the_cpu(run_tiny, name, model):
+    result = run_tiny(name, model=model)
     assert result["correct"], result["checks"]
     assert result["attempted"] > 0 and result["failed"] == 0
     for check in result["checks"].values():
