@@ -50,7 +50,9 @@ call counts one, and the wide variants' calls count also in
 ``WIDE_FWD.launches`` / ``WIDE_BWD.launches``.  Under a
 CUDA-graph capture the kernel is recorded into the graph, not launched: the
 wrapper counts it in ``captured`` instead, and each replay of the graph adds
-the launches it holds (`count_replay`).
+the launches it holds (`count_replay`).  Each call is also recorded, with
+its stack's shape, variant, bands and launches, in the record of fused
+stacks (`utils.tracing.STACKS`), under the graph being captured if any.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ from differential_equations_resnet_tpu_torch.ops.conv import (
     round_operand,
 )
 from differential_equations_resnet_tpu_torch.ops.kernels import _build
+from differential_equations_resnet_tpu_torch.utils.tracing import STACKS, StackEntry
 
 # Dynamic shared memory one thread block may use on sm_90.
 SMEM_LIMIT_BYTES = 232_448
@@ -644,10 +647,20 @@ WIDE_FWD = LaunchCounter()
 WIDE_BWD = LaunchCounter()
 
 
-def _count_launch(*counters, launches: int = 1) -> None:
+def _stack_entry(kernel: str, x, kernels, variant: str, bands: int, launches: int):
+    """The record's `StackEntry` of a call of B1 or B2 (``kernel``) on the
+    state ``x`` with (L, ...) ``kernels``."""
+    _, height, width, channels = x.shape
+    return StackEntry(kernel, (height, width, channels, kernels.shape[0]), variant, bands,
+                      launches)
+
+
+def _count_launch(*counters, launches: int = 1, entry: StackEntry) -> None:
     """``launches`` launches of each counter's kernel, or as many recorded
-    into the CUDA graph being captured on the current stream."""
+    into the CUDA graph being captured on the current stream; the call's
+    ``entry`` in the record of fused stacks (`utils.tracing.STACKS`)."""
     capturing = torch.cuda.is_current_stream_capturing()
+    STACKS.add(entry, capturing)
     for counter in counters:
         if capturing:
             counter.captured += launches
@@ -682,7 +695,8 @@ def _launch(x, kernels, biases, h, matmul_dtype, bands=None) -> torch.Tensor:
             _stream(x),
         )
     _raise_on_error(lib, -min(launches, 0), "fused_euler_fwd")  # minus the error, or the launches
-    _count_launch(fused_euler_dense, launches=launches)
+    _count_launch(fused_euler_dense, launches=launches,
+                  entry=_stack_entry("B1", x, kernels, "band", bands, launches))
     return out
 
 
@@ -720,7 +734,8 @@ def _launch_wide(x, kernels, biases, h, matmul_dtype) -> torch.Tensor:
             float(h), int(matmul_dtype == torch.bfloat16), _stream(x),
         )
     _raise_on_error(lib, err, "fused_euler_fwd (wide)")
-    _count_launch(fused_euler_dense, WIDE_FWD)
+    _count_launch(fused_euler_dense, WIDE_FWD,
+                  entry=_stack_entry("B1", x, kernels, "wide", 0, num_layers))
     return _unpadded(out, channels)
 
 
@@ -768,7 +783,8 @@ def _launch_bwd(x, kernels, biases, g, h, matmul_dtype, bands=None):
             _stream(x),
         )
     _raise_on_error(lib, -min(launches, 0), "fused_euler_bwd")  # minus the error, or the launches
-    _count_launch(fused_euler_dense_bwd, launches=launches)
+    _count_launch(fused_euler_dense_bwd, launches=launches,
+                  entry=_stack_entry("B2", x, kernels, "band", bands, launches))
     # The bands' partials summed here, in a fixed order, where the JAX
     # wrapper sums its tiles'.
     total = partials.sum(dim=0)
@@ -810,7 +826,8 @@ def _launch_bwd_wide(x, kernels, biases, g, h, matmul_dtype):
             int(matmul_dtype == torch.bfloat16), _stream(x),
         )
     _raise_on_error(lib, err, "fused_euler_bwd (wide)")
-    _count_launch(fused_euler_dense_bwd, WIDE_BWD)
+    _count_launch(fused_euler_dense_bwd, WIDE_BWD,
+                  entry=_stack_entry("B2", x, kernels, "wide", 0, 3 * num_layers))
     return _unpadded(gx, channels), gk, gb
 
 
@@ -832,7 +849,9 @@ _LIBRARY.define("fused_euler_fwd(Tensor x, Tensor kernels, Tensor biases, float 
 
 
 def _fused_euler_fwd_cpu(x, kernels, biases, h, matmul_dtype):
-    """The op on CPU tensors: `reference_euler_dense`."""
+    """The op on CPU tensors: `reference_euler_dense`, recorded as a
+    "plain" call."""
+    STACKS.add(_stack_entry("B1", x, kernels, "plain", 0, 0), captured=False)
     y = reference_euler_dense(x, kernels, biases, h, matmul_dtype)
     return y.clone() if y is x else y  # an op's output never aliases its input
 
@@ -875,6 +894,7 @@ def fused_euler_dense_bwd(
     variant the shape takes, counted in ``fused_euler_dense_bwd.launches``,
     or raise `ValueError` outside the JAX gate's reach."""
     if _device_type(x) == "cpu":
+        STACKS.add(_stack_entry("B2", x, kernels, "plain", 0, 0), captured=False)
         return reference_euler_dense_bwd(x, kernels, biases, g, h, matmul_dtype)
     return _launch_bwd(x, kernels, biases, g, h, matmul_dtype)
 

@@ -75,7 +75,7 @@ from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator
 from differential_equations_resnet_tpu_torch.parallel.collectives import all_gather_single, data_parallel
 from differential_equations_resnet_tpu_torch.parallel.mesh import axis_size, shard_batch
 from differential_equations_resnet_tpu_torch.train.telemetry import gradient_mean_norms
-from differential_equations_resnet_tpu_torch.utils.tracing import span
+from differential_equations_resnet_tpu_torch.utils.tracing import STACKS, span
 
 Metrics = Dict[str, torch.Tensor]
 # Warm-up calls on a side stream before a capture (PyTorch's recipe for
@@ -396,7 +396,8 @@ def _capture(what: str, fn, inputs, keep: Sequence[torch.Tensor] = ()):
     CUDA graph after `WARMUP_CALLS` calls on a side stream; every tensor of
     ``keep`` is given back its value from before the warm-up, in place.
     Returns (graph, outputs, the kernel launches the graph holds, as
-    `fused_integrator.captured_launches` counts them).  Raises, naming
+    `fused_integrator.captured_launches` counts them); the graph's fused
+    stacks are recorded under ``what`` (`utils.tracing.STACKS`).  Raises, naming
     ``what``, if the capture fails: there is no eager fallback."""
     saved = [t.clone() for t in keep]
     side = torch.cuda.Stream(device=inputs[0].device)
@@ -411,7 +412,7 @@ def _capture(what: str, fn, inputs, keep: Sequence[torch.Tensor] = ()):
                 t.copy_(s)
         graph = torch.cuda.CUDAGraph()
         before = fused_integrator.captured_launches()
-        with torch.cuda.graph(graph):
+        with STACKS.capture(what), torch.cuda.graph(graph):
             outputs = fn(*inputs)
         in_graph = tuple(a - b for a, b in zip(fused_integrator.captured_launches(), before))
     except RuntimeError as e:

@@ -37,6 +37,19 @@ the same thread):
     A served request's conversion and copy to the device, and the wait for
     its answer with the copy back to NumPy (`utils.serving.load_exported`).
 
+The fused stacks (`STACKS`, a `StackRecord`): every call of a fused Euler
+stack's kernel, B1 or B2 (`ops.kernels.fused_integrator`), appends one
+`StackEntry` (the kernel, (H, W, C, L), the variant, bands an image, the
+launches the call made), in launch order: a call run eagerly to
+``STACKS.eager`` (the latest `EAGER_CALLS`), a call recorded into a CUDA
+graph to that graph's list in ``STACKS.graphs``, which `train.train_step`
+opens at each capture under the graph's name ("train step", "eval batch",
+...).  A replay adds nothing: ``STACKS.graph("train step")`` lists what
+each replay of the last captured train step launches, so a reader of a
+device trace can tell which stack each kernel of a replayed window ran.
+The plain CPU path records its calls too, as variant "plain" with no
+launch.
+
 No span is opened inside what a CUDA graph captures: the graph holds
 kernels only.  The streaming producer thread's batch assembly and staging
 are not traced: `torch.profiler` records ranges on the thread that opened
@@ -46,12 +59,16 @@ producer shows through ``deqres.feed.wait`` on the dispatch side.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.profiler import record_function
 
 _OFF = contextlib.nullcontext()
+# Eager fused-stack calls the record keeps, the latest.
+EAGER_CALLS = 4096
 
 
 def span(name: str):
@@ -60,3 +77,60 @@ def span(name: str):
     if torch.autograd._profiler_enabled():
         return record_function(name)
     return _OFF
+
+
+class StackEntry(NamedTuple):
+    """One call of a fused Euler stack's kernel."""
+
+    kernel: str                       # "B1" (forward) or "B2" (backward)
+    shape: Tuple[int, int, int, int]  # (H, W, C, L)
+    variant: str                      # "band", "wide", or "plain" (the CPU's)
+    bands: int                        # bands an image of the band variant, else 0
+    launches: int                     # kernel launches made or captured
+
+
+class StackRecord:
+    """The fused-stack calls of the process, grouped by capture (the
+    module's docstring)."""
+
+    def __init__(self):
+        self.eager = collections.deque(maxlen=EAGER_CALLS)
+        self.graphs: List[Tuple[Optional[str], List[StackEntry]]] = []
+        self._open: Optional[List[StackEntry]] = None
+
+    def add(self, entry: StackEntry, captured: bool) -> None:
+        """``entry`` to the graph being captured where ``captured`` (to an
+        unnamed graph where the capture was not opened by `capture`), else
+        to the eager calls."""
+        if not captured:
+            self.eager.append(entry)
+            return
+        if self._open is None:
+            self.graphs.append((None, []))
+            self._open = self.graphs[-1][1]
+        self._open.append(entry)
+
+    @contextlib.contextmanager
+    def capture(self, what: str):
+        """The calls captured inside, as the graph named ``what``."""
+        self.graphs.append((what, []))
+        self._open = self.graphs[-1][1]
+        try:
+            yield
+        finally:
+            self._open = None
+
+    def graph(self, what: str) -> Optional[List[StackEntry]]:
+        """The calls of the last graph captured as ``what``, or None."""
+        for name, entries in reversed(self.graphs):
+            if name == what:
+                return entries
+        return None
+
+    def clear(self) -> None:
+        self.eager.clear()
+        self.graphs.clear()
+        self._open = None
+
+
+STACKS = StackRecord()
