@@ -10,9 +10,9 @@ Phases, each of which raises on failure (exit code != 0):
 1. device: the card's name and power limit, from nvidia-smi;
 2. build: every CUDA source of the port, compiled from the checkout into
    build/kernels/ (one nvcc per source, started together: the band B1 and
-   B2 and their wide variants), with each library's ptxas register and
-   spill report, and each instantiation of the wide kernels' registers and
-   spill bytes (none may spill);
+   B2 and their wide variants, batch norm's kernels), with each library's
+   ptxas register and spill report, and each instantiation of the wide and
+   batch-norm kernels' registers and spill bytes (none may spill);
 3. plan: each kernel's band plan (blocks an image) at the main path's
    shapes and the images the card holds at once for every band count
    (`fi.resident_images`), and the wide variants' launch plans at the
@@ -97,7 +97,12 @@ Phases, each of which raises on failure (exit code != 0):
    rebuilt and eager paths), ResNet-50 v1.5, ResNet-101
    and ResNet-152 forwards against the CPU, the single-block model with
    batch norm against the CPU, and ``train --model resnet50`` then
-   ``export --checkpoint`` in subprocesses; none launches a kernel;
+   ``export --checkpoint`` in subprocesses; none launches B1 or B2;
+   then batch norm's kernels (`phase_batch_norm`): against the plain
+   version at ResNet-50's nine shapes at batch 32 and 224x224 and at C = 8,
+   16 and 6, bit for bit across two runs, each shape timed forward and
+   backward beside its byte bound and the composite's time, and 53 x 4
+   launches in one ResNet-50 train step;
 15. int8 ops (`phase_int8_ops`): the dynamic-w8a8 conv at the trunk's
    32x32x128 (batch 32) and ResNet-50 stage 3's strided 3x3 and 1x1 convs,
    then the int8 dgrad and wgrad at the trunk shape: int8 operands and
@@ -164,6 +169,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -192,7 +198,15 @@ from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
 from differential_equations_resnet_tpu_torch.models.quantized import make_quantized_forward
 from differential_equations_resnet_tpu_torch.ops import quantize as q
 from differential_equations_resnet_tpu_torch.ops.conv import conv2d_same, conv2d_same_vjp
+from differential_equations_resnet_tpu_torch.models.blocks import (
+    BN_EPSILON,
+    BN_MOMENTUM,
+    BatchNormParams,
+    BatchNormState,
+    composite_batch_norm,
+)
 from differential_equations_resnet_tpu_torch.ops.kernels import _build
+from differential_equations_resnet_tpu_torch.ops.kernels import batch_norm as fbn
 from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
 from differential_equations_resnet_tpu_torch.data import synthetic_cifar10
 from differential_equations_resnet_tpu_torch.experiments import imagenet32_config
@@ -295,12 +309,12 @@ def phase_build():
         log(f"[build] {name}: {len(kernels)} kernels, max "
             f"{max((k[1] for k in kernels), default=0)} registers, "
             f"{sum(k[2] for k in kernels)} spill-store bytes in all")
-        if name == "fused_euler_wide":
+        if name in ("fused_euler_wide", "batch_norm"):
             for kernel, regs, stores, loads in kernels:
                 log(f"[build]   {kernel}: {regs} registers, {stores} bytes spill stores, "
                     f"{loads} bytes spill loads")
             if not kernels or any(k[2] or k[3] for k in kernels):
-                raise AssertionError("a wide kernel spills registers (or ptxas reported none)")
+                raise AssertionError(f"a kernel of {name} spills registers (or ptxas reported none)")
 
 
 MAIN = (32, 32, 16)  # H, W, C of the main path's identity stack
@@ -1541,6 +1555,7 @@ def launch_counts():
 def reset_counts():
     """Every kernel's launch count and every route's count set to 0."""
     fi.reset_launch_counts()
+    fbn.fused_batch_norm.launches = fbn.fused_batch_norm.captured = 0
     sbr.route_counts.update(fused=0, per_layer=0)
     sbr.per_layer_counts.update(int8=0, s2d=0, direct=0)
 
@@ -2250,7 +2265,8 @@ def time_served(predict, batch, size, runs, smi):
 
 def phase_bottleneck(tmp, smi):
     """The bottleneck family and batch norm on the card, none of which runs
-    a hand-written kernel (the JAX package runs them on XLA's convolutions):
+    B1 or B2 (the JAX package runs them on XLA's convolutions); train-mode
+    batch norm runs its own kernels (`phase_batch_norm`):
 
     1. ResNet-50, antisymmetric mid-convs, 32x32, 10 classes (the JAX
        bench's CIFAR-scale row, full widths): eval-mode logits at batch 8
@@ -2273,7 +2289,7 @@ def phase_bottleneck(tmp, smi):
     5. ``cli train --model resnet50`` for 20 device-resident steps, then
        ``export --checkpoint`` and `load_exported`, in subprocesses.
 
-    Every kernel's launch count must stay 0 throughout."""
+    B1's and B2's launch counts must stay 0 throughout."""
     t_phase = time.perf_counter()
     reset_counts()
     card, cpu = resnet_pair("resnet50", 32, 10)
@@ -3665,6 +3681,170 @@ def phase_mesh(smi, arrays, device="cuda", epoch_steps=None):
     return tuple(total)
 
 
+# ResNet-50 v1's batch norms at batch 32 and 224x224: (N, H, W, C) and the
+# layers of that shape (stem; bn1 and bn2 of stage 1's 3 blocks; bn3 of
+# those and the shortcut; ... 53 in all).
+BN_RESNET50 = (((32, 112, 112, 64), 1), ((32, 56, 56, 64), 6), ((32, 56, 56, 256), 4),
+               ((32, 28, 28, 128), 8), ((32, 28, 28, 512), 5), ((32, 14, 14, 256), 12),
+               ((32, 14, 14, 1024), 7), ((32, 7, 7, 512), 6), ((32, 7, 7, 2048), 4))
+BN_LAUNCHES_A_LAYER = 4  # the forward's apply (after torch.var_mean); sums, finalize, apply
+BN_TOL = 1e-6  # norm-relative, the backward against the plain version: both take fp64 sums
+
+
+def bn_case(shape, seed=0):
+    """x (mean about 2, spread 3), scale, offset, running mean and variance,
+    and a cotangent, fp32 on the card."""
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    arrays = [2.0 + 3.0 * rng.standard_normal(shape), 1.0 + 0.1 * rng.standard_normal(c),
+              0.1 * rng.standard_normal(c), 0.1 * rng.standard_normal(c),
+              rng.uniform(0.5, 1.5, c), rng.standard_normal(shape)]
+    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in arrays]
+
+
+def graph_ms(fn, calls=20, repeats=5):
+    """Milliseconds a call of ``fn`` takes on the card inside a CUDA graph
+    of ``calls`` calls, as a replayed train step runs it (no host time
+    between launches): CUDA events around a replay, over ``calls``, the
+    median of ``repeats`` replays, after 3 warm-up calls on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def bn_bytes(shape, backward=False):
+    """The least bytes a pass of train-mode batch norm moves at ``shape``:
+    forward x twice in (statistics, apply) and y out; backward dy and x
+    twice each in (sums, apply) and dx out; the per-channel vectors left
+    out."""
+    return (5 if backward else 3) * 4 * math.prod(shape)
+
+
+def phase_batch_norm(smi):
+    """Train-mode batch norm's kernels (`csrc/batch_norm.cu`):
+
+    1. against the plain version at ResNet-50's nine shapes at batch 32 and
+       224x224, at C = 8 and 16 (the single-block family) and at C = 6 (one
+       channel a thread): y and the statistics bit for bit (the composite's
+       forward), dx, dscale and doffset within BN_TOL, one launch forward
+       and three backward, a second run bit for bit;
+    2. each ResNet-50 shape timed, forward (`torch.var_mean` and the apply;
+       the reduction also alone) and backward, beside its byte bound, the
+       composite's time (`blocks.composite_batch_norm`, which every call
+       but a CUDA fp32 one in train mode on one rank takes, with autograd's
+       backward)
+       and the plain version's, and summed over the step's 53 layers;
+    3. one eager ResNet-50 train step at 224x224 x 257 classes, batch 32,
+       its launches counted from 0 (`reset_counts`): 53 x 4, the count the
+       kernels line reports.
+
+    Returns the kernels line's entry."""
+    t_phase = time.perf_counter()
+    bn = (BN_EPSILON, BN_MOMENTUM)
+    worst = 0.0
+    step = dict(kernel=0.0, moments=0.0, composite=0.0, plain=0.0, bound=0.0)
+    shapes = [s for s, _ in BN_RESNET50] + [(32, 32, 32, 8), (32, 32, 32, 16), (3, 5, 7, 6)]
+    layers = dict(BN_RESNET50)
+    for shape in shapes:
+        x, scale, offset, mean, var, dy = bn_case(shape)
+        before = fbn.fused_batch_norm.launches
+        y, stats = fbn._launch(x, scale, offset, mean, var, *bn)
+        grads = fbn._launch_bwd(dy, x, stats, scale)
+        torch.cuda.synchronize()
+        launches = fbn.fused_batch_norm.launches - before
+        want_y, want_stats = fbn.reference_batch_norm(x, scale, offset, mean, var, *bn)
+        want = fbn.reference_batch_norm_bwd(dy, x, stats, scale)
+        forward_equal = torch.equal(y, want_y) and torch.equal(stats, want_stats)
+        errs = [norm_rel(a, b) for a, b in zip(grads, want)]
+        again = (*fbn._launch(x, scale, offset, mean, var, *bn), *fbn._launch_bwd(dy, x, stats, scale))
+        same = all(torch.equal(a, b) for a, b in zip((y, stats, *grads), again))
+        worst = max(worst, *(float((a - b).abs().max()) for a, b in zip(grads, want)))
+        ok = forward_equal and max(errs) <= BN_TOL and launches == BN_LAUNCHES_A_LAYER and same
+        plan = fbn._plan(x)
+        log(f"[bn] {'x'.join(map(str, shape))} (vec {plan['vec']}, lanes {plan['lanes']}, "
+            f"{plan['chunks']} x {plan['groups']} blocks): y and stats equal to the plain "
+            f"version's: {forward_equal}; dx, dscale, doffset norm-rel "
+            f"{', '.join(f'{e:.1e}' for e in errs)} (tol {BN_TOL:g}), {launches} launches (want "
+            f"{BN_LAUNCHES_A_LAYER}), two runs equal: {same}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"batch-norm kernels at {shape} differ from the plain version")
+        if shape not in layers:
+            continue
+        fwd_ms = graph_ms(lambda: fbn._launch(x, scale, offset, mean, var, *bn))
+        moments_ms = graph_ms(lambda: fbn._moments(x))
+        bwd_ms = graph_ms(lambda: fbn._launch_bwd(dy, x, stats, scale))
+        plain_ms = graph_ms(lambda: fbn.reference_batch_norm_bwd(
+            dy, x, fbn.reference_batch_norm(x, scale, offset, mean, var, *bn)[1], scale), calls=2)
+        leaves = [t.clone().requires_grad_() for t in (x, scale, offset)]
+        state = BatchNormState(mean, var)
+        comp_fwd_ms = graph_ms(lambda: composite_batch_norm(
+            x, BatchNormParams(scale, offset), state, True))
+        comp_ms = graph_ms(lambda: torch.autograd.grad(composite_batch_norm(
+            leaves[0], BatchNormParams(*leaves[1:]), state, True)[0], leaves, dy))
+        bounds = [bn_bytes(shape, b) / HBM_BYTES_PER_S * 1e3 for b in (False, True)]
+        count = layers[shape]
+        step["kernel"] += count * (fwd_ms + bwd_ms)
+        step["moments"] += count * moments_ms
+        step["composite"] += count * comp_ms
+        step["plain"] += count * plain_ms
+        step["bound"] += count * sum(bounds)
+        log(f"[time] batch norm {'x'.join(map(str, shape))} ({count} of ResNet-50's layers): "
+            f"forward {fwd_ms:.4f} ms (bound {bounds[0]:.4f}, {bounds[0] / fwd_ms:.1%}; of it "
+            f"torch.var_mean {moments_ms:.4f}; composite {comp_fwd_ms:.4f}), backward {bwd_ms:.4f} ms (bound {bounds[1]:.4f}, "
+            f"{bounds[1] / bwd_ms:.1%}); both {fwd_ms + bwd_ms:.4f} ms against the composite's "
+            f"forward and autograd backward {comp_ms:.4f} ms and the plain version's {plain_ms:.4f} "
+            f"(CUDA events around replayed graphs of calls) ({smi})")
+        del x, y, dy, grads, want, want_y, again, leaves
+        torch.cuda.empty_cache()
+    log(f"[time] batch norm over ResNet-50's 53 layers at batch 32, forward and backward: "
+        f"{step['kernel']:.4f} ms a step (bound {step['bound']:.4f} ms by bytes, "
+        f"{step['bound'] / step['kernel']:.1%}; of it torch.var_mean {step['moments']:.4f} ms, "
+        f"the kernels {step['kernel'] - step['moments']:.4f} ms), composite {step['composite']:.4f} ms, plain "
+        f"{step['plain']:.4f} ms ({smi})")
+
+    config = resnet_preset("resnet50", 257, antisymmetric_mid=True, image_shape=(224, 224, 3))
+    model = build_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda")
+    images, labels = image_batch(np.random.default_rng(17), 32, 224, 257)
+    train = make_train_step(model, make_adam(model.parameters()))
+    reset_counts()
+    metrics, _ = train(images.cuda(), labels.cuda(), LR)
+    torch.cuda.synchronize()
+    launches = fbn.fused_batch_norm.launches
+    ok = launches == 53 * BN_LAUNCHES_A_LAYER and math.isfinite(float(metrics["loss"]))
+    log(f"[bn] {describe_resnet(config)}: one eager train step at batch 32 launched {launches} "
+        f"batch-norm kernels (want 53 x {BN_LAUNCHES_A_LAYER}), loss "
+        f"{float(metrics['loss']):.4f}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ResNet-50's train step did not take the batch-norm kernels")
+    del model, train
+    torch.cuda.empty_cache()
+    log(f"[bn] batch-norm phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return {"name": "batch_norm", "route": "cuda",
+            "source": "differential_equations_resnet_tpu_torch/csrc/batch_norm.cu",
+            "replaces": None, "max_abs_err": worst, "ms": step["kernel"],
+            "plain_ms": step["plain"], "bound_ms": step["bound"], "bound_by": "bytes",
+            "composite_ms": step["composite"], "library_ms": None, "launches": launches}
+
+
 def cifar_arrays():
     """Synthetic CIFAR-10 of the real size and dtype: (train images,
     train labels, val images, val labels)."""
@@ -3717,9 +3897,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_subcommands(tmp, smi)
         phase_bottleneck(tmp, smi)
+        bn_kernel = phase_batch_norm(smi)
         phase_int8_ops(smi)
         phase_int8_serve(tmp, smi)
-        elapsed('the subcommands, the bottleneck family, int8 ops and serving')
+        elapsed('the subcommands, the bottleneck family, batch norm, int8 ops and serving')
     phase_int8_train(smi)
     phase_s2d(smi)
     elapsed('int8 training and s2d')
@@ -3754,6 +3935,7 @@ def main() -> int:
          "replaces": replaces + "216", "launches": wide_only_bwd + ex_wide_bwd,
          "max_abs_err": wide_errs["fused_euler_bwd_wide"],
          **wide_timing["fused_euler_bwd_wide"], "library_ms": None},
+        bn_kernel,
     ]
     log(f"[device] {smi}")
     print(json.dumps({"kernels": kernels}))

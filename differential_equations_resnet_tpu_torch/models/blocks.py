@@ -26,6 +26,7 @@ from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     AntisymKxKParams,
     he_truncated_normal,
 )
+from differential_equations_resnet_tpu_torch.ops.kernels.batch_norm import fused_batch_norm
 
 
 class ConvParams(NamedTuple):
@@ -97,6 +98,31 @@ def batch_norm(
     gradient flows, and the new running statistics ``0.99 * old + 0.01 *
     batch`` (detached); else the running statistics, unchanged.  Returns
     (y, new_state); the caller writes new_state into its buffers.
+
+    Train mode on a CUDA fp32 tensor outside a data group of more than one
+    rank runs the hand-written kernels behind one autograd Function
+    (`ops.kernels.batch_norm.fused_batch_norm`): the composite's forward
+    bit for bit and a closed-form backward with fp64 sums.  Every other
+    call (the CPU, another dtype by the dtype test here, more than one
+    rank, eval mode) takes `composite_batch_norm`."""
+    group = data_group()
+    if (train and x.is_cuda and x.dtype == torch.float32
+            and (group is None or dist.get_world_size(group) == 1)):
+        y, stats = fused_batch_norm(x.contiguous(), params.scale.to(x.dtype),
+                                    params.offset.to(x.dtype), state.mean, state.var,
+                                    BN_EPSILON, BN_MOMENTUM)
+        return y, BatchNormState(mean=stats[2], var=stats[3])
+    return composite_batch_norm(x, params, state, train)
+
+
+def composite_batch_norm(
+    x: torch.Tensor,
+    params: BatchNormParams,
+    state: BatchNormState,
+    train: bool,
+) -> Tuple[torch.Tensor, BatchNormState]:
+    """`batch_norm` as a composite of torch ops, autograd giving its
+    backward.
 
     Inside `parallel.collectives.data_parallel` over a group of more than
     one rank, train mode takes the moments of the whole batch, every rank's

@@ -56,6 +56,7 @@ SOURCES = {
     "fused_euler_fwd": _cuda("fused_euler_fwd.cu"),
     "fused_euler_bwd": _cuda("fused_euler_bwd.cu"),
     "fused_euler_wide": _cuda("fused_euler_wide.cu"),
+    "batch_norm": _cuda("batch_norm.cu"),
     "dert_codec": Source(NATIVE / "dert_codec.cc", "g++", CXX_FLAGS, "native"),
     "dert_loader": Source(NATIVE / "dert_loader.cc", "g++", CXX_FLAGS + ("-pthread",), "native"),
 }

@@ -28,7 +28,7 @@ the optimizer's state and the batch-norm buffers; each is given back its
 value before the capture, so a replayed step starts where an eager one
 would.  On the CPU the same functions run the step eagerly in a loop.  The
 kernels' launch counters count the replays' launches, not the capture
-(`fused_integrator.count_replay`).
+(`_captured_launches`, `_count_replay`).
 
 A graph holds the addresses of the parameters, the gradients and the
 optimizer's state tensors at capture: after ``optimizer.load_state_dict``
@@ -72,6 +72,7 @@ from torch import nn
 from differential_equations_resnet_tpu_torch.models.blocks import l2_kernel_penalty
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import map_leaves
 from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator
+from differential_equations_resnet_tpu_torch.ops.kernels.batch_norm import fused_batch_norm
 from differential_equations_resnet_tpu_torch.parallel.collectives import all_gather_single, data_parallel
 from differential_equations_resnet_tpu_torch.parallel.mesh import axis_size, shard_batch
 from differential_equations_resnet_tpu_torch.train.telemetry import gradient_mean_norms
@@ -391,12 +392,26 @@ def _lr_tensors(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
     return tensors
 
 
+def _captured_launches() -> Tuple[int, ...]:
+    """The launches recorded into captured graphs so far by each kernel
+    counter: B1, B2 and their wide variants
+    (`fused_integrator.captured_launches`), then batch norm's."""
+    return (*fused_integrator.captured_launches(), fused_batch_norm.captured)
+
+
+def _count_replay(in_graph: Tuple[int, ...]) -> None:
+    """Count one replay of a graph that holds ``in_graph`` launches of each
+    counter's kernels, in `_captured_launches`' order."""
+    fused_integrator.count_replay(in_graph[:-1])
+    fused_batch_norm.launches += in_graph[-1]
+
+
 def _capture(what: str, fn, inputs, keep: Sequence[torch.Tensor] = ()):
     """Capture ``fn(*inputs)`` (static device tensors, already filled) in a
     CUDA graph after `WARMUP_CALLS` calls on a side stream; every tensor of
     ``keep`` is given back its value from before the warm-up, in place.
     Returns (graph, outputs, the kernel launches the graph holds, as
-    `fused_integrator.captured_launches` counts them); the graph's fused
+    `_captured_launches` counts them); the graph's fused
     stacks are recorded under ``what`` (`utils.tracing.STACKS`).  Raises, naming
     ``what``, if the capture fails: there is no eager fallback."""
     saved = [t.clone() for t in keep]
@@ -411,10 +426,10 @@ def _capture(what: str, fn, inputs, keep: Sequence[torch.Tensor] = ()):
             for t, s in zip(keep, saved):
                 t.copy_(s)
         graph = torch.cuda.CUDAGraph()
-        before = fused_integrator.captured_launches()
+        before = _captured_launches()
         with STACKS.capture(what), torch.cuda.graph(graph):
             outputs = fn(*inputs)
-        in_graph = tuple(a - b for a, b in zip(fused_integrator.captured_launches(), before))
+        in_graph = tuple(a - b for a, b in zip(_captured_launches(), before))
     except RuntimeError as e:
         raise RuntimeError(f"CUDA graph capture of the {what} failed: {e}") from e
     return graph, outputs, in_graph
@@ -425,7 +440,7 @@ class _Replayed:
     (`_capture`) and replayed over static copies of the inputs.  The output
     is the graph's own: the next call overwrites it.  ``keep()`` names the
     state the warm-up must leave as it found it.  Each replay counts the
-    kernel launches its graph holds (`fused_integrator.count_replay`)."""
+    kernel launches its graph holds (`_count_replay`)."""
 
     def __init__(self, what: str, fn, keep=tuple):
         self.what, self.fn, self.keep = what, fn, keep
@@ -442,7 +457,7 @@ class _Replayed:
             for s, t in zip(static, inputs):
                 s.copy_(t)
             graph.replay()
-        fused_integrator.count_replay(in_graph)
+        _count_replay(in_graph)
         return outputs
 
 
