@@ -62,8 +62,8 @@ Phases, each of which raises on failure (exit code != 0):
    loss falls) and a full validation pass; 8 steps replayed from one CUDA
    graph against 8 eager steps; a device-resident epoch of 1562 replayed
    steps with augmentation, whose B1 and B2 launches the profiler counts
-   (one each a step, as the launch counters do), timed again unprofiled
-   beside the same epoch run with the eager step (seconds, steps/s, model
+   (one each a step, as the record of hand-kernel calls does), timed again
+   unprofiled beside the same epoch run with the eager step (seconds, steps/s, model
    TFLOP/s, MFU, and the idle share of a profiled window of each epoch), and
    its device evaluation against the streaming one; a checkpoint round trip
    (bit for bit); and the command line (train, then evaluate, predict and
@@ -231,6 +231,7 @@ from differential_equations_resnet_tpu_torch.utils.flops import (
     train_flops,
 )
 from differential_equations_resnet_tpu_torch.utils import serving
+from differential_equations_resnet_tpu_torch.utils.tracing import STACKS
 from differential_equations_resnet_tpu_torch.utils.serving import (
     FORWARD_FILE,
     export_model,
@@ -617,9 +618,9 @@ def phase_serve():
         predict_cpu, _ = load_exported(export_dir, device="cpu")
         warmed(predict, requests)
         routes = dict(predict.routes)
-        fi.fused_euler_dense.launches = 0
+        STACKS.reset()
         answers = [predict(r) for r in requests]
-        launches = fi.fused_euler_dense.launches
+        launches = STACKS.launches("B1")
         if launches != len(requests):
             raise AssertionError(f"{len(requests)} requests launched the kernel {launches} times")
         served = {k: predict.routes[k] - routes[k] for k in routes}
@@ -685,12 +686,12 @@ def phase_train(smi):
     cpu = build_single_block_resnet(config, params=card.params(), device="cpu")
     steps = {m: make_train_step(m, make_adam(m.parameters())) for m in (card, cpu)}
     small = [batch(8) for _ in range(2)]
-    fi.fused_euler_dense.launches = fi.fused_euler_dense_bwd.launches = 0
+    STACKS.reset()
     for n, (images, labels) in enumerate(small, 1):
         (m_card, norms_card), (m_cpu, norms_cpu) = [
             steps[m](images.to(m_dev), labels.to(m_dev), LR)
             for m, m_dev in ((card, "cuda"), (cpu, "cpu"))]
-        launches = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+        launches = launch_counts()
         if launches != (n, n):
             raise AssertionError(f"after {n} train steps B1, B2 launched {launches} times")
         loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
@@ -732,7 +733,7 @@ def phase_train(smi):
             header, *rows = f.read().splitlines()
     if header.split(" ") != names or len(names) != 65 or len(rows) != 20:
         raise AssertionError("the grad-norm CSV lacks its 65-name header or its 20 rows")
-    launches = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+    launches = launch_counts()
     if launches != (22, 22) or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"20 steps at batch 32: launches {launches}, losses {losses}")
     log(f"[train] 20 steps at batch 32 on one batch: loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
@@ -1109,7 +1110,7 @@ def phase_serve_paths(tmp, smi):
     warmed(from_cpu, [images[32]])
     reset_counts()
     got = from_cpu(images[32])
-    band = fi.fused_euler_dense.launches
+    band = STACKS.launches("B1", "band")
     err, ok, kept = gap_violation(got, want, CARD_PATHS_TOL, ref_probs=True)
     ok = ok and band == 1 and from_cpu.routes == {"compiled": 2, "rebuilt": 0}
     log(f"[serve_paths] an export made on the CPU, served on the card at batch 32: {band} B1 "
@@ -1138,17 +1139,19 @@ def phase_serve_paths(tmp, smi):
     warmed(compiled, [images[32]])
     reset_counts()
     got = compiled(images[32])
-    wide_calls, band_calls = fi.WIDE_FWD.launches, fi.fused_euler_dense.launches
+    wide_calls, wide = STACKS.calls("B1", "wide"), STACKS.launches("B1", "wide")
     err, ok, kept = gap_violation(got, want, CARD_PATHS_TOL, ref_probs=True)
-    ok = ok and wide_calls == band_calls == 1 and compiled.routes["compiled"] == 2
+    ok = (ok and STACKS.calls("B1") == wide_calls == 1 and wide == 64
+          and compiled.routes["compiled"] == 2)
     log(f"[serve_paths] use_pallas antisymmetric 64L x 128F exported at batch 32, served "
-        f"through forward.pt2: {wide_calls} wide B1 call of {band_calls} B1 launch a request, "
+        f"through forward.pt2: {wide_calls} wide B1 call ({wide} launches) of "
+        f"{STACKS.calls('B1')} B1 call a request, "
         f"logit gaps against the rebuilt model's {err:.3e} over {kept} classes (tol "
         f"rtol=atol={CARD_PATHS_TOL:g}) ({smi}): {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the wide stack's forward.pt2 does not run the wide B1 once a request")
     log(f"[serve_paths] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
-    return band, wide_calls
+    return band, wide
 
 
 HARNESS_BATCH = 32
@@ -1257,7 +1260,7 @@ def phase_harness(smi, arrays):
     data = dict(train_features=train_x, train_labels=train_y, val_features=val_x,
                 val_labels=val_y, batch_size=HARNESS_BATCH)
     names = gradient_metric_names(cifar10_single_block_config(num_layers=64, num_filters=16))
-    fi.fused_euler_dense.launches = fi.fused_euler_dense_bwd.launches = 0
+    STACKS.reset()
     counts = launch_counts
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1344,8 +1347,9 @@ def phase_harness(smi, arrays):
         counted = tuple(a - b for a, b in zip(counts(), host_before))
         ok = (n1, n2) == counted == (WARMUP_CALLS + steps,) * 2
         log(f"[harness] device-resident epoch under the profiler: {steps} steps, B1 {n1} and B2 {n2} "
-            f"launches on the card = {WARMUP_CALLS} warm-up calls + one replay a step (the launch "
-            f"counters: {counted[0]} and {counted[1]}); inside the epoch B1 {t1 / max(n1, 1):.4f} ms "
+            f"launches on the card = {WARMUP_CALLS} warm-up calls + one replay a step (the record "
+            f"of hand-kernel calls: {counted[0]} and {counted[1]}); inside the epoch B1 "
+            f"{t1 / max(n1, 1):.4f} ms "
             f"and B2 {t2 / max(n2, 1):.4f} ms a launch ({smi}): {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"the device-resident epoch of {steps} steps launched B1 {n1} and "
@@ -1549,13 +1553,26 @@ def describe(config):
 
 
 def launch_counts():
-    return fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches
+    """B1's and B2's launches, every variant, since the last `reset_counts`
+    (the record of hand-kernel calls)."""
+    return STACKS.launches("B1"), STACKS.launches("B2")
+
+
+def card_calls():
+    """B1's and B2's calls on the card (band and wide, not the CPU's plain
+    version) since the last `reset_counts`."""
+    return tuple(STACKS.calls(k, "band") + STACKS.calls(k, "wide") for k in ("B1", "B2"))
+
+
+def variant_launches():
+    """The band B1's and B2's launches, then the wide ones', since the last
+    `reset_counts`."""
+    return tuple(STACKS.launches(k, v) for v in ("band", "wide") for k in ("B1", "B2"))
 
 
 def reset_counts():
-    """Every kernel's launch count and every route's count set to 0."""
-    fi.reset_launch_counts()
-    fbn.fused_batch_norm.launches = fbn.fused_batch_norm.captured = 0
+    """The record's totals and every route's count set to 0."""
+    STACKS.reset()
     sbr.route_counts.update(fused=0, per_layer=0)
     sbr.per_layer_counts.update(int8=0, s2d=0, direct=0)
 
@@ -1680,10 +1697,9 @@ def against_cpu(config, smi, steps=2, batch=8, tag="types"):
     against its twin on the CPU's plain path, from the same parameters and
     batches: the logits of one batch, then ``steps`` train steps at batch 8
     (`compare_steps`, each from the same state).  Asserts the route and its
-    launches: a fused stack
-    launches B1 once a forward and B2 once a step, a per-layer stack
-    neither.  Returns the card's model and the launches (B1, B2) of the
-    run."""
+    calls: a fused stack calls B1 once a forward and B2 once a step, in
+    whichever variant, a per-layer stack neither.  Returns the card's model
+    and the launches (B1, B2) of the run."""
     card = build_single_block_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda")
     # The route a train step takes, from the shapes alone.
     route = sbr.identity_route(config, torch.zeros(batch, 32, 32, config.filters_per_block[0]),
@@ -1702,15 +1718,15 @@ def against_cpu(config, smi, steps=2, batch=8, tag="types"):
     if not ok:
         raise AssertionError(f"{describe(config)}: the card's logits disagree with the CPU's")
     compare_steps(tag, describe(config), card, cpu, steps, batch)
-    launches, routes = launch_counts(), dict(sbr.route_counts)
-    want_launches = (1 + steps, steps) if route == "fused" else (0, 0)
-    ok = (launches == want_launches
+    calls, launches, routes = card_calls(), launch_counts(), dict(sbr.route_counts)
+    want_calls = (1 + steps, steps) if route == "fused" else (0, 0)
+    ok = (calls == want_calls
           and routes == {"fused": 0, "per_layer": 0, route: 2 * (1 + steps)})  # card and CPU twin
-    log(f"[{tag}] {describe(config)}: a forward and {steps} steps launched B1 {launches[0]} and B2 "
-        f"{launches[1]} times (want {want_launches}), routes {routes} ({smi}): "
+    log(f"[{tag}] {describe(config)}: a forward and {steps} steps called B1 {calls[0]} and B2 "
+        f"{calls[1]} times (want {want_calls}; {launches} launches), routes {routes} ({smi}): "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{describe(config)}: launches {launches}, routes {routes}")
+        raise AssertionError(f"{describe(config)}: calls {calls}, routes {routes}")
     return card, launches
 
 
@@ -1736,24 +1752,23 @@ def replayed_steps_ms(model, steps=TIMED_STEPS, batch=HARNESS_BATCH, size=32, cl
     return ms
 
 
-class route_of_wide_stacks:
-    """Within it, the model sends every stack whose shape needs a kernel's
-    wide variant (and that the JAX package would not run on Pallas) down
-    ``route``, whatever its width (`models.single_block_resnet.wide_route`
-    reads `WIDE_FUSED_MAX_CHANNELS`), to time the two routes of one stack."""
-
-    def __init__(self, route):
-        self.limit = fi.MAX_CHANNELS if route == "fused" else 0
-
-    def __enter__(self):
-        self.saved, sbr.WIDE_FUSED_MAX_CHANNELS = sbr.WIDE_FUSED_MAX_CHANNELS, self.limit
-
-    def __exit__(self, *exc):
-        sbr.WIDE_FUSED_MAX_CHANNELS = self.saved
+@contextlib.contextmanager
+def fused_stacks_on(route):
+    """Within it, every stack the model would fuse takes ``route`` instead
+    ("fused" or "per_layer"; `models.single_block_resnet.identity_route`
+    patched), to time the two routes of one stack."""
+    identity_route = sbr.identity_route
+    sbr.identity_route = lambda *args: (route if identity_route(*args) == "fused"
+                                        else identity_route(*args))
+    try:
+        yield
+    finally:
+        sbr.identity_route = identity_route
 
 
 def wide_counts():
-    return fi.WIDE_FWD.launches, fi.WIDE_BWD.launches
+    """The wide B1's and B2's calls since the last `reset_counts`."""
+    return STACKS.calls("B1", "wide"), STACKS.calls("B2", "wide")
 
 
 def phase_wide(smi, batch=8):
@@ -1765,11 +1780,11 @@ def phase_wide(smi, batch=8):
     - antisymmetric with ``use_pallas`` (as ``train --use-pallas
       --num-filters 64`` builds it), 64 and 128 filters: B1 and B2 both
       wide at 128, the band B1 and the wide B2 at 64;
-    - regular 64 filters, on the route `wide_route` names;
-    - regular 72 filters: a forward, on the wide B1 where `wide_route` is
-      fused.
+    - regular 64 filters, the band B1 and the wide B2;
+    - regular 72 filters: a forward, on the wide B1.
 
-    Returns the launches (B1, B2, wide B1, wide B2) of the phase."""
+    Returns the launches (band B1, band B2, wide B1, wide B2) of the
+    phase."""
     total = [0, 0, 0, 0]
     for kernel_type, filters, pallas in (("antisymmetric", 64, True),
                                          ("antisymmetric", 128, True), ("regular", 64, False)):
@@ -1777,14 +1792,14 @@ def phase_wide(smi, batch=8):
         reset_counts()
         card, launches = against_cpu(config, smi, tag="wide")
         wide = wide_counts()
-        want = (1 + 2 if fi.kernel_variant((batch, 32, 32, filters)) == "wide" else 0,
-                2) if launches != (0, 0) else (0, 0)
+        want = (1 + 2 if fi.kernel_variant((batch, 32, 32, filters)) == "wide" else 0, 2)
         ok = wide == want
-        log(f"[wide] {describe(config)}{' use_pallas' if pallas else ''}: wide-variant launches "
-            f"B1 {wide[0]} B2 {wide[1]} (want {want}) of B1/B2 {launches}: {'ok' if ok else 'FAIL'}")
+        log(f"[wide] {describe(config)}{' use_pallas' if pallas else ''}: wide-variant calls "
+            f"B1 {wide[0]} B2 {wide[1]} (want {want}) of B1/B2 launches {launches}: "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"{describe(config)}: wide launches {wide}")
-        total = [a + b for a, b in zip(total, launches + wide)]
+            raise AssertionError(f"{describe(config)}: wide calls {wide}")
+        total = [a + b for a, b in zip(total, variant_launches())]
         del card
     config = model_config("regular", 72)
     card = build_single_block_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda")
@@ -1795,15 +1810,15 @@ def phase_wide(smi, batch=8):
         got = card(images.cuda(), return_logits=True).cpu()
         want = cpu(images, return_logits=True)
     err, ok = max_violation(got, want, FP32_TOL)
-    launches, wide = launch_counts(), wide_counts()
-    fused = sbr.wide_route(72) == "fused"
-    ok = ok and launches == ((1, 0) if fused else (0, 0)) and wide == launches
-    log(f"[wide] {describe(config)}: forward on route {sbr.wide_route(72)}, logits at batch {batch} "
+    calls, wide = card_calls(), wide_counts()
+    ok = ok and calls == wide == (1, 0)
+    log(f"[wide] {describe(config)}: forward on the wide B1, logits at batch {batch} "
         f"max|card-cpu| {err:.3e} (max|cpu| {float(want.abs().max()):.3e}, tol rtol=atol="
-        f"{FP32_TOL:g}), B1/B2 launches {launches}, wide {wide} ({smi}): {'ok' if ok else 'FAIL'}")
+        f"{FP32_TOL:g}), B1/B2 calls {calls}, wide {wide}, launches {launch_counts()} ({smi}): "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{describe(config)}: logits err {err}, launches {launches}")
-    total = [a + b for a, b in zip(total, launches + wide)]
+        raise AssertionError(f"{describe(config)}: logits err {err}, calls {calls}")
+    total = [a + b for a, b in zip(total, variant_launches())]
     return tuple(total)
 
 
@@ -1834,8 +1849,8 @@ def phase_time_wide(smi, step_widths=(64, 96, 112, 128)):
     too: it takes that width), 32x32x128 and 64x64x128 (fewer calls: a
     call there is tens to hundreds of ms); then the train step of the
     regular 64L x C models at batch 32, C in ``step_widths``, on both
-    routes (`route_of_wide_stacks`) in turns (fused, per layer, per layer,
-    fused), replayed, which `WIDE_FUSED_MAX_CHANNELS` is set from.  Each
+    routes (`fused_stacks_on`) in turns (fused, per layer, per layer,
+    fused), replayed.  Each
     wide call is also profiled: the device operations it launches and their
     device time (`log_kernels_per_call`).  Returns the wide B1 and B2
     timings at 32x32x128 (the `kernels` line's)."""
@@ -1874,7 +1889,7 @@ def phase_time_wide(smi, step_widths=(64, 96, 112, 128)):
         flops_step = single_block_train_flops(config, HARNESS_BATCH)
         turns = {"fused": [], "per_layer": []}
         for route in ("fused", "per_layer", "per_layer", "fused"):
-            with route_of_wide_stacks(route):
+            with fused_stacks_on(route):
                 reset_counts()
                 ms = replayed_steps_ms(card, steps=20)
                 launches = launch_counts()
@@ -1883,12 +1898,11 @@ def phase_time_wide(smi, step_widths=(64, 96, 112, 128)):
             log(f"[time] {describe(config)} train step on the {route} route, 20 replayed steps at "
                 f"batch {HARNESS_BATCH}: {ms:.4f} ms a step, {flops_step * rate / 1e12:.4f} model "
                 f"TFLOP/s ({flops_step / 1e9:.3f} GFLOP a step), MFU {mfu(flops_step, rate):.2%} of "
-                f"the fp32 peak; B1/B2 launches {launches}, wide {wide_counts()} ({smi})")
+                f"the fp32 peak; B1/B2 launches {launches}, wide calls {wide_counts()} ({smi})")
         wins = sum(f < p for f in turns["fused"] for p in turns["per_layer"])
         log(f"[time] {describe(config)}: the fused route faster in {wins} of 4 pairings of turns "
             f"(fused {' / '.join(f'{t:.4f}' for t in turns['fused'])} ms, per layer "
-            f"{' / '.join(f'{t:.4f}' for t in turns['per_layer'])} ms; "
-            f"WIDE_FUSED_MAX_CHANNELS = {sbr.WIDE_FUSED_MAX_CHANNELS})")
+            f"{' / '.join(f'{t:.4f}' for t in turns['per_layer'])} ms)")
         del card
         torch.cuda.empty_cache()
     return out
@@ -1920,12 +1934,12 @@ def phase_kernels_wide():
     for i, (b, hh, ww, c) in enumerate(fwd_cases):
         x, kernels, biases, _ = make_case(b, hh, ww, c, 64, 400 + i, unstructured=True)
         for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-            before = fi.WIDE_FWD.launches
+            before = STACKS.calls("B1", "wide")
             got = fi.fused_euler_dense(x, kernels, biases, 0.125, matmul_dtype=dtype)
             want = fi.reference_euler_dense(x, kernels, biases, 0.125, matmul_dtype=dtype)
             torch.cuda.synchronize()
             err, ok = max_violation(got, want, tol)
-            ok = ok and fi.WIDE_FWD.launches == before + 1
+            ok = ok and STACKS.calls("B1", "wide") == before + 1
             log(f"[kernels] wide B1 B={b} {hh}x{ww}x{c} L=64 {str(dtype).split('.')[-1]}: "
                 f"max|kernel-plain| {err:.3e} (max|plain| {float(want.abs().max()):.3e}), tol "
                 f"rtol=atol={tol:g}: {'ok' if ok else 'FAIL'}")
@@ -1936,7 +1950,7 @@ def phase_kernels_wide():
     for i, (b, hh, ww, c) in enumerate(bwd_cases):
         x, kernels, biases, g = make_case(b, hh, ww, c, 64, 500 + i, unstructured=True)
         for dtype in (torch.float32, torch.bfloat16):
-            before = fi.WIDE_BWD.launches
+            before = STACKS.calls("B2", "wide")
             got = fi.fused_euler_dense_bwd(x, kernels, biases, g, 0.125, dtype)
             want = fi.reference_euler_dense_bwd(x, kernels, biases, g, 0.125, dtype)
             judge = fi.reference_euler_dense_bwd(
@@ -1944,7 +1958,7 @@ def phase_kernels_wide():
             again = fi.fused_euler_dense_bwd(x, kernels, biases, g, 0.125, dtype)
             torch.cuda.synchronize()
             same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
-            parts, ok = [], same and fi.WIDE_BWD.launches == before + 2
+            parts, ok = [], same and STACKS.calls("B2", "wide") == before + 2
             for name, a, w, j in zip(("gx", "gk", "gb"), got, want, judge):
                 kernel_err, plain_err = norm_rel(a, j), norm_rel(w, j)
                 ok = ok and kernel_err <= max(2 * plain_err + 1e-5, WIDE_F64_TOL)
@@ -3364,10 +3378,10 @@ def phase_examples(tmp, smi):
             args = args + ("--out-dir", os.path.join(tmp, "gradient_flow"))
         code = ("import json, sys\n"
                 f"from {EXAMPLES} import {name}\n"
-                "from differential_equations_resnet_tpu_torch.ops.kernels import "
-                "fused_integrator as fi\n"
+                "from differential_equations_resnet_tpu_torch.utils.tracing import STACKS\n"
                 f"rc = {name}.main({list(args)!r})\n"
-                "print(json.dumps([w.launches for w in fi.COUNTED_WRAPPERS]))\n"
+                "print(json.dumps([STACKS.launches(k, v) for v in ('band', 'wide')\n"
+                "                  for k in ('B1', 'B2')]))\n"
                 "sys.exit(rc)\n")
         procs[name] = run_python("-c", code)
     launches = np.zeros(4, dtype=np.int64)
@@ -3384,7 +3398,7 @@ def phase_examples(tmp, smi):
         body, counts = out.strip().rsplit("\n", 1)
         counts = json.loads(counts)
         ok = example_ok(name, body)
-        log(f"[examples] {name}: exit 0, B1/B2/wide B1/wide B2 launches {counts}, "
+        log(f"[examples] {name}: exit 0, band B1/B2, wide B1/B2 launches {counts}, "
             f"last output line {body.splitlines()[-1][:300]}: {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"example {name} printed a bad result:\n{body[-4000:]}")
@@ -3453,7 +3467,7 @@ def mesh_rank(rank, store, out, device):
         dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                                 world_size=MESH_RANKS)
         mesh = create_mesh((MESH_RANKS,), ("data",), device_type=device)
-        fi.reset_launch_counts()
+        STACKS.reset()
         for label, build, batches in mesh_cases(device):
             result[label] = mesh_step_rows(build(), mesh, batches, device)
         result["launches"] = launch_counts()
@@ -3586,8 +3600,8 @@ def phase_mesh(smi, arrays, device="cuda", epoch_steps=None):
     bitwise = torch.equal(rows_m, rows_0) and all(torch.equal(a, b) for a, b in zip(params_m, params_0))
     loss_err, row_err, rows_ok = rows_agree(rows_m, rows_0)
     param_err = max(float((a - b).abs().max()) for a, b in zip(params_m, params_0))
-    # The kernels' wrappers count launches on the card (on the CPU they run
-    # the plain versions, which count nothing).
+    # The kernels launch on the card (on the CPU the plain versions run,
+    # which launch nothing).
     want = (WARMUP_CALLS + MESH_COMPARED_STEPS + steps,) * 2 if device == "cuda" else (0, 0)
     finite = bool(torch.isfinite(timed_m).all() and torch.isfinite(timed_0).all())
     ok = rows_ok and param_err <= MESH_PARAM_TOL and launches == want and finite
@@ -3766,11 +3780,11 @@ def phase_batch_norm(smi):
     layers = dict(BN_RESNET50)
     for shape in shapes:
         x, scale, offset, mean, var, dy = bn_case(shape)
-        before = fbn.fused_batch_norm.launches
+        before = STACKS.launches("BN")
         y, stats = fbn._launch(x, scale, offset, mean, var, *bn)
         grads = fbn._launch_bwd(dy, x, stats, scale)
         torch.cuda.synchronize()
-        launches = fbn.fused_batch_norm.launches - before
+        launches = STACKS.launches("BN") - before
         want_y, want_stats = fbn.reference_batch_norm(x, scale, offset, mean, var, *bn)
         want = fbn.reference_batch_norm_bwd(dy, x, stats, scale)
         forward_equal = torch.equal(y, want_y) and torch.equal(stats, want_stats)
@@ -3828,7 +3842,7 @@ def phase_batch_norm(smi):
     reset_counts()
     metrics, _ = train(images.cuda(), labels.cuda(), LR)
     torch.cuda.synchronize()
-    launches = fbn.fused_batch_norm.launches
+    launches = STACKS.launches("BN")
     ok = launches == 53 * BN_LAUNCHES_A_LAYER and math.isfinite(float(metrics["loss"]))
     log(f"[bn] {describe_resnet(config)}: one eager train step at batch 32 launched {launches} "
         f"batch-norm kernels (want 53 x {BN_LAUNCHES_A_LAYER}), loss "
@@ -3887,7 +3901,7 @@ def main() -> int:
     check_compile_cache()
     elapsed('the harness')
     types_fwd, types_bwd = phase_kernel_types(smi)
-    wide_fwd, wide_bwd, wide_only_fwd, wide_only_bwd = phase_wide(smi)
+    wide_band_fwd, wide_band_bwd, wide_only_fwd, wide_only_bwd = phase_wide(smi)
     wide_timing = phase_time_wide(smi)
     phase_time_narrow(smi)
     epochs_fwd, epochs_bwd = phase_epochs(smi, arrays)
@@ -3919,13 +3933,13 @@ def main() -> int:
         {"name": "fused_euler_fwd", "route": "cuda", "source": source + "fused_euler_fwd.cu",
          "replaces": replaces + "146",
          "launches": (serve_launches + paths_fwd + train_fwd + harness_fwd + types_fwd
-                      + epochs_fwd + wide_fwd - wide_only_fwd + records_launches[0] + mnist_fwd
-                      + ex_fwd - ex_wide_fwd + mesh_fwd),
+                      + epochs_fwd + wide_band_fwd + records_launches[0] + mnist_fwd + ex_fwd
+                      + mesh_fwd),
          "max_abs_err": fwd_err, **fwd_timing, "library_ms": None},
         {"name": "fused_euler_bwd", "route": "cuda", "source": source + "fused_euler_bwd.cu",
          "replaces": replaces + "216",
-         "launches": (train_bwd + harness_bwd + types_bwd + epochs_bwd + wide_bwd - wide_only_bwd
-                      + records_launches[1] + mnist_bwd + ex_bwd - ex_wide_bwd + mesh_bwd),
+         "launches": (train_bwd + harness_bwd + types_bwd + epochs_bwd + wide_band_bwd
+                      + records_launches[1] + mnist_bwd + ex_bwd + mesh_bwd),
          "max_abs_err": bwd_err, **bwd_timing, "library_ms": None},
         {"name": "fused_euler_fwd_wide", "route": "cuda", "source": source + "fused_euler_wide.cu",
          "replaces": replaces + "146", "launches": wide_only_fwd + paths_wide_fwd + ex_wide_fwd,

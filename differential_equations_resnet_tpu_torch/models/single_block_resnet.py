@@ -15,16 +15,12 @@ stack's shapes and the config before anything is launched
   or ``int8_forward``, any kernel type, within the JAX kernel gate's reach
   (C <= 128, H*W <= 4096) runs as the fused L-layer integrator
   `fused_euler_dense`: the hand-written kernels B1 (forward) and B2
-  (backward) on the card, their plain PyTorch versions on the CPU.  Every
-  such stack that the JAX package would run on its Pallas kernel
-  (``use_pallas``, antisymmetric) takes it; every other one takes it where
-  the kernels' band variant runs it (B2's too where a gradient will be
-  needed), or, where the shape needs a wide variant
-  (`ops.kernels.fused_integrator.kernel_variant`), up to the width where
-  that was measured faster (`wide_route`);
+  (backward) on the card, each in the variant its shape takes
+  (`ops.kernels.fused_integrator.kernel_variant`), their plain PyTorch
+  versions on the CPU;
 - the per-layer route, everything else: int8, midpoint, RK4, k != 3, batch
-  norm, bf16 or fp16 compute (the JAX gate takes fp32 only), and the Euler
-  3x3 stacks left to it above, run layer by layer on cuDNN with TF32 off,
+  norm, bf16 or fp16 compute (the JAX gate takes fp32 only), and Euler 3x3
+  stacks past the reach, run layer by layer on cuDNN with TF32 off,
   each layer checkpointed where ``remat`` is set.  A stack without batch
   norm runs there in one of three forms (`per_layer_form`), in this order:
   "int8" with ``int8_forward`` (`ops.quantize.euler_relu_step_int8`, or the
@@ -131,8 +127,6 @@ from differential_equations_resnet_tpu_torch.ops.kernels.fused_integrator import
     fused_euler_dense,
     fused_euler_eligible,
     in_reference_reach,
-    kernel_variant,
-    needs_gradient,
 )
 from differential_equations_resnet_tpu_torch.ops.quantize import (
     conv_relu_field_int8,
@@ -489,33 +483,11 @@ def jax_runs_pallas(config: SingleBlockResNetConfig, x: torch.Tensor) -> bool:
             and x.dim() == 4 and x.dtype == torch.float32 and in_reference_reach(x.shape))
 
 
-# The widest stack whose train step on the kernels' wide variants beat the
-# per-layer one in every turn (64L x C, batch 32, NVIDIA H100 80GB HBM3 at
-# 700 W, chip_smoke.py's phase_time_wide; PERF.md §6): at 112 filters
-# 59.27-59.39 ms fused against 64.55-64.66 per layer, at 128 67.09-67.11 ms
-# against 67.65-67.87 (a 0.8% margin; with the kernels before their Hopper
-# redesign the fused step lost there by 0.7%).  128 is the reach's width,
-# so the limit sends no stack off the kernels: it is a hook for measurement
-# only, which chip_smoke.py lowers to time the per-layer route beside them.
-WIDE_FUSED_MAX_CHANNELS = 128
-
-
-def wide_route(channels: int) -> str:
-    """The route of an fp32 Euler 3x3 stack of C channels, within the
-    reach, whose shape needs a kernel's wide variant and which the JAX
-    package would not run on Pallas: "fused" up to
-    `WIDE_FUSED_MAX_CHANNELS`, else "per_layer"."""
-    return "fused" if channels <= WIDE_FUSED_MAX_CHANNELS else "per_layer"
-
-
 def identity_route(config: SingleBlockResNetConfig, x: torch.Tensor, dense: ConvParams) -> str:
     """"fused" for an fp32 Euler stack of 3x3 kernels (the dense stack's own
     shape) without batch norm, of any kernel type, within the JAX kernel
-    gate's reach: one B1 launch (and one B2 launch in the backward) on the
-    card.  Of those, a stack whose shape needs a wide variant (of B1, or of
-    B2 where a gradient will be needed; `kernel_variant`) takes
-    `wide_route` unless the JAX package would run it on Pallas
-    (`jax_runs_pallas`).
+    gate's reach: one B1 call (and one B2 call in the backward) on the
+    card, in the variant the shape takes (`kernel_variant`).
     "per_layer" for every other stack, as the JAX package runs it on XLA's
     convolutions, an ``int8_forward`` stack first of all.  Decided from
     shapes, dtype and the config, before anything is launched.
@@ -530,12 +502,7 @@ def identity_route(config: SingleBlockResNetConfig, x: torch.Tensor, dense: Conv
     if (config.int8_forward or config.use_batch_norm or config.integrator != "euler"
             or tuple(dense.kernel.shape[1:3]) != (3, 3) or not fused_euler_eligible(x, dense)):
         return "per_layer"
-    if jax_runs_pallas(config, x):
-        return "fused"
-    grad = needs_gradient(x, dense.kernel, dense.bias)
-    wide = kernel_variant(x.shape) == "wide" or (
-        grad and kernel_variant(x.shape, backward=True) == "wide")
-    return wide_route(x.shape[-1]) if wide else "fused"
+    return "fused"
 
 
 def _s2d_eligible(config: SingleBlockResNetConfig, x: torch.Tensor) -> bool:

@@ -27,13 +27,12 @@ dtype.
 
 `fused_batch_norm` is the entry point, for CUDA tensors (contiguous,
 fp32) only: `torch.var_mean` and one apply launch forward and three
-launches backward (sums, finalize, apply), the launches counted in
-``fused_batch_norm.launches``; under a CUDA-graph capture they are
-recorded, not launched, and counted in ``fused_batch_norm.captured``, and
-each replay adds the launches its graph holds (`train.train_step`).  The
-plain versions (`reference_batch_norm`, `reference_batch_norm_bwd`) are
-not a route: `models.blocks.batch_norm` sends every other call to its
-composite of torch ops.
+launches backward (sums, finalize, apply), each call reported, as kernel
+"BN" with x's shape and variant "forward" or "backward", to the record of
+hand-kernel calls (`utils.tracing.STACKS`, which counts a captured graph's
+launches at each replay).  The plain versions (`reference_batch_norm`,
+`reference_batch_norm_bwd`) are not a route: `models.blocks.batch_norm`
+sends every other call to its composite of torch ops.
 """
 
 from __future__ import annotations
@@ -49,6 +48,7 @@ from differential_equations_resnet_tpu_torch.ops.kernels.fused_integrator import
     SM_COUNT,
     _sm_count,
 )
+from differential_equations_resnet_tpu_torch.utils.tracing import STACKS, StackEntry
 
 # Threads a block (csrc/batch_norm.cu's kThreads) and the blocks an SM the
 # plan aims at.
@@ -144,13 +144,11 @@ def _check(x: torch.Tensor, **per_channel: torch.Tensor) -> None:
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _count(launches: int) -> None:
-    """``launches`` launches, or as many recorded into the CUDA graph being
-    captured on the current stream."""
-    if torch.cuda.is_current_stream_capturing():
-        fused_batch_norm.captured += launches
-    else:
-        fused_batch_norm.launches += launches
+def _report(x: torch.Tensor, variant: str, launches: int) -> None:
+    """A call on the card to the record (`utils.tracing.STACKS`), into the
+    graph being captured on the current stream if any."""
+    STACKS.add(StackEntry("BN", tuple(x.shape), variant, 0, launches),
+               torch.cuda.is_current_stream_capturing())
 
 
 def _raise_on_error(lib, result: int, which: str) -> int:
@@ -181,7 +179,7 @@ def _launch(x, scale, offset, mean, var, epsilon: float, momentum: float):
             offset.data_ptr(), mean.data_ptr(), var.data_ptr(), y.data_ptr(), stats.data_ptr(),
             x.numel() // channels, channels, plan["vec"], plan["lanes"], plan["chunks"],
             plan["chunk"], epsilon, momentum, 1.0 - momentum, _stream(x))
-    _count(_raise_on_error(lib, launches, "batch norm forward"))
+    _report(x, "forward", _raise_on_error(lib, launches, "batch norm forward"))
     return y, stats
 
 
@@ -204,7 +202,7 @@ def _launch_bwd(dy, x, stats, scale):
             dscale.data_ptr(), doffset.data_ptr(), factors.data_ptr(), partial.data_ptr(),
             x.numel() // channels, channels, plan["vec"], plan["lanes"], plan["chunks"],
             plan["chunk"], _stream(x))
-    _count(_raise_on_error(lib, launches, "batch norm backward"))
+    _report(x, "backward", _raise_on_error(lib, launches, "batch norm backward"))
     return dx, dscale, doffset
 
 
@@ -241,9 +239,5 @@ def fused_batch_norm(
     variance (not differentiable); the gradient flows to x, scale and
     offset.  `torch.var_mean` and the kernels, on CUDA tensors only (x
     contiguous float32 and the per-channel tensors float32 on its device,
-    or `ValueError`), the launches counted in
-    ``fused_batch_norm.launches``."""
+    or `ValueError`), each call reported to `utils.tracing.STACKS`."""
     return FusedBatchNorm.apply(x, scale, offset, mean, var, float(epsilon), float(momentum))
-
-
-fused_batch_norm.launches = fused_batch_norm.captured = 0

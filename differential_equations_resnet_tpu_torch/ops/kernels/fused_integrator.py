@@ -27,7 +27,7 @@ records it as one node of a served program (`utils.serving`) and the
 program launches it when it runs; B2 stays a call of its wrapper inside
 `FusedEulerDense.backward`.  Both take every shape the JAX gate takes (a
 4-D contiguous fp32 state with C <= 128 and H*W <= 4096, any batch:
-`fused_euler_eligible`, `fused_euler_bwd_eligible`, `in_reference_reach`),
+`fused_euler_eligible`, `in_reference_reach`),
 each in one of two variants chosen from the shape alone before anything is
 launched (`kernel_variant`):
 
@@ -43,16 +43,14 @@ launched (`kernel_variant`):
   implicit GEMM fed by cp.async (`wide_plan`): L launches for B1, 3L for
   B2.
 
-Each wrapper counts its kernel's launches on the card in ``launches``: a
-band call counts the launches it made (one, or one for each group of
-images where the card cannot hold every band of the batch at once), a wide
-call counts one, and the wide variants' calls count also in
-``WIDE_FWD.launches`` / ``WIDE_BWD.launches``.  Under a
-CUDA-graph capture the kernel is recorded into the graph, not launched: the
-wrapper counts it in ``captured`` instead, and each replay of the graph adds
-the launches it holds (`count_replay`).  Each call is also recorded, with
-its stack's shape, variant, bands and launches, in the record of fused
-stacks (`utils.tracing.STACKS`), under the graph being captured if any.
+Each call on the card reports itself, with its stack's shape, variant,
+bands and the launches it made, to the record of hand-kernel calls
+(`utils.tracing.STACKS`), the only count of the kernels' launches: a band
+call makes one launch, or one for each group of images where the card
+cannot hold every band of the batch at once; a wide call makes L (B1) or
+3L (B2).  Under a CUDA-graph capture the kernel is recorded into the
+graph, not launched, and the call goes into that graph's entries, which
+each replay adds to the record's totals.
 """
 
 from __future__ import annotations
@@ -416,12 +414,6 @@ def fused_euler_eligible(x: torch.Tensor, blocks) -> bool:
     return _stack_with_bias(blocks) and not _declined(x)
 
 
-def fused_euler_bwd_eligible(x: torch.Tensor, blocks) -> bool:
-    """Whether the backward kernel B2 takes this combination: B1's gate,
-    the JAX gate."""
-    return fused_euler_eligible(x, blocks)
-
-
 @functools.lru_cache(maxsize=1024)
 def kernel_bands(x_shape, backward: bool = False, sms: int = SM_COUNT):
     """Bands an image of a batch of shape (B, H, W, C) runs in, on B1 (or on
@@ -634,19 +626,6 @@ def _raise_on_error(lib, err, which):
         )
 
 
-class LaunchCounter:
-    """Launches of one kernel variant on the card (``launches``), and those
-    recorded into CUDA graphs being captured (``captured``)."""
-
-    def __init__(self):
-        self.launches = self.captured = 0
-
-
-# The wide variants' calls; each also counts as a launch of B1 or B2.
-WIDE_FWD = LaunchCounter()
-WIDE_BWD = LaunchCounter()
-
-
 def _stack_entry(kernel: str, x, kernels, variant: str, bands: int, launches: int):
     """The record's `StackEntry` of a call of B1 or B2 (``kernel``) on the
     state ``x`` with (L, ...) ``kernels``."""
@@ -655,17 +634,10 @@ def _stack_entry(kernel: str, x, kernels, variant: str, bands: int, launches: in
                       launches)
 
 
-def _count_launch(*counters, launches: int = 1, entry: StackEntry) -> None:
-    """``launches`` launches of each counter's kernel, or as many recorded
-    into the CUDA graph being captured on the current stream; the call's
-    ``entry`` in the record of fused stacks (`utils.tracing.STACKS`)."""
-    capturing = torch.cuda.is_current_stream_capturing()
-    STACKS.add(entry, capturing)
-    for counter in counters:
-        if capturing:
-            counter.captured += launches
-        else:
-            counter.launches += launches
+def _report(entry: StackEntry) -> None:
+    """A call on the card to the record (`utils.tracing.STACKS`), into the
+    graph being captured on the current stream if any."""
+    STACKS.add(entry, torch.cuda.is_current_stream_capturing())
 
 
 def _stream(x):
@@ -695,8 +667,7 @@ def _launch(x, kernels, biases, h, matmul_dtype, bands=None) -> torch.Tensor:
             _stream(x),
         )
     _raise_on_error(lib, -min(launches, 0), "fused_euler_fwd")  # minus the error, or the launches
-    _count_launch(fused_euler_dense, launches=launches,
-                  entry=_stack_entry("B1", x, kernels, "band", bands, launches))
+    _report(_stack_entry("B1", x, kernels, "band", bands, launches))
     return out
 
 
@@ -734,8 +705,7 @@ def _launch_wide(x, kernels, biases, h, matmul_dtype) -> torch.Tensor:
             float(h), int(matmul_dtype == torch.bfloat16), _stream(x),
         )
     _raise_on_error(lib, err, "fused_euler_fwd (wide)")
-    _count_launch(fused_euler_dense, WIDE_FWD,
-                  entry=_stack_entry("B1", x, kernels, "wide", 0, num_layers))
+    _report(_stack_entry("B1", x, kernels, "wide", 0, num_layers))
     return _unpadded(out, channels)
 
 
@@ -783,8 +753,7 @@ def _launch_bwd(x, kernels, biases, g, h, matmul_dtype, bands=None):
             _stream(x),
         )
     _raise_on_error(lib, -min(launches, 0), "fused_euler_bwd")  # minus the error, or the launches
-    _count_launch(fused_euler_dense_bwd, launches=launches,
-                  entry=_stack_entry("B2", x, kernels, "band", bands, launches))
+    _report(_stack_entry("B2", x, kernels, "band", bands, launches))
     # The bands' partials summed here, in a fixed order, where the JAX
     # wrapper sums its tiles'.
     total = partials.sum(dim=0)
@@ -826,8 +795,7 @@ def _launch_bwd_wide(x, kernels, biases, g, h, matmul_dtype):
             int(matmul_dtype == torch.bfloat16), _stream(x),
         )
     _raise_on_error(lib, err, "fused_euler_bwd (wide)")
-    _count_launch(fused_euler_dense_bwd, WIDE_BWD,
-                  entry=_stack_entry("B2", x, kernels, "wide", 0, 3 * num_layers))
+    _report(_stack_entry("B2", x, kernels, "wide", 0, 3 * num_layers))
     return _unpadded(gx, channels), gk, gb
 
 
@@ -891,15 +859,12 @@ def fused_euler_dense_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(gx, gk, gb) of `fused_euler_dense` at the cotangent g of y_L.  CPU
     tensors take `reference_euler_dense_bwd`; CUDA tensors launch B2 in the
-    variant the shape takes, counted in ``fused_euler_dense_bwd.launches``,
-    or raise `ValueError` outside the JAX gate's reach."""
+    variant the shape takes, reported to `utils.tracing.STACKS`, or raise
+    `ValueError` outside the JAX gate's reach."""
     if _device_type(x) == "cpu":
         STACKS.add(_stack_entry("B2", x, kernels, "plain", 0, 0), captured=False)
         return reference_euler_dense_bwd(x, kernels, biases, g, h, matmul_dtype)
     return _launch_bwd(x, kernels, biases, g, h, matmul_dtype)
-
-
-fused_euler_dense_bwd.launches = fused_euler_dense_bwd.captured = 0
 
 
 class FusedEulerDense(torch.autograd.Function):
@@ -928,41 +893,15 @@ def fused_euler_dense(
 ) -> torch.Tensor:
     """y_L of L fused Euler steps with dense (L, 3, 3, C, C) kernels.
 
-    CPU tensors take the plain versions.  CUDA tensors launch B1, counted in
-    ``fused_euler_dense.launches`` (and B2 in the backward), each in the
-    variant the shape takes, or raise `ValueError` outside the JAX gate's
+    CPU tensors take the plain versions.  CUDA tensors launch B1 (and B2 in
+    the backward), each in the variant the shape takes and reported to
+    `utils.tracing.STACKS`, or raise `ValueError` outside the JAX gate's
     reach (`in_reference_reach`).
     ``matmul_dtype=torch.bfloat16`` rounds the conv operands to bf16 and
     keeps fp32 sums; the state y stays fp32 throughout."""
     if needs_gradient(x, kernels, biases):
         return FusedEulerDense.apply(x, kernels, biases, h, matmul_dtype)
     return _forward(x, kernels, biases, h, matmul_dtype)
-
-
-fused_euler_dense.launches = fused_euler_dense.captured = 0
-
-# What counts launches, in the order of `captured_launches`: the wrappers
-# (every call of B1 and B2) and the wide variants.
-COUNTED_WRAPPERS = (fused_euler_dense, fused_euler_dense_bwd, WIDE_FWD, WIDE_BWD)
-
-
-def captured_launches() -> Tuple[int, ...]:
-    """Each counter's launches recorded into captured graphs so far."""
-    return tuple(w.captured for w in COUNTED_WRAPPERS)
-
-
-def count_replay(in_graph: Tuple[int, ...]) -> None:
-    """Count one replay of a graph that holds ``in_graph`` launches of each
-    counter's kernel (the difference of `captured_launches` across its
-    capture)."""
-    for wrapper, n in zip(COUNTED_WRAPPERS, in_graph):
-        wrapper.launches += n
-
-
-def reset_launch_counts() -> None:
-    """Every counter's launches set to 0."""
-    for wrapper in COUNTED_WRAPPERS:
-        wrapper.launches = 0
 
 
 def fused_euler_3x3(

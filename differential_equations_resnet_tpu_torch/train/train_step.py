@@ -26,9 +26,12 @@ CUDA), set before each replay.  A capture that fails raises; there is no
 eager fallback.  The warm-up calls before a capture change the parameters,
 the optimizer's state and the batch-norm buffers; each is given back its
 value before the capture, so a replayed step starts where an eager one
-would.  On the CPU the same functions run the step eagerly in a loop.  The
-kernels' launch counters count the replays' launches, not the capture
-(`_captured_launches`, `_count_replay`).
+would.  On the CPU the same functions run the step eagerly in a loop.  Each
+capture opens a graph in the record of hand-kernel calls
+(`utils.tracing.STACKS.capture`) and each replay adds that graph's totals
+(`STACKS.replay`), so the record counts the replays' launches, not the
+capture's, without this module knowing which kernels exist: it imports
+none of them.
 
 A graph holds the addresses of the parameters, the gradients and the
 optimizer's state tensors at capture: after ``optimizer.load_state_dict``
@@ -71,8 +74,6 @@ from torch import nn
 
 from differential_equations_resnet_tpu_torch.models.blocks import l2_kernel_penalty
 from differential_equations_resnet_tpu_torch.models.single_block_resnet import map_leaves
-from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator
-from differential_equations_resnet_tpu_torch.ops.kernels.batch_norm import fused_batch_norm
 from differential_equations_resnet_tpu_torch.parallel.collectives import all_gather_single, data_parallel
 from differential_equations_resnet_tpu_torch.parallel.mesh import axis_size, shard_batch
 from differential_equations_resnet_tpu_torch.train.telemetry import gradient_mean_norms
@@ -392,27 +393,12 @@ def _lr_tensors(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
     return tensors
 
 
-def _captured_launches() -> Tuple[int, ...]:
-    """The launches recorded into captured graphs so far by each kernel
-    counter: B1, B2 and their wide variants
-    (`fused_integrator.captured_launches`), then batch norm's."""
-    return (*fused_integrator.captured_launches(), fused_batch_norm.captured)
-
-
-def _count_replay(in_graph: Tuple[int, ...]) -> None:
-    """Count one replay of a graph that holds ``in_graph`` launches of each
-    counter's kernels, in `_captured_launches`' order."""
-    fused_integrator.count_replay(in_graph[:-1])
-    fused_batch_norm.launches += in_graph[-1]
-
-
 def _capture(what: str, fn, inputs, keep: Sequence[torch.Tensor] = ()):
     """Capture ``fn(*inputs)`` (static device tensors, already filled) in a
     CUDA graph after `WARMUP_CALLS` calls on a side stream; every tensor of
     ``keep`` is given back its value from before the warm-up, in place.
-    Returns (graph, outputs, the kernel launches the graph holds, as
-    `_captured_launches` counts them); the graph's fused
-    stacks are recorded under ``what`` (`utils.tracing.STACKS`).  Raises, naming
+    Returns (graph, outputs, the record's `CapturedGraph` of its hand-kernel
+    calls, named ``what``: `utils.tracing.STACKS.capture`).  Raises, naming
     ``what``, if the capture fails: there is no eager fallback."""
     saved = [t.clone() for t in keep]
     side = torch.cuda.Stream(device=inputs[0].device)
@@ -426,21 +412,19 @@ def _capture(what: str, fn, inputs, keep: Sequence[torch.Tensor] = ()):
             for t, s in zip(keep, saved):
                 t.copy_(s)
         graph = torch.cuda.CUDAGraph()
-        before = _captured_launches()
-        with STACKS.capture(what), torch.cuda.graph(graph):
+        with STACKS.capture(what) as recorded, torch.cuda.graph(graph):
             outputs = fn(*inputs)
-        in_graph = tuple(a - b for a, b in zip(_captured_launches(), before))
     except RuntimeError as e:
         raise RuntimeError(f"CUDA graph capture of the {what} failed: {e}") from e
-    return graph, outputs, in_graph
+    return graph, outputs, recorded
 
 
 class _Replayed:
     """``fn`` over CUDA tensors, captured once per input shapes and dtypes
     (`_capture`) and replayed over static copies of the inputs.  The output
     is the graph's own: the next call overwrites it.  ``keep()`` names the
-    state the warm-up must leave as it found it.  Each replay counts the
-    kernel launches its graph holds (`_count_replay`)."""
+    state the warm-up must leave as it found it.  Each replay adds the
+    hand-kernel calls its graph holds to the record (`STACKS.replay`)."""
 
     def __init__(self, what: str, fn, keep=tuple):
         self.what, self.fn, self.keep = what, fn, keep
@@ -452,12 +436,12 @@ class _Replayed:
             with span("deqres.capture"):
                 static = [t.clone() for t in inputs]
                 self.graphs[key] = (static, *_capture(self.what, self.fn, static, self.keep()))
-        static, graph, outputs, in_graph = self.graphs[key]
+        static, graph, outputs, recorded = self.graphs[key]
         with span("deqres.replay"):
             for s, t in zip(static, inputs):
                 s.copy_(t)
             graph.replay()
-        _count_replay(in_graph)
+        STACKS.replay(recorded)
         return outputs
 
 

@@ -37,18 +37,27 @@ the same thread):
     A served request's conversion and copy to the device, and the wait for
     its answer with the copy back to NumPy (`utils.serving.load_exported`).
 
-The fused stacks (`STACKS`, a `StackRecord`): every call of a fused Euler
-stack's kernel, B1 or B2 (`ops.kernels.fused_integrator`), appends one
-`StackEntry` (the kernel, (H, W, C, L), the variant, bands an image, the
+The hand-kernel calls (`STACKS`, a `StackRecord`), the port's only count
+of kernel launches: every call of a hand-written kernel, B1 or B2 of a
+fused Euler stack (`ops.kernels.fused_integrator`) or batch norm's
+forward or backward ("BN", `ops.kernels.batch_norm`), reports one
+`StackEntry` (the kernel, its shape, the variant, bands an image, the
 launches the call made), in launch order: a call run eagerly to
-``STACKS.eager`` (the latest `EAGER_CALLS`), a call recorded into a CUDA
-graph to that graph's list in ``STACKS.graphs``, which `train.train_step`
-opens at each capture under the graph's name ("train step", "eval batch",
-...).  A replay adds nothing: ``STACKS.graph("train step")`` lists what
-each replay of the last captured train step launches, so a reader of a
-device trace can tell which stack each kernel of a replayed window ran.
-The plain CPU path records its calls too, as variant "plain" with no
-launch.
+``STACKS.eager`` (the latest `EAGER_CALLS`) and at once to the totals, a
+call recorded into a CUDA graph to that graph's list in ``STACKS.graphs``,
+which `train.train_step` opens at each capture under the graph's name
+("train step", "eval batch", ...).  ``STACKS.capture(what)`` gives back
+the graph (a `CapturedGraph`), whose totals by (kernel, variant) are
+summed once when the capture ends; ``STACKS.replay(graph)`` adds them to
+the record's, one add a key, so the totals count each replay's launches
+and never the capture's.  ``STACKS.graph("train step")`` lists what each
+replay of the last captured train step launches, so a reader of a device
+trace can tell which stack each kernel of a replayed window ran.
+``STACKS.calls(kernel, variant=None)`` and ``STACKS.launches(kernel,
+variant=None)`` read the totals (over every variant where ``variant`` is
+None), ``STACKS.reset()`` sets them to 0 and ``STACKS.clear()`` empties
+the whole record.  The plain CPU path records its B1/B2 calls too, as
+variant "plain" with no launch.
 
 No span is opened inside what a CUDA graph captures: the graph holds
 kernels only.  The streaming producer thread's batch assembly and staging
@@ -61,7 +70,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.profiler import record_function
@@ -80,45 +89,77 @@ def span(name: str):
 
 
 class StackEntry(NamedTuple):
-    """One call of a fused Euler stack's kernel."""
+    """One call of a hand-written kernel."""
 
-    kernel: str                       # "B1" (forward) or "B2" (backward)
-    shape: Tuple[int, int, int, int]  # (H, W, C, L)
-    variant: str                      # "band", "wide", or "plain" (the CPU's)
-    bands: int                        # bands an image of the band variant, else 0
-    launches: int                     # kernel launches made or captured
+    kernel: str             # "B1" (forward), "B2" (backward) or "BN" (batch norm)
+    shape: Tuple[int, ...]  # (H, W, C, L) of B1/B2; batch norm's x shape
+    variant: str            # "band", "wide", "plain" (the CPU's); BN's "forward", "backward"
+    bands: int              # bands an image of the band variant, else 0
+    launches: int           # kernel launches made or captured
+
+
+def _totals(entries) -> Tuple[Tuple[Tuple[str, str], int, int], ...]:
+    """((kernel, variant), calls, launches) of ``entries``, by key."""
+    totals: Dict[Tuple[str, str], List[int]] = {}
+    for e in entries:
+        total = totals.setdefault((e.kernel, e.variant), [0, 0])
+        total[0] += 1
+        total[1] += e.launches
+    return tuple((key, calls, launches) for key, (calls, launches) in totals.items())
+
+
+class CapturedGraph:
+    """A graph captured under `StackRecord.capture`: its entries, and once
+    the capture has ended their totals (`_totals`), which each replay adds."""
+
+    def __init__(self):
+        self.entries: List[StackEntry] = []
+        self.totals = ()
 
 
 class StackRecord:
-    """The fused-stack calls of the process, grouped by capture (the
-    module's docstring)."""
+    """The hand-kernel calls of the process, grouped by capture, and their
+    totals (the module's docstring)."""
 
     def __init__(self):
         self.eager = collections.deque(maxlen=EAGER_CALLS)
         self.graphs: List[Tuple[Optional[str], List[StackEntry]]] = []
-        self._open: Optional[List[StackEntry]] = None
+        self._open: Optional[CapturedGraph] = None
+        self.reset()
 
     def add(self, entry: StackEntry, captured: bool) -> None:
         """``entry`` to the graph being captured where ``captured`` (to an
-        unnamed graph where the capture was not opened by `capture`), else
-        to the eager calls."""
+        unnamed graph, never replayed into the totals, where the capture
+        was not opened by `capture`), else to the eager calls and the
+        totals."""
         if not captured:
             self.eager.append(entry)
+            key = (entry.kernel, entry.variant)
+            self._calls[key] += 1
+            self._launches[key] += entry.launches
             return
         if self._open is None:
-            self.graphs.append((None, []))
-            self._open = self.graphs[-1][1]
-        self._open.append(entry)
+            self._open = CapturedGraph()
+            self.graphs.append((None, self._open.entries))
+        self._open.entries.append(entry)
 
     @contextlib.contextmanager
     def capture(self, what: str):
-        """The calls captured inside, as the graph named ``what``."""
-        self.graphs.append((what, []))
-        self._open = self.graphs[-1][1]
+        """The calls captured inside, as the graph named ``what``; yields
+        its `CapturedGraph`."""
+        graph = self._open = CapturedGraph()
+        self.graphs.append((what, graph.entries))
         try:
-            yield
+            yield graph
         finally:
             self._open = None
+            graph.totals = _totals(graph.entries)
+
+    def replay(self, graph: CapturedGraph) -> None:
+        """One replay of ``graph``: its totals added to the record's."""
+        for key, calls, launches in graph.totals:
+            self._calls[key] += calls
+            self._launches[key] += launches
 
     def graph(self, what: str) -> Optional[List[StackEntry]]:
         """The calls of the last graph captured as ``what``, or None."""
@@ -127,10 +168,34 @@ class StackRecord:
                 return entries
         return None
 
+    def calls(self, kernel: str, variant: Optional[str] = None) -> int:
+        """Calls of ``kernel`` (in ``variant``, or in any) run eagerly or
+        replayed since the last `reset`."""
+        return self._total(self._calls, kernel, variant)
+
+    def launches(self, kernel: str, variant: Optional[str] = None) -> int:
+        """Launches of ``kernel`` (in ``variant``, or in any) made eagerly or
+        replayed since the last `reset`."""
+        return self._total(self._launches, kernel, variant)
+
+    @staticmethod
+    def _total(counts, kernel, variant) -> int:
+        if variant is not None:
+            return counts[(kernel, variant)]
+        return sum(n for (k, _), n in counts.items() if k == kernel)
+
+    def reset(self) -> None:
+        """The totals set to 0; the entries and the captured graphs' own
+        totals stay."""
+        self._calls = collections.Counter()
+        self._launches = collections.Counter()
+
     def clear(self) -> None:
+        """The whole record emptied: entries, graphs and totals."""
         self.eager.clear()
         self.graphs.clear()
         self._open = None
+        self.reset()
 
 
 STACKS = StackRecord()

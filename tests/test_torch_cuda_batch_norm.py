@@ -20,6 +20,7 @@ import torch
 
 from differential_equations_resnet_tpu_torch.models.blocks import BN_EPSILON, BN_MOMENTUM
 from differential_equations_resnet_tpu_torch.ops.kernels import batch_norm as fbn
+from differential_equations_resnet_tpu_torch.utils.tracing import STACKS
 
 pytestmark = pytest.mark.cuda
 
@@ -65,11 +66,12 @@ def test_kernels_match_the_plain_version(card, shape):
     one launch forward, three backward, and two runs bit for bit."""
     x, scale, offset, mean, var, dy = bn_case(shape)
     eps = torch.finfo(torch.float32).eps
-    before = fbn.fused_batch_norm.launches
+    before = STACKS.launches("BN", "forward"), STACKS.launches("BN", "backward")
     y, stats = fbn._launch(x, scale, offset, mean, var, BN_EPSILON, BN_MOMENTUM)
     grads = fbn._launch_bwd(dy, x, stats, scale)
     torch.cuda.synchronize()
-    assert fbn.fused_batch_norm.launches == before + LAUNCHES_A_LAYER
+    assert (STACKS.launches("BN", "forward") - before[0],
+            STACKS.launches("BN", "backward") - before[1]) == (1, LAUNCHES_A_LAYER - 1)
     want_y, want_stats = fbn.reference_batch_norm(x, scale, offset, mean, var, BN_EPSILON,
                                                   BN_MOMENTUM)
     assert torch.equal(stats, want_stats)
@@ -126,12 +128,12 @@ def test_the_route_on_the_card(card, dtype, train, fused):
     x, scale, offset, mean, var, _ = bn_case((4, 7, 7, 64), seed=3)
     x = x.to(dtype).requires_grad_()
     params, state = blocks.BatchNormParams(scale, offset), blocks.BatchNormState(mean, var)
-    before = fbn.fused_batch_norm.launches
+    before = STACKS.launches("BN")
     y, new_state = blocks.batch_norm(x, params, state, train)
     torch.autograd.grad(y.float().sum(), x)
     torch.cuda.synchronize()
     assert (type(y.grad_fn).__name__ == "FusedBatchNormBackward") == fused
-    assert fbn.fused_batch_norm.launches - before == (LAUNCHES_A_LAYER if fused else 0)
+    assert STACKS.launches("BN") - before == (LAUNCHES_A_LAYER if fused else 0)
     want_y, want_state = blocks.composite_batch_norm(x.detach(), params, state, train)
     if fused:
         assert torch.equal(y.detach(), want_y)
@@ -153,11 +155,7 @@ def test_captured_resnet50_step_replays_the_eager_step_bit_for_bit(card):
     eager step's bit for bit in both replays.  The eager step launches
     53 x 4 batch-norm kernels, the graph holds as many, and each replay
     counts them."""
-    from differential_equations_resnet_tpu_torch.train.train_step import (
-        _capture,
-        _count_replay,
-        build_loss_fn,
-    )
+    from differential_equations_resnet_tpu_torch.train.train_step import _capture, build_loss_fn
 
     model = _resnet50()
     loss_fn = build_loss_fn(model)
@@ -177,19 +175,19 @@ def test_captured_resnet50_step_replays_the_eager_step_bit_for_bit(card):
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        before = fbn.fused_batch_norm.launches
+        before = STACKS.launches("BN")
         eager = [t.clone() for t in step(images, labels)]
         torch.cuda.synchronize()
-        assert fbn.fused_batch_norm.launches - before == per_step
-        graph, outputs, in_graph = _capture("bn step", step, [images, labels],
+        assert STACKS.launches("BN") - before == per_step
+        graph, outputs, recorded = _capture("bn step", step, [images, labels],
                                             keep=list(model.buffers()))
-        assert in_graph[-1] == per_step
+        assert sum(e.launches for e in recorded.entries if e.kernel == "BN") == per_step
         for _ in range(2):
-            before = fbn.fused_batch_norm.launches
+            before = STACKS.launches("BN")
             graph.replay()
-            _count_replay(in_graph)
+            STACKS.replay(recorded)
             torch.cuda.synchronize()
-            assert fbn.fused_batch_norm.launches - before == per_step
+            assert STACKS.launches("BN") - before == per_step
             for i, (a, b) in enumerate(zip(outputs, eager)):
                 assert torch.equal(a, b), ("logits" if i == 0 else names[bn[i - 1]])
     finally:

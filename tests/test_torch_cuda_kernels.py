@@ -33,6 +33,7 @@ from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     num_cross_pairs,
 )
 from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
+from differential_equations_resnet_tpu_torch.utils.tracing import STACKS
 
 pytestmark = pytest.mark.cuda
 
@@ -66,17 +67,17 @@ def case(batch, height, width, channels, layers, seed):
 
 def test_kernel_matches_plain_version_on_cuda(card):
     x, kernels, bias, _ = case(3, 8, 8, 8, 3, seed=7)
-    before = fi.fused_euler_dense.launches
+    before = STACKS.launches("B1")
     for dtype in (torch.float32, torch.bfloat16):
         got = fi.fused_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
         want = fi.reference_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
         torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
-    assert fi.fused_euler_dense.launches == before + 2
+    assert STACKS.launches("B1") == before + 2
     # Gradients come from B2 and match the plain backward.
     leaves = [t.clone().requires_grad_() for t in (x, kernels, bias)]
-    bwd_before = fi.fused_euler_dense_bwd.launches
+    bwd_before = STACKS.launches("B2")
     got = torch.autograd.grad(torch.sin(fi.fused_euler_dense(*leaves, 0.125)).sum(), leaves)
-    assert fi.fused_euler_dense_bwd.launches == bwd_before + 1
+    assert STACKS.launches("B2") == bwd_before + 1
     g = torch.cos(fi.reference_euler_dense(x, kernels, bias, 0.125))
     want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125)
     for a, b in zip(got, want):
@@ -86,9 +87,9 @@ def test_kernel_matches_plain_version_on_cuda(card):
     # JAX gate's reach and raises before any launch.
     x, kernels, bias, g = case(1, 32, 32, 60, 2, seed=9)  # no |z| within 1e-5 of 0
     leaves = [t.clone().requires_grad_() for t in (x, kernels, bias)]
-    wide = fi.WIDE_BWD.launches
+    wide = STACKS.calls("B2", "wide")
     got = torch.autograd.grad((fi.fused_euler_dense(*leaves, 0.125) * g).sum(), leaves)
-    assert fi.WIDE_BWD.launches == wide + 1
+    assert STACKS.calls("B2", "wide") == wide + 1
     want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
@@ -96,12 +97,12 @@ def test_kernel_matches_plain_version_on_cuda(card):
     torch.testing.assert_close(fi.fused_euler_dense(x, kernels, bias, 0.125),
                                fi.reference_euler_dense(x, kernels, bias, 0.125),
                                rtol=TOL, atol=TOL)
-    launched = fi.fused_euler_dense.launches
+    launched = STACKS.calls("B1")
     with pytest.raises(ValueError, match="JAX kernel gate"):
         fi.fused_euler_dense(torch.zeros(1, 2, 2, 129, device="cuda"),
                              torch.zeros(1, 3, 3, 129, 129, device="cuda"),
                              torch.zeros(1, 129, device="cuda"), 0.125)
-    assert fi.fused_euler_dense.launches == launched
+    assert STACKS.calls("B1") == launched
 
 
 @pytest.mark.parametrize("shape", [(3, 8, 8, 8, 3), (3, 16, 16, 6, 3)])  # C = 8, C = 6
@@ -110,13 +111,13 @@ def test_backward_kernel_matches_plain_version_on_cuda(card, shape):
     depth where no relu mask flips (chip_smoke.py holds the 64-layer
     training shape against a float64 judge)."""
     x, kernels, bias, g = case(*shape, seed=15)
-    before = fi.fused_euler_dense_bwd.launches
+    before = STACKS.launches("B2")
     for dtype in (torch.float32, torch.bfloat16):
         got = fi.fused_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
         want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=TOL, atol=TOL)
-    assert fi.fused_euler_dense_bwd.launches == before + 2
+    assert STACKS.launches("B2") == before + 2
 
 
 BAND_EDGES = {  # (batch, H, W, C, L): what the band plan makes of it
@@ -227,11 +228,11 @@ def test_band_schedule_edges_on_cuda(card, shape):
     x, kernels, bias, g = case(batch, height, width, channels, layers, seed=19)
     backward_too = fi.kernel_variant(x.shape, backward=True) == "band"
     for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 1e-2)):
-        before = fi.fused_euler_dense.launches
+        before = STACKS.launches("B1")
         got = fi._launch(x, kernels, bias, 0.125, dtype, bands)
         n = bands or fi.kernel_bands(x.shape)
         groups = 1 if n == 1 else -(-batch // fi.resident_images(height, width, channels, n))
-        assert fi.fused_euler_dense.launches - before == groups
+        assert STACKS.launches("B1") - before == groups
         want = fi.reference_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
         if not backward_too:
@@ -269,9 +270,9 @@ def test_backward_roles_match_plain_version_on_cuda(card, shape):
     batch, height, width, channels, layers, bands = shape
     x, kernels, bias, g = case(batch, height, width, channels, layers, seed=19)
     for dtype in (torch.float32, torch.bfloat16):
-        before = fi.fused_euler_dense_bwd.launches
+        before = STACKS.launches("B2")
         got = fi._launch_bwd(x, kernels, bias, g, 0.125, dtype, bands)
-        assert fi.fused_euler_dense_bwd.launches - before >= 1
+        assert STACKS.launches("B2") - before >= 1
         want = fi.reference_euler_dense_bwd(x, kernels, bias, g, 0.125, dtype)
         judge = fi.reference_euler_dense_bwd(*[t.double() for t in (x, kernels, bias, g)],
                                              0.125, dtype)
@@ -284,7 +285,7 @@ def test_backward_roles_match_plain_version_on_cuda(card, shape):
 def test_replayed_training_step_takes_the_specialised_b2(card):
     """At the training shape (batch 32, 32x32x16, 4 bands) every B2 launch
     of a replayed step is a band launch, whose reverse sweep runs in conv
-    warps and dK warps: the counters count the replays' launches, none of
+    warps and dK warps: the record counts the replays' launches, none of
     them wide."""
     from differential_equations_resnet_tpu_torch.models import cifar10_single_block_config
     from differential_equations_resnet_tpu_torch.train import make_adam, make_multi_step
@@ -298,11 +299,10 @@ def test_replayed_training_step_takes_the_specialised_b2(card):
     labels = torch.from_numpy(rng.integers(0, 10, (2, 32))).cuda()
     multi(images, labels, [1e-3] * 2)  # the warm-up calls and the capture
     torch.cuda.synchronize()
-    counters = (fi.fused_euler_dense_bwd, fi.WIDE_BWD)
-    before = [c.launches for c in counters]
+    before = [STACKS.launches("B2"), STACKS.calls("B2", "wide")]
     multi(images, labels, [1e-3] * 2)
     torch.cuda.synchronize()
-    assert [c.launches - b for c, b in zip(counters, before)] == [2, 0]
+    assert [STACKS.launches("B2") - before[0], STACKS.calls("B2", "wide") - before[1]] == [2, 0]
 
 
 def test_band_kernels_on_two_streams_at_once(card):
@@ -346,9 +346,9 @@ def test_graph_replayed_train_step_equals_the_eager_step(card):
     (`make_multi_step`) against the eager step (`make_train_step`) on a twin
     model with the same capturable Adam, 3 steps of a 2-layer model: loss,
     correct, grad norms and parameters agree (cuDNN's weight gradient sums
-    in no fixed order, so not bit for bit).  The kernels' counters count
-    the warm-up calls and the replays' launches; the capture is counted
-    apart, in ``captured``."""
+    in no fixed order, so not bit for bit).  The record of hand-kernel
+    calls counts the warm-up calls and the replays' launches, and lists the
+    captured graph's calls apart."""
     from differential_equations_resnet_tpu_torch.models import (
         build_single_block_resnet,
         cifar10_single_block_config,
@@ -371,13 +371,13 @@ def test_graph_replayed_train_step_equals_the_eager_step(card):
     images = torch.from_numpy(rng.uniform(0, 255, (3, 8, 32, 32, 3)).astype(np.float32)).cuda()
     labels = torch.from_numpy(rng.integers(0, 10, (3, 8))).cuda()
     lrs = [1e-3, 2e-3, 5e-4]
-    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
-    captured_before = fi.captured_launches()
+    before = (STACKS.launches("B1"), STACKS.launches("B2"))
     metrics, norms = make_multi_step(models[0], optimizers[0])(images, labels, lrs)
     torch.cuda.synchronize()
-    counted = (fi.fused_euler_dense.launches - before[0], fi.fused_euler_dense_bwd.launches - before[1])
+    counted = (STACKS.launches("B1") - before[0], STACKS.launches("B2") - before[1])
     assert counted == (WARMUP_CALLS + 3, WARMUP_CALLS + 3)
-    assert [a - b for a, b in zip(fi.captured_launches(), captured_before)] == [1, 1, 0, 0]
+    assert [(e.kernel, e.variant, e.launches) for e in STACKS.graph("train step")] == [
+        ("B1", "band", 1), ("B2", "band", 1)]
     eager = make_train_step(models[1], optimizers[1])
     for i in range(3):
         m, n = eager(images[i], labels[i], lrs[i])
@@ -450,7 +450,7 @@ def test_regular_train_step_on_the_card_equals_the_cpu(card):
     on_cpu = build_single_block_resnet(config, params=on_card.params(), device="cpu")
     steps = [make_train_step(m, make_adam(m.parameters())) for m in (on_card, on_cpu)]
     rng = np.random.default_rng(5)
-    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+    before = (STACKS.launches("B1"), STACKS.launches("B2"))
     for _ in range(2):
         images = torch.from_numpy(rng.uniform(0, 255, (4, 32, 32, 3)).astype(np.float32))
         labels = torch.from_numpy(rng.integers(0, 10, 4))
@@ -458,8 +458,7 @@ def test_regular_train_step_on_the_card_equals_the_cpu(card):
                                             for s, d in zip(steps, ("cuda", "cpu"))]
         torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"], rtol=1e-5, atol=0)
         torch.testing.assert_close(n_card.cpu(), n_cpu, rtol=1e-4, atol=0)
-    assert (fi.fused_euler_dense.launches - before[0],
-            fi.fused_euler_dense_bwd.launches - before[1]) == (2, 2)
+    assert (STACKS.launches("B1") - before[0], STACKS.launches("B2") - before[1]) == (2, 2)
     for p, q in zip(on_card.parameters(), on_cpu.parameters()):
         torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=0, atol=1e-5)
 
@@ -469,7 +468,7 @@ def test_a_width_the_kernels_decline_raises_on_the_card(card):
     kernels decline (which raised, or ran layer by layer, before the wide
     variants) run on the wide variants and agree with the CPU: a regular
     train step at 64 filters (the band B2 takes C <= 56 at 32x32) on the
-    route `wide_route` names, a forward at 72 (the band B1 takes C <= 64),
+    fused route, a forward at 72 (the band B1 takes C <= 64),
     and, where the JAX package would run Pallas (use_pallas,
     antisymmetric), a train step at 64 filters on B1 and the wide B2."""
     import dataclasses
@@ -478,7 +477,6 @@ def test_a_width_the_kernels_decline_raises_on_the_card(card):
         build_single_block_resnet,
         cifar10_single_block_config,
     )
-    from differential_equations_resnet_tpu_torch.models import single_block_resnet as sbr
     from differential_equations_resnet_tpu_torch.train import make_adam, make_train_step
 
     rng = np.random.default_rng(8)
@@ -487,8 +485,8 @@ def test_a_width_the_kernels_decline_raises_on_the_card(card):
     config = cifar10_single_block_config(num_layers=2, num_filters=64, kernel_type="regular",
                                          final_time=0.25)
     pallas = dataclasses.replace(config, kernel_type="antisymmetric", use_pallas=True)
-    for cfg, fused in ((config, sbr.wide_route(64) == "fused"), (pallas, True)):
-        before = (fi.fused_euler_dense.launches, fi.WIDE_BWD.launches)
+    for cfg in (config, pallas):  # the CPU twin's plain calls launch nothing
+        before = (STACKS.launches("B1"), STACKS.calls("B2", "wide"))
         on_card = _card_model(cfg)
         on_cpu = build_single_block_resnet(cfg, params=on_card.params(), device="cpu")
         steps = [make_train_step(m, make_adam(m.parameters())) for m in (on_card, on_cpu)]
@@ -498,16 +496,16 @@ def test_a_width_the_kernels_decline_raises_on_the_card(card):
         torch.testing.assert_close(n_card.cpu(), n_cpu, rtol=1e-4, atol=0)
         for p, q in zip(on_card.parameters(), on_cpu.parameters()):
             torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=0, atol=1e-5)
-        launched = (fi.fused_euler_dense.launches - before[0], fi.WIDE_BWD.launches - before[1])
-        assert launched == ((1, 1) if fused else (0, 0)), cfg.kernel_type
+        launched = (STACKS.launches("B1") - before[0], STACKS.calls("B2", "wide") - before[1])
+        assert launched == (1, 1), cfg.kernel_type
     wide = dataclasses.replace(config, filters_per_block=(72,))
     wide_card = _card_model(wide)
     wide_cpu = build_single_block_resnet(wide, params=wide_card.params(), device="cpu")
-    before = fi.WIDE_FWD.launches
+    before = STACKS.calls("B1", "wide")
     with torch.no_grad():
         torch.testing.assert_close(wide_card(images.cuda()).cpu(), wide_cpu(images),
                                    rtol=TOL, atol=TOL)
-    assert fi.WIDE_FWD.launches - before == (1 if sbr.wide_route(72) == "fused" else 0)
+    assert STACKS.calls("B1", "wide") - before == 1
 
 
 # (batch, H, W, C, L), seed: each seed leaves no |z| within 5e-6 of 0
@@ -539,7 +537,7 @@ def test_wide_variants_match_plain_versions_on_cuda(card, shape, seed):
     memory is what `wide_smem_bytes` counts."""
     x, kernels, bias, g = case(*shape, seed=seed)
     assert fi.wide_library_smem_bytes(shape[3]) == fi.wide_smem_bytes(shape[3])
-    before = (fi.WIDE_FWD.launches, fi.WIDE_BWD.launches)
+    before = (STACKS.calls("B1", "wide"), STACKS.calls("B2", "wide"))
     for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 1e-2)):
         got = fi._launch_wide(x, kernels, bias, 0.125, dtype)
         want = fi.reference_euler_dense(x, kernels, bias, 0.125, matmul_dtype=dtype)
@@ -552,7 +550,7 @@ def test_wide_variants_match_plain_versions_on_cuda(card, shape, seed):
             assert norm_rel(a, j) <= 2 * norm_rel(w, j) + 1e-5, (dtype, name)
         again = fi._launch_bwd_wide(x, kernels, bias, g, 0.125, dtype)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
-    assert (fi.WIDE_FWD.launches - before[0], fi.WIDE_BWD.launches - before[1]) == (2, 4)
+    assert (STACKS.calls("B1", "wide") - before[0], STACKS.calls("B2", "wide") - before[1]) == (2, 4)
 
 
 def test_captured_remat_midpoint_step_equals_the_eager_step(card):
@@ -575,7 +573,7 @@ def test_captured_remat_midpoint_step_equals_the_eager_step(card):
     rng = np.random.default_rng(6)
     images = torch.from_numpy(rng.uniform(0, 255, (3, 4, 32, 32, 3)).astype(np.float32)).cuda()
     labels = torch.from_numpy(rng.integers(0, 10, (3, 4))).cuda()
-    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+    before = (STACKS.calls("B1"), STACKS.calls("B2"))
     metrics, norms = make_multi_step(models[0], optimizers[0])(images, labels, [1e-3] * 3)
     eager = make_train_step(models[1], optimizers[1])
     for i in range(3):
@@ -584,7 +582,7 @@ def test_captured_remat_midpoint_step_equals_the_eager_step(card):
         torch.testing.assert_close(norms[i], n, rtol=1e-4, atol=0)
     for p, q in zip(*[m.parameters() for m in models]):
         torch.testing.assert_close(p, q, rtol=0, atol=1e-5)
-    assert (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches) == before
+    assert (STACKS.calls("B1"), STACKS.calls("B2")) == before
 
 
 def _resnet50_pair(image_size, classes, seed=0, **fields):
@@ -606,12 +604,12 @@ def test_resnet50_eval_forward_on_the_card_equals_the_cpu(card):
     on_card, on_cpu = _resnet50_pair(32, 10)
     images = torch.from_numpy(np.random.default_rng(9).uniform(0, 255, (2, 32, 32, 3))
                               .astype(np.float32))
-    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+    before = (STACKS.calls("B1"), STACKS.calls("B2"))
     with torch.no_grad():
         got = on_card(images.cuda(), return_logits=True).cpu()
         want = on_cpu(images, return_logits=True)
     assert norm_rel(got, want) <= 1e-4
-    assert (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches) == before
+    assert (STACKS.calls("B1"), STACKS.calls("B2")) == before
 
 
 def test_captured_bottleneck_step_leaves_the_running_statistics_as_an_eager_step(card):
@@ -651,9 +649,9 @@ def test_b1_op_on_cuda_is_one_launch_of_the_kernel(card):
     and returns what `_launch` returns, bit for bit, whatever the state's
     memory layout."""
     x, kernels, biases, _ = case(2, 16, 16, 8, 3, 71)
-    fi.reset_launch_counts()
+    STACKS.reset()
     got = torch.ops.deqres_torch.fused_euler_fwd(x, kernels, biases, 0.125, torch.float32)
-    assert fi.fused_euler_dense.launches == 1
+    assert (STACKS.calls("B1"), STACKS.launches("B1")) == (1, 1)
     assert torch.equal(got, fi._launch(x, kernels, biases, 0.125, torch.float32))
     # A state in another memory layout (as an exported graph may hand it
     # over) runs as its contiguous copy.
@@ -684,9 +682,9 @@ def test_compiled_export_serves_on_the_card(card, tmp_path):
         predict, _ = load_exported(export_model(model, str(tmp_path / name), batch_size=4),
                                    device="cuda")
         predict(x)  # the capture
-        fi.reset_launch_counts()
+        STACKS.reset()
         answers.append(predict(x))
-        assert fi.fused_euler_dense.launches == 1 and predict.routes["compiled"] == 2
+        assert STACKS.launches("B1") == 1 and predict.routes["compiled"] == 2
     np.testing.assert_array_equal(answers[0], answers[1])
     np.testing.assert_allclose(answers[0], want(x), rtol=TOL, atol=TOL)
 

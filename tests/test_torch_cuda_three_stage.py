@@ -6,8 +6,8 @@ once: a launch for each group of images it holds).
 
 Each kernel against its plain version, eagerly and replayed from a
 captured graph, with the launches that `fused_integrator.resident_images`
-implies, as the launch counters and the port's record of the fused stacks
-(`utils.tracing.STACKS`) count them; and the model's captured train step,
+implies, as the port's record of hand-kernel calls (`utils.tracing.STACKS`)
+lists and counts them; and the model's captured train step,
 whose record lists the three stacks' B1 calls forward, then their B2 calls
 in reverse.  Every test needs a CUDA device and skips itself without one.
 The file imports neither JAX nor the JAX package:
@@ -114,11 +114,9 @@ def test_stack_kernels_match_plain_versions_eager_and_replayed(card, shape):
         return (fi.fused_euler_dense(x, kernels, bias, H_STEP),
                 *fi.fused_euler_dense_bwd(x, kernels, bias, g, H_STEP))
 
-    before = fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches
     eager = both(x, kernels, bias, g)
     torch.cuda.synchronize()
-    assert (fi.fused_euler_dense.launches - before[0],
-            fi.fused_euler_dense_bwd.launches - before[1]) == (fwd_launches, bwd_launches)
+    assert (STACKS.launches("B1"), STACKS.launches("B2")) == (fwd_launches, bwd_launches)
     assert list(STACKS.eager) == want
     torch.testing.assert_close(eager[0], fi.reference_euler_dense(x, kernels, bias, H_STEP),
                                rtol=TOL, atol=TOL)
@@ -128,13 +126,14 @@ def test_stack_kernels_match_plain_versions_eager_and_replayed(card, shape):
     for name, a, w, j in zip(("gx", "gk", "gb"), eager[1:], plain, judge):
         assert norm_rel(a, j) <= 2 * norm_rel(w, j) + 1e-5, name
 
-    graph, outputs, in_graph = _capture("stack pair", both, [x, kernels, bias, g])
-    assert in_graph[:2] == (fwd_launches, bwd_launches)
-    assert STACKS.graph("stack pair") == want
+    graph, outputs, recorded = _capture("stack pair", both, [x, kernels, bias, g])
+    assert recorded.entries == want == STACKS.graph("stack pair")
+    STACKS.reset()
     for _ in range(2):
         graph.replay()
-        fi.count_replay(in_graph)
+        STACKS.replay(recorded)
     torch.cuda.synchronize()
+    assert (STACKS.launches("B1"), STACKS.launches("B2")) == (2 * fwd_launches, 2 * bwd_launches)
     for name, a, b in zip(("y", "gx", "gk", "gb"), outputs, eager):
         assert torch.equal(a, b), name
     assert list(STACKS.eager)[2:] == want * 3  # the capture's warm-up calls, eager
@@ -147,7 +146,6 @@ def test_the_models_captured_step_records_its_stacks(card):
     rng = np.random.default_rng(3)
     images = torch.from_numpy(rng.uniform(0, 255, (3, BATCH, 32, 32, 3)).astype(np.float32))
     labels = torch.from_numpy(rng.integers(0, 10, (3, BATCH)))
-    before = fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches
     metrics, _ = multi(images.cuda(), labels.cuda(), [1e-3] * 3)
     assert torch.isfinite(metrics["loss"]).all()
     shapes = list(STACKS_3X18.values())
@@ -156,5 +154,4 @@ def test_the_models_captured_step_records_its_stacks(card):
     assert STACKS.graph("train step") == want
     per_step = [sum(e.launches for e in want if e.kernel == k) for k in ("B1", "B2")]
     # Three warm-up calls, then the capture and three replays.
-    assert (fi.fused_euler_dense.launches - before[0],
-            fi.fused_euler_dense_bwd.launches - before[1]) == (6 * per_step[0], 6 * per_step[1])
+    assert (STACKS.launches("B1"), STACKS.launches("B2")) == (6 * per_step[0], 6 * per_step[1])

@@ -9,7 +9,7 @@ the composite's bit for bit), at ResNet-50's nine batch-norm shapes cut in
 rows and at the single-block family's C = 8 and 16.  The route: only CUDA
 fp32 tensors reach the kernels; train mode on the CPU, eval mode, another
 dtype and a data group of more than one rank keep the composite.  The kernels' launch plan, their C signatures,
-the train step's count of captured launches and the benchmark's two
+their calls in the record of hand-kernel calls and the benchmark's two
 readers of the kernels (``perfbench/metrics/bn_*.train.py``) are checked
 here too; the kernels themselves run in
 ``tests/test_torch_cuda_batch_norm.py``.
@@ -29,7 +29,7 @@ from differential_equations_resnet_tpu_torch.models import blocks
 from differential_equations_resnet_tpu_torch.ops.kernels import batch_norm as fbn
 from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
 from differential_equations_resnet_tpu_torch.ops.kernels._build import SOURCES
-from differential_equations_resnet_tpu_torch.train import train_step
+from differential_equations_resnet_tpu_torch.utils.tracing import STACKS, StackEntry, StackRecord
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -118,7 +118,7 @@ def test_cpu_train_mode_on_fp32_keeps_the_composite():
     bit (the plain version's forward too), and no kernel launch."""
     x, scale, offset, mean, var = bn_inputs((2, 3, 5, 8), torch.float32)
     leaves = [t.clone().requires_grad_() for t in (x, scale, offset)]
-    before = fbn.fused_batch_norm.launches
+    before = STACKS.calls("BN"), STACKS.launches("BN")
     y, state = blocks.batch_norm(leaves[0], blocks.BatchNormParams(*leaves[1:]),
                                  blocks.BatchNormState(mean, var), True)
     assert type(y.grad_fn).__name__ != "FusedBatchNormBackward"
@@ -135,7 +135,7 @@ def test_cpu_train_mode_on_fp32_keeps_the_composite():
     dy = torch.cos(plain_y)
     for a, b in zip(torch.autograd.grad(y, leaves, dy), torch.autograd.grad(want_y, want_leaves, dy)):
         assert torch.equal(a, b)
-    assert fbn.fused_batch_norm.launches == before
+    assert (STACKS.calls("BN"), STACKS.launches("BN")) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -143,10 +143,10 @@ def test_the_kernels_take_only_cuda_fp32_tensors(dtype):
     """`fused_batch_norm` has no CPU route: a CPU tensor is refused before
     anything runs, and nothing is counted."""
     x, scale, offset, mean, var = bn_inputs((2, 3, 5, 8), dtype)
-    before = fbn.fused_batch_norm.launches
+    before = STACKS.calls("BN"), STACKS.launches("BN")
     with pytest.raises(ValueError, match="CUDA"):
         fbn.fused_batch_norm(x, scale, offset, mean, var, blocks.BN_EPSILON, blocks.BN_MOMENTUM)
-    assert fbn.fused_batch_norm.launches == before
+    assert (STACKS.calls("BN"), STACKS.launches("BN")) == before
 
 
 def test_a_non_contiguous_fp32_input_is_normalized_as_its_copy():
@@ -253,17 +253,30 @@ def test_the_kernels_use_no_atomics():
 
 
 def test_a_replay_counts_batch_norm_launches_apart(monkeypatch):
-    """The train step's capture reports batch norm's captured launches last,
-    after B1's, B2's and their wide variants'; a replay adds each to its
-    own counter."""
-    monkeypatch.setattr(fbn.fused_batch_norm, "captured", 5)
-    monkeypatch.setattr(fbn.fused_batch_norm, "launches", 10)
-    for wrapper in fi.COUNTED_WRAPPERS:
-        monkeypatch.setattr(wrapper, "launches", 0)
-    assert train_step._captured_launches() == (*fi.captured_launches(), 5)
-    train_step._count_replay((1, 2, 0, 0, 318))
-    assert fbn.fused_batch_norm.launches == 328
-    assert [w.launches for w in fi.COUNTED_WRAPPERS] == [1, 2, 0, 0]
+    """Batch norm's calls report to the record that B1's and B2's do, as
+    kernel "BN" with x's shape and variant "forward" or "backward"; a
+    graph that holds B1, B2, a wide B2 and batch norm adds each kernel's
+    launches to its own totals at each replay, and its capture adds none."""
+    record = StackRecord()
+    for module in (fi, fbn):
+        monkeypatch.setattr(module, "STACKS", record)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    x, kernels = torch.zeros(32, 8, 8, 16), torch.zeros(64, 3, 3, 16, 16)
+    with record.capture("train step") as graph:
+        fi._report(fi._stack_entry("B1", x, kernels, "band", 1, 1))
+        fbn._report(x, "forward", 1)
+        fbn._report(x, "backward", 3)
+        fi._report(fi._stack_entry("B2", x, kernels[:2], "wide", 0, 6))
+        fi._report(fi._stack_entry("B2", x, kernels, "band", 2, 1))
+    assert record.graph("train step")[1:3] == [StackEntry("BN", (32, 8, 8, 16), "forward", 0, 1),
+                                               StackEntry("BN", (32, 8, 8, 16), "backward", 0, 3)]
+    assert record.launches("BN") == record.launches("B1") == record.launches("B2") == 0
+    for _ in range(106):
+        record.replay(graph)
+    assert (record.calls("BN"), record.launches("BN")) == (212, 424)
+    assert (record.launches("BN", "forward"), record.launches("BN", "backward")) == (106, 318)
+    assert (record.launches("B1"), record.launches("B2")) == (106, 742)
+    assert (record.calls("B2", "wide"), record.launches("B2", "wide")) == (106, 636)
 
 
 # Two steps' device operations: each step one layer's four batch-norm

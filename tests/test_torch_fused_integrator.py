@@ -203,23 +203,23 @@ def test_eligibility_gate():
 def test_backward_eligibility_gate():
     _, (x, blocks) = euler_case()
     zeros = lambda *shape: torch.zeros(shape)
-    assert fi.fused_euler_bwd_eligible(x, blocks)
-    assert not fi.fused_euler_bwd_eligible(x, blocks._replace(bias=None))
+    assert fi.fused_euler_eligible(x, blocks)
+    assert not fi.fused_euler_eligible(x, blocks._replace(bias=None))
     # The training shape in its 4 bands: 128,304 B a block (y_l and K^T
     # double buffered); a whole image does not fit one block.
     assert fi.bwd_smem_bytes(32, 32, 16, 4) == 128_304
     assert fi.bwd_smem_bytes(32, 32, 16) > fi.SMEM_LIMIT_BYTES
-    assert fi.fused_euler_bwd_eligible(zeros(32, 32, 32, 16), blocks)
+    assert fi.fused_euler_eligible(zeros(32, 32, 32, 16), blocks)
     # At 32x32 the band B2 takes C <= 56 (it took C <= 21), B1 C <= 64; the
     # wide B2 takes the rest of the reach.
-    assert fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 21), blocks)
-    assert fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 22), blocks)
+    assert fi.fused_euler_eligible(zeros(1, 32, 32, 21), blocks)
+    assert fi.fused_euler_eligible(zeros(1, 32, 32, 22), blocks)
     assert fi.kernel_variant((1, 32, 32, 56), backward=True) == "band"
     assert fi.kernel_variant((1, 32, 32, 57), backward=True) == "wide"
     assert fi.kernel_variant((1, 32, 32, 57)) == "band"
-    assert fi.fused_euler_bwd_eligible(zeros(1, 32, 32, 57), blocks)
-    assert fi.fused_euler_bwd_eligible(zeros(1, 64, 64, 16), blocks)
-    assert not fi.fused_euler_bwd_eligible(zeros(1, 2, 2, 129), blocks)
+    assert fi.fused_euler_eligible(zeros(1, 32, 32, 57), blocks)
+    assert fi.fused_euler_eligible(zeros(1, 64, 64, 16), blocks)
+    assert not fi.fused_euler_eligible(zeros(1, 2, 2, 129), blocks)
 
 
 def test_declined_shape_raises_before_any_launch():

@@ -161,18 +161,14 @@ def _route(kernel_type, k=3, integrator="euler", channels=8, grad=True, **fields
 def test_routes():
     """The route is decided from the dense stack's shapes and the config,
     with or without a gradient: fused for every kernel type's 3x3 Euler
-    stack that the band B1 takes and, where a gradient is needed, the band
-    B2 too; `wide_route` where a wide variant is needed (C = 60 at 32x32
-    with a gradient, 72 and 128 without); the per-layer route for k = 5, midpoint,
-    RK4 and C > 128, as the JAX package runs all of them on XLA's
-    convolutions."""
+    stack within the reach, whichever variant of B1 and B2 its shape takes
+    (at 32x32 C = 8 the band ones, C = 60 a wide B2, 72 and 128 both wide);
+    the per-layer route for k = 5, midpoint, RK4 and C > 128, as the JAX
+    package runs all of them on XLA's convolutions."""
     for kernel_type in ("antisymmetric", "regular", "centrosymmetric"):
         for grad in (True, False):
-            assert _route(kernel_type, grad=grad) == "fused"
-            assert _route(kernel_type, channels=60, grad=grad) == (
-                sbr.wide_route(60) if grad else "fused")
-            assert _route(kernel_type, channels=72, grad=grad) == sbr.wide_route(72)
-            assert _route(kernel_type, channels=128, grad=grad) == sbr.wide_route(128)
+            for channels in (8, 60, 72, 128):
+                assert _route(kernel_type, channels=channels, grad=grad) == "fused"
         for integrator in ("midpoint", "rk4"):
             assert _route(kernel_type, integrator=integrator) == "per_layer"
     assert _route("regular", channels=136) == "per_layer"
@@ -183,8 +179,8 @@ def test_routes():
 def test_declined_stacks_follow_the_jax_decision():
     """Batch norm always takes the per-layer route (JAX skips Pallas with
     it); a stack that needs a wide kernel variant takes the fused route
-    where the JAX package would run Pallas (use_pallas, antisymmetric,
-    within its gate's reach: C <= 128), else `wide_route`."""
+    whether or not the JAX package would run it on Pallas (use_pallas,
+    antisymmetric, within its gate's reach: C <= 128)."""
     for kernel_type in ("antisymmetric", "regular"):
         for grad in (True, False):
             assert _route(kernel_type, grad=grad, use_batch_norm=True) == "per_layer"
@@ -193,13 +189,11 @@ def test_declined_stacks_follow_the_jax_decision():
     for grad in (True, False):
         assert _route("antisymmetric", channels=72, grad=grad, use_pallas=True) == "fused"
         assert _route("antisymmetric", channels=128, grad=grad, use_pallas=True) == "fused"
-        assert _route("regular", channels=72, grad=grad, use_pallas=True) == sbr.wide_route(72)
-        assert _route("regular", channels=128, grad=grad,
-                      use_pallas=True) == sbr.wide_route(128)
-        assert _route("centrosymmetric", channels=72, grad=grad,
-                      use_pallas=True) == sbr.wide_route(72)
+        assert _route("regular", channels=72, grad=grad, use_pallas=True) == "fused"
+        assert _route("regular", channels=128, grad=grad, use_pallas=True) == "fused"
+        assert _route("centrosymmetric", channels=72, grad=grad, use_pallas=True) == "fused"
     assert _route("antisymmetric", channels=60, use_pallas=True) == "fused"
-    assert _route("antisymmetric", channels=60, use_pallas=False) == sbr.wide_route(60)
+    assert _route("antisymmetric", channels=60, use_pallas=False) == "fused"
     assert _route("antisymmetric", channels=136, use_pallas=True) == "per_layer"
     assert _route("antisymmetric", integrator="rk4", use_pallas=True) == "per_layer"
 
@@ -208,8 +202,8 @@ def test_a_width_b2_declines_raises_on_the_card(monkeypatch):
     """On the card an Euler 3x3 stack at a width the band B2 declines (C =
     60 at 32x32), where a gradient is needed, no longer raises: with
     use_pallas and antisymmetric kernels, where the JAX package runs Pallas,
-    it trains on B1 (band) and B2 (wide); a regular one takes `wide_route`;
-    under no_grad B1 alone runs.  CUDA-looking CPU tensors stand in for the
+    it trains on B1 (band) and B2 (wide), and so does a regular one; under
+    no_grad B1 alone runs.  CUDA-looking CPU tensors stand in for the
     card, with the kernels' launches recorded instead of made; B1's op is
     replaced by its CUDA kernel, which the dispatcher picks from the
     tensor's real device."""
@@ -238,7 +232,7 @@ def test_a_width_b2_declines_raises_on_the_card(monkeypatch):
         card.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda", 0)))
         y, _ = sbr._apply_identity_blocks(x, regular_stage, {}, regular, True)
         y.sum().backward()
-        assert launched == (["B1", "B2"] if sbr.wide_route(60) == "fused" else [])
+        assert launched == ["B1", "B2"]
         launched.clear()
         y, _ = sbr._apply_identity_blocks(x, pallas_stage, {}, pallas, True)
         y.sum().backward()
@@ -247,8 +241,7 @@ def test_a_width_b2_declines_raises_on_the_card(monkeypatch):
         with torch.no_grad():
             sbr._apply_identity_blocks(x, pallas_stage, {}, pallas, False)
     assert launched == ["B1", "B2", "B1"]
-    fused = 3 if sbr.wide_route(60) == "fused" else 2
-    assert sbr.route_counts == {"fused": fused, "per_layer": 3 - fused}
+    assert sbr.route_counts == {"fused": 3, "per_layer": 0}
 
 
 @pytest.mark.parametrize("kernel_type,k,integrator,route", [
@@ -259,19 +252,19 @@ def test_a_width_b2_declines_raises_on_the_card(monkeypatch):
 def test_route_counts_follow_the_model(kernel_type, k, integrator, route):
     """A forward and a train step each count one stack on their route; on
     the CPU no kernel launches (the plain versions run)."""
-    from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
+    from differential_equations_resnet_tpu_torch.utils.tracing import STACKS
 
     config = config_from_json(_config_to_json(config_of(kernel_type, k, integrator, False)))
     model = build_single_block_resnet(config, generator=torch.Generator().manual_seed(1), device="cpu")
     sbr.route_counts.update(fused=0, per_layer=0)
-    launches = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
+    launches = (STACKS.launches("B1"), STACKS.launches("B2"))
     (images, labels), = batches(1, batch=2)
     with torch.no_grad():
         model(torch.from_numpy(images))
     make_train_step(model, make_adam(model.parameters()))(
         torch.from_numpy(images), torch.from_numpy(labels), LR)
     assert sbr.route_counts == {"fused": 0, "per_layer": 0, route: 2}
-    assert (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches) == launches
+    assert (STACKS.launches("B1"), STACKS.launches("B2")) == launches
 
 
 @pytest.mark.parametrize("kernel_type,k", [("antisymmetric", 3), ("regular", 3),

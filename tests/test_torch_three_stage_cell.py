@@ -1,6 +1,6 @@
 """The three-stage CIFAR configuration (``perfbench/configs/sb-antisym-3x18-
 cifar10.json``: He et al.'s layout with the antisymmetric Euler block, batch
-128) on the CPU, the port's record of the fused stacks
+128) on the CPU, the port's record of hand-kernel calls
 (`utils.tracing.STACKS`), and the two readers of one stack's roofline share
 (``perfbench/metrics/b?_roofline.last_stack.train.py``).
 
@@ -51,7 +51,7 @@ def bench():
 
 @pytest.fixture
 def record():
-    """The port's record of the fused stacks, cleared before and after."""
+    """The port's record of hand-kernel calls, cleared before and after."""
     tracing.STACKS.clear()
     yield tracing.STACKS
     tracing.STACKS.clear()
@@ -179,6 +179,27 @@ def test_a_reader_takes_the_last_stacks_launches(bench, record, name, backward, 
     bound = frozen.kernel_bounds(BATCH, *STACKS[-1], backward)["bound_ms"]
     assert reading(bench, name) == pytest.approx(100 * bound / (last_us / 1e3), rel=1e-12)
     assert reading(bench, name, {"kind": "serve", "batch": 1, "calls": STEPS}) is None
+
+
+def test_batch_norm_entries_leave_the_step_the_readers_see(bench, record):
+    """A captured step whose record also holds batch norm's calls ("BN"
+    entries before, between and after the stacks) gives, filtered to B1 and
+    B2, exactly the step without them, and the readers the same readings."""
+    readings = []
+    for with_bn in (False, True):
+        bn = [StackEntry("BN", (BATCH, 32, 32, 16), v, 0, n) for v, n in (("forward", 1),
+                                                                         ("backward", 3))]
+        with record.capture("train step"):
+            for entry in STEP_RECORD:
+                for extra in (bn if with_bn else []):
+                    record.add(extra, captured=True)
+                record.add(entry, captured=True)
+        entries = record.graph("train step")
+        assert len(entries) == len(STEP_RECORD) * (3 if with_bn else 1)
+        assert [e for e in entries if e.kernel in ("B1", "B2")] == STEP_RECORD
+        readings.append([reading(bench, name) for name in ("b1_roofline.last_stack.train",
+                                                           "b2_roofline.last_stack.train")])
+    assert readings[0] == readings[1] and None not in readings[1]
 
 
 @pytest.mark.parametrize("name", ["b1_roofline.last_stack.train",

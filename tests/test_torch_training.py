@@ -418,20 +418,37 @@ def test_training_without_summaries_reports_the_same_epoch(tmp_path):
 
 
 def test_a_replay_counts_the_launches_its_graph_holds():
-    """The launch counters of a graph's kernels grow by what the graph
-    holds at each replay (`count_replay`); what a capture recorded is apart."""
-    from differential_equations_resnet_tpu_torch.ops.kernels import fused_integrator as fi
+    """The record's totals grow by what a captured graph holds at each
+    replay (`StackRecord.replay`), B1, B2, their wide variants and batch
+    norm alike; the capture adds none, an eager call (a warm-up's) adds at
+    once, and `reset` zeroes the totals but not the graph's own."""
+    from differential_equations_resnet_tpu_torch.utils.tracing import StackEntry, StackRecord
 
-    before = (fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches)
-    captured = fi.captured_launches()
-    try:
-        fi.count_replay((1, 1))
-        fi.count_replay((2, 0))
-        assert (fi.fused_euler_dense.launches - before[0],
-                fi.fused_euler_dense_bwd.launches - before[1]) == (3, 1)
-        assert fi.captured_launches() == captured
-    finally:
-        fi.fused_euler_dense.launches, fi.fused_euler_dense_bwd.launches = before
+    record = StackRecord()
+    step = [StackEntry("B1", (32, 32, 16, 64), "band", 4, 1),
+            StackEntry("B1", (32, 32, 72, 2), "wide", 0, 2),
+            StackEntry("BN", (32, 32, 32, 72), "forward", 0, 1),
+            StackEntry("BN", (32, 32, 32, 72), "backward", 0, 3),
+            StackEntry("B2", (32, 32, 72, 2), "wide", 0, 6),
+            StackEntry("B2", (32, 32, 16, 64), "band", 4, 2)]
+    with record.capture("train step") as graph:
+        for entry in step:
+            record.add(entry, captured=True)
+        record.add(step[0], captured=False)  # a warm-up call on another stream
+    assert record.graph("train step") == step
+    assert (record.calls("B1"), record.launches("B1")) == (1, 1)
+    assert record.calls("B2") == record.calls("BN") == 0
+    for _ in range(3):
+        record.replay(graph)
+    assert (record.calls("B1"), record.launches("B1")) == (7, 10)
+    assert (record.calls("B1", "wide"), record.launches("B1", "wide")) == (3, 6)
+    assert (record.calls("B2"), record.launches("B2"), record.launches("B2", "band")) == (6, 24, 6)
+    assert (record.calls("BN"), record.launches("BN")) == (6, 12)
+    record.reset()
+    assert record.calls("B1") == record.launches("B2") == record.launches("BN") == 0
+    record.replay(graph)
+    assert [record.launches(k) for k in ("B1", "B2", "BN")] == [3, 8, 4]
+    assert record.graph("train step") == step
 
 
 def test_evaluate_train_does_not_consume_the_training_iterator():

@@ -82,10 +82,8 @@ def test_the_wide_variant_takes_what_the_band_variant_declined():
     blocks = ConvParams(torch.zeros(1, 3, 3, 4, 4), torch.zeros(1, 4))
     for shape in ((1, 32, 32, 128), (1, 64, 64, 128), (3, 1, 4096, 96)):
         assert fi.fused_euler_eligible(torch.zeros(shape), blocks)
-        assert fi.fused_euler_bwd_eligible(torch.zeros(shape), blocks)
     for shape in ((1, 2, 2, 129), (1, 65, 64, 4), (1, 1, 4160, 8)):
         assert not fi.fused_euler_eligible(torch.zeros(shape), blocks)
-        assert not fi.fused_euler_bwd_eligible(torch.zeros(shape), blocks)
         assert not fi.in_reference_reach(shape)
 
 
@@ -195,16 +193,13 @@ def test_use_pallas_stacks_at_the_wide_widths_are_routed_to_the_kernels(filters)
 @pytest.mark.parametrize("filters", [64, 72, 128])
 def test_other_stacks_at_the_wide_widths_follow_the_wide_route(filters):
     """Without use_pallas (or with regular kernels) a stack whose shape needs
-    a wide variant takes `wide_route`: the fused route up to the widest C
-    measured faster there, the per-layer one past it; one the band variant
-    runs takes the fused route."""
+    a wide variant (B2's at every one of these widths, B1's too past 64)
+    takes the fused route, with or without a gradient, as the JAX package's
+    Pallas stacks do."""
     config, dense = stage_of("regular", filters)
     x = torch.zeros(8, 32, 32, filters)
     assert not sbr.jax_runs_pallas(config, x)
-    assert sbr.identity_route(config, x, dense) == sbr.wide_route(filters)
-    assert sbr.wide_route(filters) == ("fused" if filters <= sbr.WIDE_FUSED_MAX_CHANNELS
-                                       else "per_layer")
-    narrow = torch.zeros(8, 32, 32, filters)
+    assert fi.kernel_variant(x.shape, backward=True) == "wide"
+    assert sbr.identity_route(config, x, dense) == "fused"
     with torch.no_grad():
-        want = "fused" if fi.kernel_variant(narrow.shape) == "band" else sbr.wide_route(filters)
-        assert sbr.identity_route(config, narrow, dense) == want
+        assert sbr.identity_route(config, x, dense) == "fused"
