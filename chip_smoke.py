@@ -100,9 +100,11 @@ Phases, each of which raises on failure (exit code != 0):
    ``export --checkpoint`` in subprocesses; none launches B1 or B2;
    then batch norm's kernels (`phase_batch_norm`): against the plain
    version at ResNet-50's nine shapes at batch 32 and 224x224 and at C = 8,
-   16 and 6, bit for bit across two runs, each shape timed forward and
-   backward beside its byte bound and the composite's time, and 53 x 4
-   launches in one ResNet-50 train step;
+   16 and 6, bit for bit across two runs, the relu and add_relu epilogues
+   against their torch ops bit for bit, each shape timed forward with each
+   epilogue and backward beside its byte bound, the separate ops' time and
+   the composite's, and 53 x 4 launches (by variant 4 / 33 / 16 forward,
+   20 / 33 backward) in one ResNet-50 train step;
 15. int8 ops (`phase_int8_ops`): the dynamic-w8a8 conv at the trunk's
    32x32x128 (batch 32) and ResNet-50 stage 3's strided 3x3 and 1x1 convs,
    then the int8 dgrad and wgrad at the trunk shape: int8 operands and
@@ -3696,12 +3698,20 @@ def phase_mesh(smi, arrays, device="cuda", epoch_steps=None):
 
 
 # ResNet-50 v1's batch norms at batch 32 and 224x224: (N, H, W, C) and the
-# layers of that shape (stem; bn1 and bn2 of stage 1's 3 blocks; bn3 of
-# those and the shortcut; ... 53 in all).
-BN_RESNET50 = (((32, 112, 112, 64), 1), ((32, 56, 56, 64), 6), ((32, 56, 56, 256), 4),
-               ((32, 28, 28, 128), 8), ((32, 28, 28, 512), 5), ((32, 14, 14, 256), 12),
-               ((32, 14, 14, 1024), 7), ((32, 7, 7, 512), 6), ((32, 7, 7, 2048), 4))
+# layers of that shape by the epilogue each takes in the model (stem; bn1 and
+# bn2 of stage 1's 3 blocks; bn3 of those and the shortcut; ... 53 in all):
+# relu after the stem, bn1 and bn2; the residual add and relu after each
+# block's last batch norm (bn_shortcut in a conv block, bn3 in an identity
+# block); none after a conv block's bn3.
+BN_RESNET50 = (((32, 112, 112, 64), {"relu": 1}), ((32, 56, 56, 64), {"relu": 6}),
+               ((32, 56, 56, 256), {"none": 1, "add_relu": 3}), ((32, 28, 28, 128), {"relu": 8}),
+               ((32, 28, 28, 512), {"none": 1, "add_relu": 4}), ((32, 14, 14, 256), {"relu": 12}),
+               ((32, 14, 14, 1024), {"none": 1, "add_relu": 6}), ((32, 7, 7, 512), {"relu": 6}),
+               ((32, 7, 7, 2048), {"none": 1, "add_relu": 3}))
 BN_LAUNCHES_A_LAYER = 4  # the forward's apply (after torch.var_mean); sums, finalize, apply
+# A ResNet-50 step's batch-norm calls by the record's variant.
+BN_RESNET50_VARIANTS = {"forward": 4, "forward+relu": 33, "forward+add_relu": 16,
+                        "backward": 20, "backward+relu": 33}
 BN_TOL = 1e-6  # norm-relative, the backward against the plain version: both take fp64 sums
 
 
@@ -3745,12 +3755,42 @@ def graph_ms(fn, calls=20, repeats=5):
     return statistics.median(times)
 
 
-def bn_bytes(shape, backward=False):
-    """The least bytes a pass of train-mode batch norm moves at ``shape``:
-    forward x twice in (statistics, apply) and y out; backward dy and x
-    twice each in (sums, apply) and dx out; the per-channel vectors left
-    out."""
-    return (5 if backward else 3) * 4 * math.prod(shape)
+def bn_bytes(shape, passes):
+    """The least bytes ``passes`` passes over a tensor of ``shape`` move: the
+    forward's statistics read x once, the apply reads x (and an add_relu
+    layer's residual) and writes out; the backward reads dy and x twice each
+    (sums, apply) and writes dx; the per-channel vectors left out."""
+    return passes * 4 * math.prod(shape)
+
+
+# Passes of the apply alone by epilogue, and of the backward's three kernels.
+BN_APPLY_PASSES = {"none": 2, "relu": 2, "add_relu": 3}
+BN_BWD_PASSES = 5
+
+
+def bits_equal(a, b):
+    """Equal bytes: NaNs and signed zeros compare exactly."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def bn_epilogues_ok(x, scale, offset, mean, var, dy, y, stats):
+    """The epilogues at one shape against the torch ops they stand for, bit
+    for bit: relu and add_relu forward (a residual that is -y at a quarter
+    of the places and -0.0 at another), and the relu backward against the
+    plain kernels on threshold_backward's gradient."""
+    bn = (BN_EPSILON, BN_MOMENTUM)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pick = torch.randint(0, 4, x.shape, device="cuda", generator=gen)
+    residual = torch.where(pick == 0, -y, torch.where(
+        pick == 1, torch.full_like(y, -0.0), torch.randn(x.shape, device="cuda", generator=gen)))
+    relu, relu_stats = fbn._launch(x, scale, offset, mean, var, *bn, "relu")
+    add, add_stats = fbn._launch(x, scale, offset, mean, var, *bn, "add_relu", residual)
+    ok = (bits_equal(relu, torch.relu(y)) and bits_equal(add, torch.relu(y + residual))
+          and bits_equal(relu_stats, stats) and bits_equal(add_stats, stats))
+    got = fbn._launch_bwd(dy, x, stats, scale, offset, "relu")
+    want = fbn._launch_bwd(torch.ops.aten.threshold_backward(dy, relu, 0), x, stats, scale)
+    return ok and all(bits_equal(a, b) for a, b in zip(got, want)), residual
 
 
 def phase_batch_norm(smi):
@@ -3760,22 +3800,27 @@ def phase_batch_norm(smi):
        224x224, at C = 8 and 16 (the single-block family) and at C = 6 (one
        channel a thread): y and the statistics bit for bit (the composite's
        forward), dx, dscale and doffset within BN_TOL, one launch forward
-       and three backward, a second run bit for bit;
+       and three backward, a second run bit for bit; the epilogues bit for
+       bit against their torch ops (`bn_epilogues_ok`);
     2. each ResNet-50 shape timed, forward (`torch.var_mean` and the apply;
-       the reduction also alone) and backward, beside its byte bound, the
-       composite's time (`blocks.composite_batch_norm`, which every call
-       but a CUDA fp32 one in train mode on one rank takes, with autograd's
-       backward)
-       and the plain version's, and summed over the step's 53 layers;
+       the reduction also alone) with each epilogue and backward with and
+       without relu's mask, beside their byte bounds and beside the same
+       work with the epilogue as separate torch ops (what the model ran
+       before the epilogues), the composite's time
+       (`blocks.composite_batch_norm`, which every call but a CUDA fp32 one
+       in train mode on one rank takes, with autograd's backward) and the
+       plain version's, and summed over the step's 53 layers with the
+       epilogue each takes in the model;
     3. one eager ResNet-50 train step at 224x224 x 257 classes, batch 32,
        its launches counted from 0 (`reset_counts`): 53 x 4, the count the
-       kernels line reports.
+       kernels line reports, and the calls by variant (4 plain, 33 relu and
+       16 add_relu forward; 20 plain and 33 relu backward).
 
     Returns the kernels line's entry."""
     t_phase = time.perf_counter()
     bn = (BN_EPSILON, BN_MOMENTUM)
     worst = 0.0
-    step = dict(kernel=0.0, moments=0.0, composite=0.0, plain=0.0, bound=0.0)
+    step = dict(kernel=0.0, separate=0.0, moments=0.0, composite=0.0, plain=0.0, bound=0.0)
     shapes = [s for s, _ in BN_RESNET50] + [(32, 32, 32, 8), (32, 32, 32, 16), (3, 5, 7, 6)]
     layers = dict(BN_RESNET50)
     for shape in shapes:
@@ -3791,21 +3836,38 @@ def phase_batch_norm(smi):
         errs = [norm_rel(a, b) for a, b in zip(grads, want)]
         again = (*fbn._launch(x, scale, offset, mean, var, *bn), *fbn._launch_bwd(dy, x, stats, scale))
         same = all(torch.equal(a, b) for a, b in zip((y, stats, *grads), again))
+        epilogues_equal, residual = bn_epilogues_ok(x, scale, offset, mean, var, dy, y, stats)
         worst = max(worst, *(float((a - b).abs().max()) for a, b in zip(grads, want)))
-        ok = forward_equal and max(errs) <= BN_TOL and launches == BN_LAUNCHES_A_LAYER and same
+        ok = (forward_equal and max(errs) <= BN_TOL and launches == BN_LAUNCHES_A_LAYER and same
+              and epilogues_equal)
         plan = fbn._plan(x)
         log(f"[bn] {'x'.join(map(str, shape))} (vec {plan['vec']}, lanes {plan['lanes']}, "
             f"{plan['chunks']} x {plan['groups']} blocks): y and stats equal to the plain "
             f"version's: {forward_equal}; dx, dscale, doffset norm-rel "
             f"{', '.join(f'{e:.1e}' for e in errs)} (tol {BN_TOL:g}), {launches} launches (want "
-            f"{BN_LAUNCHES_A_LAYER}), two runs equal: {same}: {'ok' if ok else 'FAIL'}")
+            f"{BN_LAUNCHES_A_LAYER}), two runs equal: {same}; relu and add_relu forward and "
+            f"relu backward equal to their torch ops': {epilogues_equal}: "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"batch-norm kernels at {shape} differ from the plain version")
         if shape not in layers:
             continue
-        fwd_ms = graph_ms(lambda: fbn._launch(x, scale, offset, mean, var, *bn))
         moments_ms = graph_ms(lambda: fbn._moments(x))
-        bwd_ms = graph_ms(lambda: fbn._launch_bwd(dy, x, stats, scale))
+        res = {"none": None, "relu": None, "add_relu": residual}
+        relu_out = torch.relu(y)
+        fwd, fwd_sep = {}, {}
+        for e in fbn.EPILOGUES:
+            fwd[e] = graph_ms(lambda: fbn._launch(x, scale, offset, mean, var, *bn, e, res[e]))
+            fwd_sep[e] = graph_ms(lambda: fbn.epilogue_of(
+                fbn._launch(x, scale, offset, mean, var, *bn)[0], e, res[e]))
+        bwd = {"none": graph_ms(lambda: fbn._launch_bwd(dy, x, stats, scale)),
+               "relu": graph_ms(lambda: fbn._launch_bwd(dy, x, stats, scale, offset, "relu"))}
+        bwd_sep = {"relu": graph_ms(lambda: fbn._launch_bwd(
+            torch.ops.aten.threshold_backward(dy, relu_out, 0), x, stats, scale))}
+        bwd_sep["none"] = bwd["none"]
+        # add_relu's backward: one threshold_backward, then the plain kernels.
+        bwd["add_relu"] = bwd_sep["add_relu"] = graph_ms(lambda: fbn._launch_bwd(
+            torch.ops.aten.threshold_backward(dy, relu_out, 0), x, stats, scale))
         plain_ms = graph_ms(lambda: fbn.reference_batch_norm_bwd(
             dy, x, fbn.reference_batch_norm(x, scale, offset, mean, var, *bn)[1], scale), calls=2)
         leaves = [t.clone().requires_grad_() for t in (x, scale, offset)]
@@ -3814,26 +3876,38 @@ def phase_batch_norm(smi):
             x, BatchNormParams(scale, offset), state, True))
         comp_ms = graph_ms(lambda: torch.autograd.grad(composite_batch_norm(
             leaves[0], BatchNormParams(*leaves[1:]), state, True)[0], leaves, dy))
-        bounds = [bn_bytes(shape, b) / HBM_BYTES_PER_S * 1e3 for b in (False, True)]
-        count = layers[shape]
-        step["kernel"] += count * (fwd_ms + bwd_ms)
+        ms = lambda passes: bn_bytes(shape, passes) / HBM_BYTES_PER_S * 1e3
+        count = sum(layers[shape].values())
+        for e, n in layers[shape].items():
+            step["kernel"] += n * (fwd[e] + bwd[e])
+            step["separate"] += n * (fwd_sep[e] + bwd_sep[e])
+            step["bound"] += n * ms(1 + BN_APPLY_PASSES[e] + BN_BWD_PASSES)
         step["moments"] += count * moments_ms
         step["composite"] += count * comp_ms
         step["plain"] += count * plain_ms
-        step["bound"] += count * sum(bounds)
-        log(f"[time] batch norm {'x'.join(map(str, shape))} ({count} of ResNet-50's layers): "
-            f"forward {fwd_ms:.4f} ms (bound {bounds[0]:.4f}, {bounds[0] / fwd_ms:.1%}; of it "
-            f"torch.var_mean {moments_ms:.4f}; composite {comp_fwd_ms:.4f}), backward {bwd_ms:.4f} ms (bound {bounds[1]:.4f}, "
-            f"{bounds[1] / bwd_ms:.1%}); both {fwd_ms + bwd_ms:.4f} ms against the composite's "
-            f"forward and autograd backward {comp_ms:.4f} ms and the plain version's {plain_ms:.4f} "
+        model_layers = ", ".join(f"{n} {e}" for e, n in layers[shape].items())
+        log(f"[time] batch norm {'x'.join(map(str, shape))} ({model_layers} of ResNet-50's "
+            f"layers): torch.var_mean {moments_ms:.4f} ms (bound {ms(1):.4f}); "
+            + "; ".join(
+                f"forward {e} {fwd[e]:.4f} ms, the apply {fwd[e] - moments_ms:.4f} (bound "
+                f"{ms(BN_APPLY_PASSES[e]):.4f}, {BN_APPLY_PASSES[e]} passes, "
+                f"{ms(BN_APPLY_PASSES[e]) / (fwd[e] - moments_ms):.1%}), as separate ops "
+                f"{fwd_sep[e]:.4f}" for e in fbn.EPILOGUES)
+            + f"; backward {bwd['none']:.4f} ms (bound {ms(BN_BWD_PASSES):.4f}, "
+            f"{ms(BN_BWD_PASSES) / bwd['none']:.1%}), with relu's mask {bwd['relu']:.4f} "
+            f"({ms(BN_BWD_PASSES) / bwd['relu']:.1%}; threshold_backward then the plain "
+            f"kernels {bwd_sep['relu']:.4f}); composite forward {comp_fwd_ms:.4f}, forward "
+            f"and autograd backward {comp_ms:.4f} ms, the plain version's {plain_ms:.4f} "
             f"(CUDA events around replayed graphs of calls) ({smi})")
-        del x, y, dy, grads, want, want_y, again, leaves
+        del x, y, dy, grads, want, want_y, again, leaves, residual, relu_out, res
         torch.cuda.empty_cache()
-    log(f"[time] batch norm over ResNet-50's 53 layers at batch 32, forward and backward: "
-        f"{step['kernel']:.4f} ms a step (bound {step['bound']:.4f} ms by bytes, "
-        f"{step['bound'] / step['kernel']:.1%}; of it torch.var_mean {step['moments']:.4f} ms, "
-        f"the kernels {step['kernel'] - step['moments']:.4f} ms), composite {step['composite']:.4f} ms, plain "
-        f"{step['plain']:.4f} ms ({smi})")
+    log(f"[time] batch norm over ResNet-50's 53 layers at batch 32 with their epilogues, "
+        f"forward and backward: {step['kernel']:.4f} ms a step (bound {step['bound']:.4f} ms by "
+        f"bytes, {step['bound'] / step['kernel']:.1%}; of it torch.var_mean "
+        f"{step['moments']:.4f} ms, the kernels and add_relu's threshold_backward "
+        f"{step['kernel'] - step['moments']:.4f} ms); the epilogues as separate torch ops "
+        f"{step['separate']:.4f} ms (saved {step['separate'] - step['kernel']:.4f}); composite "
+        f"{step['composite']:.4f} ms, plain {step['plain']:.4f} ms ({smi})")
 
     config = resnet_preset("resnet50", 257, antisymmetric_mid=True, image_shape=(224, 224, 3))
     model = build_resnet(config, generator=torch.Generator().manual_seed(0), device="cuda")
@@ -3843,12 +3917,16 @@ def phase_batch_norm(smi):
     metrics, _ = train(images.cuda(), labels.cuda(), LR)
     torch.cuda.synchronize()
     launches = STACKS.launches("BN")
-    ok = launches == 53 * BN_LAUNCHES_A_LAYER and math.isfinite(float(metrics["loss"]))
+    variants = {v: STACKS.calls("BN", v) for v in BN_RESNET50_VARIANTS}
+    ok = (launches == 53 * BN_LAUNCHES_A_LAYER and variants == BN_RESNET50_VARIANTS
+          and math.isfinite(float(metrics["loss"])))
     log(f"[bn] {describe_resnet(config)}: one eager train step at batch 32 launched {launches} "
-        f"batch-norm kernels (want 53 x {BN_LAUNCHES_A_LAYER}), loss "
-        f"{float(metrics['loss']):.4f}: {'ok' if ok else 'FAIL'}")
+        f"batch-norm kernels (want 53 x {BN_LAUNCHES_A_LAYER}), calls by variant {variants} "
+        f"(want {BN_RESNET50_VARIANTS}), loss {float(metrics['loss']):.4f}: "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("ResNet-50's train step did not take the batch-norm kernels")
+        raise AssertionError("ResNet-50's train step did not take the batch-norm kernels with "
+                             "their epilogues")
     del model, train
     torch.cuda.empty_cache()
     log(f"[bn] batch-norm phase {time.perf_counter() - t_phase:.1f} s ({smi})")

@@ -26,7 +26,10 @@ from differential_equations_resnet_tpu_torch.ops.antisymmetric import (
     AntisymKxKParams,
     he_truncated_normal,
 )
-from differential_equations_resnet_tpu_torch.ops.kernels.batch_norm import fused_batch_norm
+from differential_equations_resnet_tpu_torch.ops.kernels.batch_norm import (
+    epilogue_of,
+    fused_batch_norm,
+)
 
 
 class ConvParams(NamedTuple):
@@ -91,28 +94,42 @@ def batch_norm(
     params: BatchNormParams,
     state: BatchNormState,
     train: bool,
+    epilogue: str = "none",
+    residual: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, BatchNormState]:
     """Channel-axis (last axis) batch norm of an NHWC tensor:
-    ``(x - mean) * rsqrt(var + 1e-3) * scale + offset``.  With ``train``,
-    mean and biased variance over every other axis, through which the
-    gradient flows, and the new running statistics ``0.99 * old + 0.01 *
-    batch`` (detached); else the running statistics, unchanged.  Returns
-    (y, new_state); the caller writes new_state into its buffers.
+    ``y = (x - mean) * rsqrt(var + 1e-3) * scale + offset``, then the op
+    that follows it in the model, ``epilogue``: "none" (y), "relu"
+    (``torch.relu(y)``) or "add_relu" (``torch.relu(y + residual)``).
+    With ``train``, mean and biased variance over every other axis,
+    through which the gradient flows, and the new running statistics
+    ``0.99 * old + 0.01 * batch`` (detached); else the running statistics,
+    unchanged.  Returns (out, new_state); the caller writes new_state into
+    its buffers.
 
     Train mode on a CUDA fp32 tensor outside a data group of more than one
     rank runs the hand-written kernels behind one autograd Function
     (`ops.kernels.batch_norm.fused_batch_norm`): the composite's forward
-    bit for bit and a closed-form backward with fp64 sums.  Every other
-    call (the CPU, another dtype by the dtype test here, more than one
-    rank, eval mode) takes `composite_batch_norm`."""
+    and the epilogue bit for bit in one apply pass, and a closed-form
+    backward with fp64 sums.  Every other call (the CPU, another dtype by
+    the dtype test here, more than one rank, eval mode) takes
+    `composite_batch_norm` and then the epilogue's torch ops, so the
+    function is the same on every route."""
+    if _kernel_route(x, train):
+        out, stats = fused_batch_norm(x.contiguous(), params.scale.to(x.dtype),
+                                      params.offset.to(x.dtype), state.mean, state.var,
+                                      BN_EPSILON, BN_MOMENTUM, epilogue, residual)
+        return out, BatchNormState(mean=stats[2], var=stats[3])
+    y, new_state = composite_batch_norm(x, params, state, train)
+    return epilogue_of(y, epilogue, residual), new_state
+
+
+def _kernel_route(x: torch.Tensor, train: bool) -> bool:
+    """Whether `batch_norm` sends ``x`` to the kernels: train mode on a CUDA
+    fp32 tensor outside a data group of more than one rank."""
     group = data_group()
-    if (train and x.is_cuda and x.dtype == torch.float32
-            and (group is None or dist.get_world_size(group) == 1)):
-        y, stats = fused_batch_norm(x.contiguous(), params.scale.to(x.dtype),
-                                    params.offset.to(x.dtype), state.mean, state.var,
-                                    BN_EPSILON, BN_MOMENTUM)
-        return y, BatchNormState(mean=stats[2], var=stats[3])
-    return composite_batch_norm(x, params, state, train)
+    return (train and x.is_cuda and x.dtype == torch.float32
+            and (group is None or dist.get_world_size(group) == 1))
 
 
 def composite_batch_norm(

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from differential_equations_resnet_tpu_torch import resolve_device
 from differential_equations_resnet_tpu_torch.models.blocks import (
     batch_norm,
+    epilogue_of,
     init_batch_norm,
     init_conv,
     init_dense,
@@ -262,28 +263,31 @@ def _conv_or_int8(y, kernel, bias, strides, q: bool, backward: str):
     return conv2d_same(y, kernel, strides=strides, bias=bias)
 
 
-def _apply_bottleneck_main(x, p, s, kernel, config, strides, train):
+def _apply_bottleneck_main(x, p, s, kernel, config, strides, train, residual=None):
     """Main path of a bottleneck block, 1x1 -> 3x3 (``kernel``, dense) ->
     1x1 with batch norm and relu, striding as ``config.version`` says, the
-    stride-1 convs int8 where `_block_int8` says so.  Returns (y, the
-    block's new batch-norm state)."""
+    stride-1 convs int8 where `_block_int8` says so; given a ``residual``,
+    ``relu(main + residual)``.  Each relu, and the residual add, is its
+    batch norm's epilogue (`blocks.batch_norm`) where the model has batch
+    norm.  Returns (y, the block's new batch-norm state)."""
     if config.version == 1:
         strides_1x1, strides_3x3 = strides, (1, 1)
     else:
         strides_1x1, strides_3x3 = (1, 1), strides
     q, backward = _block_int8(config, kernel.shape[-1]), config.int8_backward
-    bn = config.use_batch_norm
     new_s = {}
+
+    def norm(y, name, epilogue, residual=None):
+        if not config.use_batch_norm:
+            return epilogue_of(y, epilogue, residual)
+        y, new_s[name] = batch_norm(y, p[name], s[name], train, epilogue, residual)
+        return y
+
     y = _conv_or_int8(x, p["conv1"].kernel, p["conv1"].bias, strides_1x1, q, backward)
-    if bn:
-        y, new_s["bn1"] = batch_norm(y, p["bn1"], s["bn1"], train)
-    y = _conv_or_int8(torch.relu(y), kernel, p["conv2"].bias, strides_3x3, q, backward)
-    if bn:
-        y, new_s["bn2"] = batch_norm(y, p["bn2"], s["bn2"], train)
-    y = _conv_or_int8(torch.relu(y), p["conv3"].kernel, p["conv3"].bias, (1, 1), q, backward)
-    if bn:
-        y, new_s["bn3"] = batch_norm(y, p["bn3"], s["bn3"], train)
-    return y, new_s
+    y = _conv_or_int8(norm(y, "bn1", "relu"), kernel, p["conv2"].bias, strides_3x3, q, backward)
+    y = _conv_or_int8(norm(y, "bn2", "relu"), p["conv3"].kernel, p["conv3"].bias, (1, 1), q,
+                      backward)
+    return norm(y, "bn3", "none" if residual is None else "add_relu", residual), new_s
 
 
 def _stem(params: dict, state: dict, x: torch.Tensor, config: BottleneckResNetConfig,
@@ -294,8 +298,11 @@ def _stem(params: dict, state: dict, x: torch.Tensor, config: BottleneckResNetCo
     x = F.pad(normalize_input(x, config), (0, 0, 3, 3, 3, 3))
     x = conv2d_valid(x, params["stem"].kernel, strides=(2, 2), bias=params["stem"].bias)
     if config.use_batch_norm:
-        x, new_state["stem_bn"] = batch_norm(x, params["stem_bn"], state["stem_bn"], train)
-    x = F.pad(torch.relu(x), (0, 0, 1, 1, 1, 1))
+        x, new_state["stem_bn"] = batch_norm(x, params["stem_bn"], state["stem_bn"], train,
+                                             "relu")
+    else:
+        x = torch.relu(x)
+    x = F.pad(x, (0, 0, 1, 1, 1, 1))
     return max_pool(x, (3, 3), (2, 2))
 
 
@@ -320,10 +327,11 @@ def apply_resnet(
             x, sp["conv_block"], ss["conv_block"], mid_kernel(sp["conv_block"]["conv2"], config.gamma),
             config, strides, train)
         shortcut = conv2d_same(x, sp["shortcut"].kernel, strides=strides, bias=sp["shortcut"].bias)
-        if bn:
-            shortcut, stage_ss["bn_shortcut"] = batch_norm(
-                shortcut, sp["bn_shortcut"], ss["bn_shortcut"], train)
-        x = torch.relu(main + shortcut)
+        if bn:  # main is done first, so bn_shortcut takes the add: relu(shortcut + main)
+            x, stage_ss["bn_shortcut"] = batch_norm(
+                shortcut, sp["bn_shortcut"], ss["bn_shortcut"], train, "add_relu", main)
+        else:
+            x = torch.relu(main + shortcut)
 
         blocks = sp["identity_blocks"]
         stage_ss["identity_blocks"] = None
@@ -331,10 +339,9 @@ def apply_resnet(
             kernels = mid_kernel(blocks["conv2"], config.gamma)
             block_states = []
             for layer in range(num_layers(blocks)):
-                main, block_ss = _apply_bottleneck_main(
+                x, block_ss = _apply_bottleneck_main(
                     x, layer_slice(blocks, layer), layer_slice(ss["identity_blocks"], layer),
-                    kernels[layer], config, (1, 1), train)
-                x = torch.relu(main + x)
+                    kernels[layer], config, (1, 1), train, residual=x)
                 block_states.append(block_ss)
             stage_ss["identity_blocks"] = stack_trees(block_states)
         new_state["stages"].append(stage_ss)

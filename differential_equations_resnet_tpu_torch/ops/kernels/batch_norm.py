@@ -1,6 +1,7 @@
-"""Train-mode batch norm of an NHWC tensor on one rank: the hand-written CUDA
-kernels of its forward and backward (``csrc/batch_norm.cu``), and their
-plain PyTorch versions, the yardstick the kernels are held to.
+"""Train-mode batch norm of an NHWC tensor on one rank, with the op that
+follows it: the hand-written CUDA kernels of its forward and backward
+(``csrc/batch_norm.cu``), and their plain PyTorch versions, the yardstick
+the kernels are held to.
 
 Replaces no kernel of the JAX package, which leaves batch norm to XLA: the
 composite of torch ops that `models.blocks.batch_norm` ran in train mode
@@ -25,21 +26,39 @@ statistics into gradients 4e-3 to 7e-3 apart (PERF.md, PR 22).  The
 backward's two sums are fp64 in both versions; everything else is in x's
 dtype.
 
+The epilogue is the op that follows the batch norm in the model, which
+the apply writes in its own pass (`EPILOGUES`): "none" (out = y), "relu"
+(out = torch.relu(y)) or "add_relu" (out = torch.relu(y + residual), the
+residual a second input).  Each gives the bits of those torch ops: the add
+rounds as torch's does and the relu is torch.relu's, a NaN and the sign
+of a zero included, so a model's activations are the separate ops' bit
+for bit.  The backward zeroes the gradient where relu's output is 0,
+threshold_backward's rule: for "relu" the kernels' two passes recompute
+y from the x they read and mask there (no more launches); for "add_relu"
+one `threshold_backward` masks it before the kernels, and that masked
+gradient is also the residual's.  Either way the kernels see the gradient
+the separate ops would have given them, so the backward's values are
+theirs bit for bit.  The kernels move seven passes over x (the apply's
+read and write, the backward's two reads and the apply's two reads and a
+write), and an "add_relu" layer's apply reads its residual too.
+
 `fused_batch_norm` is the entry point, for CUDA tensors (contiguous,
 fp32) only: `torch.var_mean` and one apply launch forward and three
 launches backward (sums, finalize, apply), each call reported, as kernel
-"BN" with x's shape and variant "forward" or "backward", to the record of
-hand-kernel calls (`utils.tracing.STACKS`, which counts a captured graph's
-launches at each replay).  The plain versions (`reference_batch_norm`,
-`reference_batch_norm_bwd`) are not a route: `models.blocks.batch_norm`
-sends every other call to its composite of torch ops.
+"BN" with x's shape and variant "forward" or "backward", suffixed with
+``+relu`` or ``+add_relu`` where the kernels ran that epilogue
+(`variant`), to the record of hand-kernel calls (`utils.tracing.STACKS`,
+which counts a captured graph's launches at each replay).  The plain
+versions (`reference_batch_norm`, `reference_batch_norm_bwd`) are not a
+route: `models.blocks.batch_norm` sends every other call to its composite
+of torch ops and applies the epilogue after it (`epilogue_of`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,6 +73,31 @@ from differential_equations_resnet_tpu_torch.utils.tracing import STACKS, StackE
 # plan aims at.
 THREADS = 256
 BLOCKS_PER_SM = 4
+# The apply's epilogues, by their code in csrc/batch_norm.cu (`Epilogue`).
+EPILOGUES = ("none", "relu", "add_relu")
+
+
+def variant(direction: str, epilogue: str) -> str:
+    """The record's variant of a call: "forward" or "backward", with
+    ``+relu`` or ``+add_relu`` where the kernels ran that epilogue."""
+    return direction if epilogue == "none" else f"{direction}+{epilogue}"
+
+
+def _check_epilogue(epilogue: str, residual) -> None:
+    if epilogue not in EPILOGUES or (epilogue == "add_relu") != (residual is not None):
+        raise ValueError(f"epilogue must be one of {EPILOGUES}, with a residual for "
+                         f"'add_relu' only; got {epilogue!r}, residual {residual is not None}")
+
+
+def epilogue_of(y: torch.Tensor, epilogue: str, residual=None) -> torch.Tensor:
+    """The epilogue as the torch ops it stands for: y, torch.relu(y) or
+    torch.relu(y + residual)."""
+    _check_epilogue(epilogue, residual)
+    if epilogue == "relu":
+        return torch.relu(y)
+    if epilogue == "add_relu":
+        return torch.relu(y + residual)
+    return y
 
 
 def bn_plan(rows: int, channels: int, aligned: bool = True, sms: int = SM_COUNT) -> dict:
@@ -78,25 +122,34 @@ def _moments(x):
     return torch.var_mean(x, dim=tuple(range(x.dim() - 1)), correction=0)
 
 
-def reference_batch_norm(x, scale, offset, mean, var, epsilon: float, momentum: float):
-    """The forward's plain version, the composite's arithmetic: (y, stats),
-    stats (4, C) the batch mean, inv = rsqrt(batch variance + epsilon), the
-    new running mean and the new running variance."""
+def reference_batch_norm(x, scale, offset, mean, var, epsilon: float, momentum: float,
+                         epilogue: str = "none", residual=None):
+    """The forward's plain version, the composite's arithmetic and then the
+    epilogue's torch ops: (out, stats), stats (4, C) the batch mean, inv =
+    rsqrt(batch variance + epsilon), the new running mean and the new
+    running variance."""
     batch_var, batch_mean = _moments(x)
     inv = torch.rsqrt(batch_var + epsilon)
     y = (x - batch_mean) * inv * scale + offset
     stats = torch.stack([batch_mean, inv,
                          momentum * mean + (1.0 - momentum) * batch_mean,
                          momentum * var + (1.0 - momentum) * batch_var])
-    return y, stats
+    return epilogue_of(y, epilogue, residual), stats
 
 
-def reference_batch_norm_bwd(dy, x, stats, scale):
+def reference_batch_norm_bwd(dy, x, stats, scale, offset=None, epilogue: str = "none"):
     """The backward's plain version: (dx, dscale, doffset) in closed form
     from the saved x and the forward's ``stats``; the two sums in fp64, dx
-    from per-channel factors rounded to x's dtype: ``a dy + b (x - mean) +
-    d``."""
+    from per-channel factors rounded to x's dtype: ``a g + b (x - mean) +
+    d``.  g is dy, or for ``epilogue`` "relu" dy zeroed where y, recomputed
+    from x, ``stats`` and ``offset`` as the forward computed it, is <= 0
+    (an "add_relu" caller masks dy itself, as `FusedBatchNorm` does)."""
     channels = x.shape[-1]
+    if epilogue == "relu":
+        y = (x - stats[0]) * stats[1] * scale + offset
+        dy = torch.where(y <= 0, torch.zeros_like(dy), dy)
+    elif epilogue != "none":
+        raise ValueError(f"the backward's epilogue is 'none' or 'relu', got {epilogue!r}")
     rows, g = x.reshape(-1, channels), dy.reshape(-1, channels)
     mean, inv = stats[0], stats[1].double()
     doffset = g.double().sum(0)
@@ -110,8 +163,8 @@ def reference_batch_norm_bwd(dy, x, stats, scale):
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (argtypes, restype) of every C function of the library.
 _SIGNATURES = {
-    "deqres_bn_fwd": ([_PTR] * 9 + [_I32] * 6 + [_F32] * 3 + [_PTR], _I32),
-    "deqres_bn_bwd": ([_PTR] * 9 + [_I32] * 6 + [_PTR], _I32),
+    "deqres_bn_fwd": ([_PTR] * 10 + [_I32] * 7 + [_F32] * 3 + [_PTR], _I32),
+    "deqres_bn_bwd": ([_PTR] * 10 + [_I32] * 7 + [_PTR], _I32),
     "deqres_cuda_error_string": ([_I32], ctypes.c_char_p),
 }
 
@@ -162,31 +215,51 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch(x, scale, offset, mean, var, epsilon: float, momentum: float):
-    """The forward on CUDA tensors, `torch.var_mean` then the apply launch:
-    (y, stats)."""
+def _launch(x, scale, offset, mean, var, epsilon: float, momentum: float,
+            epilogue: str = "none", residual=None):
+    """The forward on CUDA tensors, `torch.var_mean` then the apply launch
+    with ``epilogue`` (``residual``, x's shape, for "add_relu"): (out,
+    stats)."""
     scale, offset, mean, var = (t.contiguous() for t in (scale, offset, mean, var))
     _check(x, scale=scale, offset=offset, mean=mean, var=var)
+    _check_epilogue(epilogue, residual)
+    if residual is not None:
+        residual = residual.contiguous()
+        _check(residual)
+        if residual.shape != x.shape or residual.device != x.device:
+            raise ValueError(f"the residual {tuple(residual.shape)} on {residual.device} must "
+                             f"have x's shape {tuple(x.shape)} on {x.device}")
     channels = x.shape[-1]
     batch_var, batch_mean = _moments(x)
-    y = torch.empty_like(x)
+    out = torch.empty_like(x)
     stats = torch.empty((4, channels), dtype=torch.float32, device=x.device)
-    plan = _plan(x, y)
+    plan = _plan(x, out, x if residual is None else residual)
     lib = _library()
     with torch.cuda.device(x.device):
         launches = lib.deqres_bn_fwd(
-            x.data_ptr(), batch_mean.data_ptr(), batch_var.data_ptr(), scale.data_ptr(),
-            offset.data_ptr(), mean.data_ptr(), var.data_ptr(), y.data_ptr(), stats.data_ptr(),
+            x.data_ptr(), None if residual is None else residual.data_ptr(),
+            batch_mean.data_ptr(), batch_var.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+            mean.data_ptr(), var.data_ptr(), out.data_ptr(), stats.data_ptr(),
             x.numel() // channels, channels, plan["vec"], plan["lanes"], plan["chunks"],
-            plan["chunk"], epsilon, momentum, 1.0 - momentum, _stream(x))
-    _report(x, "forward", _raise_on_error(lib, launches, "batch norm forward"))
-    return y, stats
+            plan["chunk"], EPILOGUES.index(epilogue), epsilon, momentum, 1.0 - momentum,
+            _stream(x))
+    _report(x, variant("forward", epilogue),
+            _raise_on_error(lib, launches, "batch norm forward"))
+    return out, stats
 
 
-def _launch_bwd(dy, x, stats, scale):
-    """The backward's three launches on CUDA tensors: (dx, dscale, doffset)."""
+def _launch_bwd(dy, x, stats, scale, offset=None, epilogue: str = "none"):
+    """The backward's three launches on CUDA tensors: (dx, dscale,
+    doffset); for ``epilogue`` "relu" dy is masked where the recomputed y
+    is <= 0, which takes ``offset``."""
+    if epilogue not in ("none", "relu") or (epilogue == "relu") != (offset is not None):
+        raise ValueError(f"the backward's epilogue is 'none' or 'relu' (with offset); got "
+                         f"{epilogue!r}, offset {offset is not None}")
     dy, scale = dy.contiguous(), scale.contiguous()
-    _check(dy, scale=scale)
+    per_channel = dict(scale=scale)
+    if offset is not None:
+        per_channel["offset"] = offset = offset.contiguous()
+    _check(dy, **per_channel)
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} must have x's shape {tuple(x.shape)}")
     channels = x.shape[-1]
@@ -198,31 +271,40 @@ def _launch_bwd(dy, x, stats, scale):
     lib = _library()
     with torch.cuda.device(x.device):
         launches = lib.deqres_bn_bwd(
-            dy.data_ptr(), x.data_ptr(), stats.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-            dscale.data_ptr(), doffset.data_ptr(), factors.data_ptr(), partial.data_ptr(),
-            x.numel() // channels, channels, plan["vec"], plan["lanes"], plan["chunks"],
-            plan["chunk"], _stream(x))
-    _report(x, "backward", _raise_on_error(lib, launches, "batch norm backward"))
+            dy.data_ptr(), x.data_ptr(), stats.data_ptr(), scale.data_ptr(),
+            None if offset is None else offset.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+            doffset.data_ptr(), factors.data_ptr(), partial.data_ptr(), x.numel() // channels,
+            channels, plan["vec"], plan["lanes"], plan["chunks"], plan["chunk"],
+            EPILOGUES.index(epilogue), _stream(x))
+    _report(x, variant("backward", epilogue),
+            _raise_on_error(lib, launches, "batch norm backward"))
     return dx, dscale, doffset
 
 
 class FusedBatchNorm(torch.autograd.Function):
-    """The kernels: the composite's forward and a closed-form backward; the
-    graph keeps x, the forward's stats and scale."""
+    """The kernels: the composite's forward with its epilogue and a
+    closed-form backward; the graph keeps x, the forward's stats, scale and
+    offset, and for "add_relu" the output, whose zeros mask the gradient."""
 
     @staticmethod
-    def forward(ctx, x, scale, offset, mean, var, epsilon, momentum):
-        y, stats = _launch(x, scale, offset, mean, var, epsilon, momentum)
-        ctx.save_for_backward(x, stats, scale)
+    def forward(ctx, x, scale, offset, mean, var, epsilon, momentum, epilogue, residual):
+        out, stats = _launch(x, scale, offset, mean, var, epsilon, momentum, epilogue, residual)
+        ctx.epilogue = epilogue
+        ctx.save_for_backward(x, stats, scale, offset, out if epilogue == "add_relu" else None)
         ctx.mark_non_differentiable(stats)
-        return y, stats
+        return out, stats
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, dy, _):
-        x, stats, scale = ctx.saved_tensors
-        dx, dscale, doffset = _launch_bwd(dy, x, stats, scale)
-        return dx, dscale, doffset, None, None, None, None
+    def backward(ctx, dout, _):
+        x, stats, scale, offset, out = ctx.saved_tensors
+        residual_grad = None
+        if ctx.epilogue == "add_relu":
+            dout = residual_grad = torch.ops.aten.threshold_backward(dout, out, 0)
+        relu = ctx.epilogue == "relu"
+        dx, dscale, doffset = _launch_bwd(dout, x, stats, scale, offset if relu else None,
+                                          "relu" if relu else "none")
+        return dx, dscale, doffset, None, None, None, None, None, residual_grad
 
 
 def fused_batch_norm(
@@ -233,11 +315,16 @@ def fused_batch_norm(
     var: torch.Tensor,
     epsilon: float,
     momentum: float,
+    epilogue: str = "none",
+    residual: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Train-mode batch norm over the last axis of ``x``: (y, stats), stats
+    """Train-mode batch norm over the last axis of ``x`` and ``epilogue``
+    (`EPILOGUES`; ``residual`` for "add_relu" only): (out, stats), stats
     (4, C) the batch mean, inv, the new running mean and the new running
-    variance (not differentiable); the gradient flows to x, scale and
-    offset.  `torch.var_mean` and the kernels, on CUDA tensors only (x
-    contiguous float32 and the per-channel tensors float32 on its device,
-    or `ValueError`), each call reported to `utils.tracing.STACKS`."""
-    return FusedBatchNorm.apply(x, scale, offset, mean, var, float(epsilon), float(momentum))
+    variance (not differentiable); the gradient flows to x, scale, offset
+    and the residual.  `torch.var_mean` and the kernels, on CUDA tensors
+    only (x and the residual contiguous float32 and the per-channel tensors
+    float32 on its device, or `ValueError`), each call reported to
+    `utils.tracing.STACKS`."""
+    return FusedBatchNorm.apply(x, scale, offset, mean, var, float(epsilon), float(momentum),
+                                epilogue, residual)

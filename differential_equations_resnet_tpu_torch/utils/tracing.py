@@ -93,7 +93,8 @@ class StackEntry(NamedTuple):
 
     kernel: str             # "B1" (forward), "B2" (backward) or "BN" (batch norm)
     shape: Tuple[int, ...]  # (H, W, C, L) of B1/B2; batch norm's x shape
-    variant: str            # "band", "wide", "plain" (the CPU's); BN's "forward", "backward"
+    variant: str            # "band", "wide", "plain" (the CPU's); BN's "forward", "backward",
+                            # or either with "+relu" / "+add_relu", the epilogue the kernels ran
     bands: int              # bands an image of the band variant, else 0
     launches: int           # kernel launches made or captured
 

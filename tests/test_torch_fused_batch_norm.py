@@ -8,7 +8,13 @@ are held against autograd of the composite of torch ops
 the composite's bit for bit), at ResNet-50's nine batch-norm shapes cut in
 rows and at the single-block family's C = 8 and 16.  The route: only CUDA
 fp32 tensors reach the kernels; train mode on the CPU, eval mode, another
-dtype and a data group of more than one rank keep the composite.  The kernels' launch plan, their C signatures,
+dtype and a data group of more than one rank keep the composite.  The
+epilogues (relu, residual add and relu): the plain version with each is the
+composite followed by its torch ops bit for bit, at 0, -0.0 and NaN, and
+every route that does not reach the kernels applies them the same way; a
+ResNet-50 step with the kernels' launches stood in for records 4 plain, 33
+relu and 16 add_relu forward calls and 20 plain and 33 relu backward.  The
+kernels' launch plan, their C signatures,
 their calls in the record of hand-kernel calls and the benchmark's two
 readers of the kernels (``perfbench/metrics/bn_*.train.py``) are checked
 here too; the kernels themselves run in
@@ -313,3 +319,237 @@ def test_batch_norm_readers(name, want):
     assert entry[name]["workloads"] == ["resnet50-224.train-resident"]
     assert entry[name]["layer"] == "model, models/blocks.py (batch norm)"
     assert entry[name]["moves"] == "train_images_per_s"
+
+
+# The epilogues and how the forward's torch ops spell them.
+EPILOGUES = ("none", "relu", "add_relu")
+
+
+def bits(t):
+    """A tensor's bytes, so that NaNs and signed zeros compare exactly."""
+    return t.detach().contiguous().view(torch.uint8)
+
+
+def same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+
+def edge_inputs(dtype=torch.float32, shape=(2, 3, 5, 8), seed=4):
+    """x, scale, offset, running mean and variance, a residual and a
+    cotangent whose batch norm and epilogue meet 0, -0.0 and NaN: channel 0
+    is constant with a negative scale and a -0.0 offset (y is -0.0),
+    channel 1 constant with a 0 offset (y is +0.0), channel 2 holds a NaN
+    (its statistics and y are NaN); the residual is -y at some places of
+    the other channels (y + residual is +0.0), -0.0 and NaN at others."""
+    x, scale, offset, mean, var = bn_inputs(shape, torch.float64, seed)
+    x[..., 0], x[..., 1] = 1.5, -0.25
+    x[0, 1, 2, 2] = float("nan")
+    scale[0], offset[0], offset[1] = -1.0, -0.0, 0.0
+    x, scale, offset, mean, var = (t.to(dtype) for t in (x, scale, offset, mean, var))
+    y, _ = blocks.composite_batch_norm(x, blocks.BatchNormParams(scale, offset),
+                                       blocks.BatchNormState(mean, var), True)
+    rng = np.random.default_rng(seed + 1)
+    residual = torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+    pick = torch.from_numpy(rng.integers(0, 4, shape))
+    residual = torch.where(pick == 0, -y, residual)
+    residual = torch.where(pick == 1, torch.full_like(y, -0.0), residual)
+    residual[1, 2, 3, 5] = float("nan")
+    dy = torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+    return x, scale, offset, mean, var, residual, dy
+
+
+def by_hand(y, epilogue, residual):
+    """The torch ops that followed a batch norm in the model before the
+    epilogues existed."""
+    if epilogue == "relu":
+        return torch.relu(y)
+    return torch.relu(y + residual) if epilogue == "add_relu" else y
+
+
+def test_the_edge_inputs_meet_zero_negative_zero_and_nan():
+    x, scale, offset, mean, var, residual, _ = edge_inputs()
+    y, _ = fbn.reference_batch_norm(x, scale, offset, mean, var, blocks.BN_EPSILON,
+                                    blocks.BN_MOMENTUM)
+    assert torch.equal(torch.signbit(y[..., 0]), torch.ones_like(y[..., 0], dtype=torch.bool))
+    assert (y[..., 0] == 0).all() and (y[..., 1] == 0).all()
+    assert not torch.signbit(y[..., 1]).any()
+    assert torch.isnan(y[..., 2]).all() and not torch.isnan(y[..., 3:]).any()
+    total = y + residual
+    assert ((total == 0) & ~torch.signbit(total)).sum() > 10 and torch.isnan(total[..., 3:]).any()
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+def test_plain_version_with_each_epilogue_is_the_composite_then_its_torch_ops(epilogue):
+    """`reference_batch_norm` with an epilogue is the composite followed by
+    torch.relu (or the add, then relu) bit for bit, at 0, -0.0 and NaN; its
+    "relu" backward is its plain backward on threshold_backward's gradient
+    bit for bit ("add_relu" masks with threshold_backward before the plain
+    backward, as the kernels' caller does)."""
+    x, scale, offset, mean, var, residual, dy = edge_inputs()
+    residual = residual if epilogue == "add_relu" else None
+    y, stats = fbn.reference_batch_norm(x, scale, offset, mean, var, blocks.BN_EPSILON,
+                                        blocks.BN_MOMENTUM)
+    out, out_stats = fbn.reference_batch_norm(x, scale, offset, mean, var, blocks.BN_EPSILON,
+                                              blocks.BN_MOMENTUM, epilogue, residual)
+    composite, _ = blocks.composite_batch_norm(x, blocks.BatchNormParams(scale, offset),
+                                               blocks.BatchNormState(mean, var), True)
+    assert same_bits(out, by_hand(composite, epilogue, residual))
+    assert same_bits(out_stats, stats)
+    masked = dy if epilogue == "none" else torch.ops.aten.threshold_backward(dy, out, 0)
+    want = fbn.reference_batch_norm_bwd(masked, x, stats, scale)
+    if epilogue != "add_relu":
+        got = fbn.reference_batch_norm_bwd(dy, x, stats, scale,
+                                           offset if epilogue == "relu" else None, epilogue)
+        for name, a, b in zip(("dx", "dscale", "doffset"), got, want):
+            assert same_bits(a, b), name
+    assert torch.isnan(want[0][..., 2]).all()
+
+
+def test_plain_relu_backward_matches_autograd_through_the_composite_and_relu():
+    """In float64 the plain "relu" backward is autograd's through the
+    composite and torch.relu."""
+    x, scale, offset, mean, var = bn_inputs((2, 7, 7, 16), seed=6)
+    leaves = [t.clone().requires_grad_() for t in (x, scale, offset)]
+    y, _ = blocks.composite_batch_norm(leaves[0], blocks.BatchNormParams(*leaves[1:]),
+                                       blocks.BatchNormState(mean, var), True)
+    out = torch.relu(y)
+    assert 0.2 < float((out == 0).double().mean()) < 0.8
+    dy = torch.cos(3 * y.detach())
+    want = torch.autograd.grad(out, leaves, dy)
+    _, stats = fbn.reference_batch_norm(x, scale, offset, mean, var, blocks.BN_EPSILON,
+                                        blocks.BN_MOMENTUM)
+    got = fbn.reference_batch_norm_bwd(dy, x, stats, scale, offset, "relu")
+    for name, a, b in zip(("dx", "dscale", "doffset"), got, want):
+        torch.testing.assert_close(a, b, **F64_TOL, msg=name)
+
+
+def _two_ranks(monkeypatch):
+    monkeypatch.setattr(blocks, "data_group", lambda: "data")
+    monkeypatch.setattr(blocks.dist, "get_world_size", lambda group: 2)
+    monkeypatch.setattr(blocks, "_global_moments", lambda x, group: tuple(
+        reversed(torch.var_mean(x, dim=(0, 1, 2), correction=0))))
+
+
+ROUTES = [("cpu", torch.float32, True), ("eval", torch.float32, False),
+          ("bf16", torch.bfloat16, True), ("fp16", torch.float16, True),
+          ("fp64", torch.float64, True), ("two_ranks", torch.float32, True)]
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("route,dtype,train", ROUTES, ids=[r[0] for r in ROUTES])
+def test_every_other_route_applies_the_same_epilogue(monkeypatch, route, dtype, train, epilogue):
+    """Each route that does not reach the kernels (the CPU, eval mode,
+    another dtype, a data group of two ranks) gives `composite_batch_norm`
+    followed by the epilogue's torch ops: the output, the new running
+    statistics and the gradients of x, scale, offset and the residual bit
+    for bit, at 0, -0.0 and NaN."""
+    if route == "two_ranks":
+        _two_ranks(monkeypatch)
+    x, scale, offset, mean, var, residual, dy = edge_inputs(dtype)
+    residual = residual if epilogue == "add_relu" else None
+    state = blocks.BatchNormState(mean.float(), var.float())
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, scale, offset)]
+        res = None if residual is None else residual.clone().requires_grad_()
+        out, new_state = fn(leaves, res)
+        grads = torch.autograd.grad(out, leaves + ([res] if res is not None else []), dy)
+        return out, new_state, grads
+
+    got = run(lambda l, r: blocks.batch_norm(l[0], blocks.BatchNormParams(*l[1:]), state, train,
+                                             epilogue, r))
+    want = run(lambda l, r: (lambda y, s: (by_hand(y, epilogue, r), s))(
+        *blocks.composite_batch_norm(l[0], blocks.BatchNormParams(*l[1:]), state, train)))
+    assert type(got[0].grad_fn).__name__ != "FusedBatchNormBackward"
+    assert same_bits(got[0], want[0])
+    assert same_bits(got[1].mean, want[1].mean) and same_bits(got[1].var, want[1].var)
+    assert len(got[2]) == (4 if residual is not None else 3)
+    for a, b in zip(got[2], want[2]):
+        assert same_bits(a, b)
+
+
+@pytest.mark.parametrize("epilogue,residual", [("gelu", False), ("add_relu", False),
+                                               ("relu", True), ("none", True)])
+def test_an_epilogue_needs_its_residual_and_only_it(epilogue, residual):
+    x, scale, offset, mean, var = bn_inputs((2, 3, 5, 8), torch.float32)
+    res = torch.zeros_like(x) if residual else None
+    with pytest.raises(ValueError, match="epilogue"):
+        blocks.batch_norm(x, blocks.BatchNormParams(scale, offset),
+                          blocks.BatchNormState(mean, var), True, epilogue, res)
+    with pytest.raises(ValueError, match="epilogue"):
+        fbn.reference_batch_norm(x, scale, offset, mean, var, blocks.BN_EPSILON,
+                                 blocks.BN_MOMENTUM, epilogue, res)
+
+
+def test_the_variant_names_the_epilogue():
+    assert [fbn.variant(d, e) for d in ("forward", "backward") for e in EPILOGUES] == [
+        "forward", "forward+relu", "forward+add_relu",
+        "backward", "backward+relu", "backward+add_relu"]
+
+
+# A captured ResNet-50 step's batch-norm calls by variant: the stem and each
+# block's bn1 and bn2 take relu (33), each block's last batch norm its
+# residual add and relu (bn3 of the identity blocks, bn_shortcut of the
+# conv blocks: 16), the conv blocks' bn3 none (4); the backward runs the
+# kernels' relu for the 33, the plain kernels for the 20.
+RESNET50_VARIANTS = {"forward": 4, "forward+relu": 33, "forward+add_relu": 16,
+                     "backward": 20, "backward+relu": 33}
+
+
+def test_a_captured_resnet50_step_records_each_epilogue(monkeypatch):
+    """A ResNet-50 train step on the CPU with the kernel route forced and
+    the kernels' launches stood in for by their plain versions (which
+    report as the kernels do), inside a capture: the graph records the
+    variants above, 4 launches a layer (212 a step); the logits and the new
+    running statistics are the composite route's bit for bit and the
+    gradients within fp32 rounding of its autograd's."""
+    from differential_equations_resnet_tpu_torch.models import build_resnet, resnet_preset
+
+    def launch(x, scale, offset, mean, var, epsilon, momentum, epilogue="none", residual=None):
+        out = fbn.reference_batch_norm(x, scale, offset, mean, var, epsilon, momentum, epilogue,
+                                       residual)
+        fbn._report(x, fbn.variant("forward", epilogue), 1)
+        return out
+
+    def launch_bwd(dy, x, stats, scale, offset=None, epilogue="none"):
+        grads = fbn.reference_batch_norm_bwd(dy.contiguous(), x, stats, scale, offset, epilogue)
+        fbn._report(x, fbn.variant("backward", epilogue), 3)
+        return grads
+
+    config = resnet_preset("resnet50", 10, antisymmetric_mid=True, image_shape=(32, 32, 3))
+    rng = np.random.default_rng(11)
+    images = torch.from_numpy(rng.uniform(0, 255, (4, 32, 32, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, 4))
+
+    def step():
+        model = build_resnet(config, generator=torch.Generator().manual_seed(3), device="cpu")
+        logits = model(images, return_logits=True, train=True)
+        loss = torch.nn.functional.cross_entropy(logits, labels)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return logits.detach(), [b.clone() for b in model.buffers()], grads
+
+    want = step()
+    record = StackRecord()
+    monkeypatch.setattr(fbn, "STACKS", record)
+    monkeypatch.setattr(fbn, "_launch", launch)
+    monkeypatch.setattr(fbn, "_launch_bwd", launch_bwd)
+    monkeypatch.setattr(blocks, "_kernel_route", lambda x, train: train)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    with record.capture("train step") as graph:
+        got = step()
+    entries = record.graph("train step")
+    counts = {}
+    for e in entries:
+        assert e.kernel == "BN"
+        counts[e.variant] = counts.get(e.variant, 0) + 1
+    assert counts == RESNET50_VARIANTS
+    assert sum(e.launches for e in entries) == 53 * 4
+    record.replay(graph)
+    assert (record.calls("BN", "forward+add_relu"), record.launches("BN")) == (16, 212)
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    # Against the largest gradient: the conv biases' are zero but for
+    # rounding (each conv feeds a batch norm), so no gradient is its own scale.
+    scale_ = max(float(b.abs().max()) for b in want[2])
+    worst = max(float((a - b).abs().max()) for a, b in zip(got[2], want[2]))
+    assert worst <= 1e-5 * scale_, (worst, scale_)
