@@ -25,7 +25,10 @@ Phases, each of which raises on failure (exit code != 0):
    bit-identical across two calls; then the wide variants
    (fused_euler_wide.cu, `phase_kernels_wide`) at 64 layers at 32x32x72,
    32x32x128, 8x8x128, 64x64x48 (B2) and 64x64x128, both modes, B2 judged
-   by float64 and bit-identical across two calls;
+   by float64 and bit-identical across two calls; then the WRN-40-4 cell's
+   four calls at its batch of 128 (`phase_kernels_wrn`: the band B1 at
+   32x32x64 in 16 bands, the wide B1 at 16x16x128, the wide B2 at both),
+   fp32, each call's launches in the record checked;
 5. serve: the 64-layer x 16-filter antisymmetric CIFAR-10 model from a
    seeded init is exported at batch 32 (config, parameters and the
    compiled forward ``forward.pt2``: `torch.export` of the eval forward,
@@ -1977,6 +1980,67 @@ def phase_kernels_wide():
         del x, kernels, biases, g, got, want, judge, again
         torch.cuda.empty_cache()
     return errs
+
+
+WRN_BATCH = 128
+# The fused stacks of the WRN-40-4 cell (perfbench/configs/wrn-40-4-antisym-
+# cifar10.json) at its batch: (H, W, C, L) and the variants B1 and B2 take.
+WRN_STACKS = (((32, 32, 64, 12), "band", "wide"), ((16, 16, 128, 11), "wide", "wide"))
+
+
+def phase_kernels_wrn():
+    """The hand-kernel calls of the WRN-40-4 cell's train step at its batch
+    of 128, fp32, antisymmetric kernels, h = 0.125, against their plain
+    versions: the band B1 at 32x32x64 (16 bands an image, in launches of
+    the images the card holds at once) and the wide B1 at 16x16x128 to
+    FP32_TOL as in phase_kernels; the wide B2 at both shapes judged by a
+    float64 run of its plain version as in phase_kernels_wide, two calls
+    bit-identical.  Each call's launches in the record: the band B1's
+    groups, the wide B1's L, the wide B2's 3L."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, ((hh, ww, c, layers), fwd_variant, bwd_variant) in enumerate(WRN_STACKS):
+        x, kernels, biases, g = make_case(WRN_BATCH, hh, ww, c, layers, 600 + i)
+        assert (fi.kernel_variant(x.shape), fi.kernel_variant(x.shape, True)) == (
+            fwd_variant, bwd_variant), f"the planner moved the cell's stack {tuple(x.shape)}"
+        want_launches = layers
+        if fwd_variant == "band":
+            bands = fi.kernel_bands(x.shape, sms=sms)
+            want_launches = -(-WRN_BATCH // fi.resident_images(hh, ww, c, bands))
+        before = STACKS.launches("B1", fwd_variant)
+        got = fi.fused_euler_dense(x, kernels, biases, 0.125)
+        want = fi.reference_euler_dense(x, kernels, biases, 0.125)
+        torch.cuda.synchronize()
+        launches = STACKS.launches("B1", fwd_variant) - before
+        err, ok = max_violation(got, want, FP32_TOL)
+        ok = ok and launches == want_launches
+        plan = describe_bands(x.shape)[1] if fwd_variant == "band" else "wide"
+        log(f"[kernels] WRN B1 B={WRN_BATCH} {hh}x{ww}x{c} L={layers} {plan}: max|kernel-plain| "
+            f"{err:.3e} (max|plain| {float(want.abs().max()):.3e}), tol rtol=atol={FP32_TOL:g}; "
+            f"{launches} launches (want {want_launches}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the WRN cell's B1 is wrong at {tuple(x.shape)}")
+        before = STACKS.launches("B2", bwd_variant)
+        got = fi.fused_euler_dense_bwd(x, kernels, biases, g, 0.125, torch.float32)
+        want = fi.reference_euler_dense_bwd(x, kernels, biases, g, 0.125, torch.float32)
+        judge = fi.reference_euler_dense_bwd(
+            *[t.double() for t in (x, kernels, biases, g)], 0.125, torch.float32)
+        again = fi.fused_euler_dense_bwd(x, kernels, biases, g, 0.125, torch.float32)
+        torch.cuda.synchronize()
+        launches = STACKS.launches("B2", bwd_variant) - before
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        parts, ok = [], same and launches == 2 * 3 * layers
+        for name, a, w, j in zip(("gx", "gk", "gb"), got, want, judge):
+            kernel_err, plain_err = norm_rel(a, j), norm_rel(w, j)
+            ok = ok and kernel_err <= max(2 * plain_err + 1e-5, WIDE_F64_TOL)
+            parts.append(f"{name} {norm_rel(a, w):.2e} (f64: B2 {kernel_err:.2e}, plain "
+                         f"{plain_err:.2e})")
+        log(f"[kernels] WRN B2 B={WRN_BATCH} {hh}x{ww}x{c} L={layers} {bwd_variant}: norm-rel "
+            f"|B2-plain| " + "; ".join(parts) + f"; two calls bit-identical {same}; "
+            f"{launches} launches (want 2 x {3 * layers}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the WRN cell's B2 is wrong at {tuple(x.shape)}")
+        del x, kernels, biases, g, got, want, judge, again
+        torch.cuda.empty_cache()
 
 
 def phase_kernel_types(smi):
@@ -3963,6 +4027,7 @@ def main() -> int:
     fwd_err = phase_kernels()
     bwd_err = phase_kernels_bwd()
     wide_errs = phase_kernels_wide()
+    phase_kernels_wrn()
     serve_launches, predict, requests = phase_serve()
     with tempfile.TemporaryDirectory() as tmp:
         paths_fwd, paths_wide_fwd = phase_serve_paths(tmp, smi)

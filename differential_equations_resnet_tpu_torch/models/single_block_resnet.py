@@ -44,7 +44,10 @@ on full channels, as JAX runs its kernel on the replicated stack.
 `route_counts` counts the stacks each route ran, `per_layer_counts` the
 per-layer stacks by form, and `mesh_route_counts` the stacks run
 "tensor_parallel" or "pipeline" (Python calls: a replayed CUDA graph adds
-none).  Gradients flow through every leaf, so the model
+none).  A per-layer stack without batch norm on one rank also reports
+itself to the record of hand-kernel calls (`utils.tracing.STACKS`), as
+kernel "per_layer" in its form with no launch, beside the fused stacks'
+B1 and B2 calls.  Gradients flow through every leaf, so the model
 trains (`train.train_step`).  The forward takes ``train`` as the JAX
 ``apply`` does: with batch norm, train mode normalizes by the batch's
 statistics and updates the running ones (the model's buffers), eval mode
@@ -139,6 +142,7 @@ from differential_equations_resnet_tpu_torch.ops.s2d import (
     space_to_depth,
 )
 from differential_equations_resnet_tpu_torch.parallel import tensor_parallel
+from differential_equations_resnet_tpu_torch.utils.tracing import STACKS, StackEntry
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -666,6 +670,16 @@ def _batch_norm_stack(x, dense: ConvParams, bn_params, bn_state, config, train: 
     return y, BatchNormState(torch.stack(means), torch.stack(variances))
 
 
+def _record_per_layer(x: torch.Tensor, dense: ConvParams, form: str) -> None:
+    """The per-layer stack to the record of hand-kernel calls
+    (`utils.tracing.STACKS`), as kernel "per_layer" in variant ``form``
+    with no launch of its own (cuDNN's), into the graph being captured if
+    any, so that a captured step lists every identity stack on its route."""
+    _, height, width, channels = x.shape
+    entry = StackEntry("per_layer", (height, width, channels, num_layers(dense)), form, 0, 0)
+    STACKS.add(entry, x.is_cuda and torch.cuda.is_current_stream_capturing())
+
+
 def _apply_identity_blocks(x: torch.Tensor, sp: dict, ss: dict,
                            config: SingleBlockResNetConfig, train: bool):
     """A stage's identity stack on its route (`identity_route`).  Returns
@@ -686,6 +700,7 @@ def _apply_identity_blocks(x: torch.Tensor, sp: dict, ss: dict,
     else:
         form = per_layer_form(config, x)
         if tp_group is None:
+            _record_per_layer(x, dense, form)
             y = _per_layer_stack(x, dense, config, form)
         else:
             y = _tensor_parallel_stack(x, dense, config, form, tp_group)

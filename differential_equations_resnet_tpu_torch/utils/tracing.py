@@ -57,7 +57,13 @@ trace can tell which stack each kernel of a replayed window ran.
 variant=None)`` read the totals (over every variant where ``variant`` is
 None), ``STACKS.reset()`` sets them to 0 and ``STACKS.clear()`` empties
 the whole record.  The plain CPU path records its B1/B2 calls too, as
-variant "plain" with no launch.
+variant "plain" with no launch.  An identity stack that the single-block
+model runs layer by layer without batch norm (its "per_layer" route on
+one rank) reports one entry too, on any device, where its forward runs:
+kernel "per_layer", its (H, W, C, L), variant its form ("direct", "s2d"
+or "int8", `models.single_block_resnet.per_layer_form`), bands 0 and
+launches 0 (its cuDNN convs are not counted).  So a captured step's list
+holds every identity stack of the forward, in order, with its route.
 
 No span is opened inside what a CUDA graph captures: the graph holds
 kernels only.  The streaming producer thread's batch assembly and staging
@@ -89,12 +95,15 @@ def span(name: str):
 
 
 class StackEntry(NamedTuple):
-    """One call of a hand-written kernel."""
+    """One call of a hand-written kernel, or one identity stack run layer by
+    layer."""
 
-    kernel: str             # "B1" (forward), "B2" (backward) or "BN" (batch norm)
-    shape: Tuple[int, ...]  # (H, W, C, L) of B1/B2; batch norm's x shape
+    kernel: str             # "B1" (forward), "B2" (backward), "BN" (batch norm) or
+                            # "per_layer" (an identity stack run layer by layer)
+    shape: Tuple[int, ...]  # (H, W, C, L) of B1/B2 and per_layer; batch norm's x shape
     variant: str            # "band", "wide", "plain" (the CPU's); BN's "forward", "backward",
-                            # or either with "+relu" / "+add_relu", the epilogue the kernels ran
+                            # or either with "+relu" / "+add_relu", the epilogue the kernels ran;
+                            # per_layer's form, "direct", "s2d" or "int8"
     bands: int              # bands an image of the band variant, else 0
     launches: int           # kernel launches made or captured
 

@@ -1,0 +1,8 @@
+"""The wide B2's share of its roofline, in %, over the stacks that run it
+(`perfbench.variants`)."""
+
+from perfbench.variants import variant_pct
+
+
+def read(ctx):
+    return variant_pct(ctx, "B2", "wide")
