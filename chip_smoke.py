@@ -28,7 +28,9 @@ Phases, each of which raises on failure (exit code != 0):
    by float64 and bit-identical across two calls; then the WRN-40-4 cell's
    four calls at its batch of 128 (`phase_kernels_wrn`: the band B1 at
    32x32x64 in 16 bands, the wide B1 at 16x16x128, the wide B2 at both),
-   fp32, each call's launches in the record checked;
+   fp32, each call's launches in the record checked, the sha256 of the wide
+   B1's output and B2's gx, gk and gb printed, and each wide kernel
+   instantiation's device time a step against its bound;
 5. serve: the 64-layer x 16-filter antisymmetric CIFAR-10 model from a
    seeded init is exported at batch 32 (config, parameters and the
    compiled forward ``forward.pt2``: `torch.export` of the eval forward,
@@ -173,6 +175,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -1988,6 +1991,18 @@ WRN_BATCH = 128
 WRN_STACKS = (((32, 32, 64, 12), "band", "wide"), ((16, 16, 128, 11), "wide", "wide"))
 
 
+def sha256(t):
+    """The sha256 of a tensor's bytes, on the host."""
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def wide_instantiation(key):
+    """A wide kernel's instantiation from its profiler name, or None:
+    ``wide_conv<false, 0, 2, ...>`` without the namespace and arguments."""
+    name = key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+    return name if name.startswith(("wide_conv", "wide_dk")) else None
+
+
 def phase_kernels_wrn():
     """The hand-kernel calls of the WRN-40-4 cell's train step at its batch
     of 128, fp32, antisymmetric kernels, h = 0.125, against their plain
@@ -1996,8 +2011,14 @@ def phase_kernels_wrn():
     FP32_TOL as in phase_kernels; the wide B2 at both shapes judged by a
     float64 run of its plain version as in phase_kernels_wide, two calls
     bit-identical.  Each call's launches in the record: the band B1's
-    groups, the wide B1's L, the wide B2's 3L."""
+    groups, the wide B1's L, the wide B2's 3L.  Then the sha256 of the wide
+    B1's output and of B2's gx, gk and gb at these seeds (a change that
+    keeps the kernels' sums keeps them), and each wide kernel
+    instantiation's device time a step (one wide B1 call and one B2 call
+    of each stack, torch.profiler) against its bound: one pass,
+    2*L*B*H*W*9C^2 FLOP over 67 TFLOP/s, for each call that launches it."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    digests, device_ms, bound_ms = [], {}, {}
     for i, ((hh, ww, c, layers), fwd_variant, bwd_variant) in enumerate(WRN_STACKS):
         x, kernels, biases, g = make_case(WRN_BATCH, hh, ww, c, layers, 600 + i)
         assert (fi.kernel_variant(x.shape), fi.kernel_variant(x.shape, True)) == (
@@ -2039,8 +2060,27 @@ def phase_kernels_wrn():
             f"{launches} launches (want 2 x {3 * layers}): {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"the WRN cell's B2 is wrong at {tuple(x.shape)}")
+        shape = f"{hh}x{ww}x{c} L={layers}"
+        pass_ms = kernel_bounds(WRN_BATCH, hh, ww, c, layers)["flop_ms"]
+        runs = [("B2", lambda: fi.fused_euler_dense_bwd(x, kernels, biases, g, 0.125,
+                                                        torch.float32))]
+        if fwd_variant == "wide":
+            digests.append((f"B1 {shape}", sha256(fi.fused_euler_dense(x, kernels, biases, 0.125))))
+            runs.insert(0, ("B1", lambda: fi.fused_euler_dense(x, kernels, biases, 0.125)))
+        digests += [(f"B2 {name} {shape}", sha256(t)) for name, t in zip(("gx", "gk", "gb"), got)]
+        for label, run in runs:
+            for key, (_, ms) in log_kernels_per_call(f"WRN {label} {shape}", run).items():
+                name = wide_instantiation(key)
+                if name:
+                    device_ms[name] = device_ms.get(name, 0.0) + ms
+                    bound_ms[name] = bound_ms.get(name, 0.0) + pass_ms
         del x, kernels, biases, g, got, want, judge, again
         torch.cuda.empty_cache()
+    for what, digest in digests:
+        log(f"[kernels] WRN sha256 {what}: {digest}")
+    for name, ms in sorted(device_ms.items()):
+        log(f"[kernels] WRN {name}: {ms:.4f} ms a step against {bound_ms[name]:.4f} ms of bound "
+            f"({bound_ms[name] / ms:.1%})")
 
 
 def phase_kernel_types(smi):

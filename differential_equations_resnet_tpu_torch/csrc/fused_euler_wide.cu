@@ -41,30 +41,36 @@
 //
 //   - Operands arrive by cp.async (16-byte copies; the zero-fill source
 //     size does the "SAME" padding, the channels past Cp and the ragged last
-//     tile), into a ring of kStages = 4 stages of dynamic shared memory:
-//     three stages in flight while one is computed, one barrier a stage, no
-//     staging registers.
-//   - The reduction runs tap by tap, each tap in chunks of 16 input channels
-//     (zero-filled past Cp; no waste at Cp = 16, 32, 48, 64, 80, 96, 112,
-//     128).  A tap's displacement in the flattened (B, H, W) pixel index is
-//     the same for every pixel of a tile: each copying thread computes the
-//     9-bit "tap lands in the image" mask of its pixels and its copies'
-//     offsets once a block, and a stage only adds the tap's and the chunk's
-//     offset.
+//     tile), into a ring of stages of dynamic shared memory, one barrier a
+//     stage, no staging registers: 4 stages of 16 reduction steps (three in
+//     flight while one is computed) in the dK pass and in the conv, but for
+//     2 stages of 64 steps (one in flight) in the conv where 48 < Cp <= 64.
+//   - The conv's reduction runs tap by tap, each tap in chunks of 16 input
+//     channels, or of 64 where 48 < Cp <= 64 (zero-filled past Cp; no waste
+//     at Cp = 16, 32, 48, 64, 80, 96, 112, 128).  A tap's displacement in the
+//     flattened (B, H, W) pixel index is the same for every pixel of a tile:
+//     each copying thread computes the 9-bit "tap lands in the image" mask
+//     of its pixels and its copies' offsets once a block, and a stage only
+//     adds the tap's and the chunk's offset.
 //   - wide_conv (B1's step, B2's recompute and its state cotangent): a block
 //     computes 128 pixels x 64*NG output channels (NG = 2 where Cp > 64, so
 //     one tile holds every channel).  Where Cp > 64 a block is 128 threads,
 //     each 8 pixels (rows tm + 16i) x 16 channels (4tn + 32j .. +3): 128
 //     accumulators, 24 float4 shared loads for 512 FFMAs; at Cp <= 64 256
-//     threads of 4 pixels x 8 channels.  The patch stage is kept [pixel][16
-//     channels + 4 floats of padding]: a thread reads 4 reduction steps of a
-//     pixel as one float4, and the 4 pixels a warp reads at once (rows 20
-//     floats apart) fall on distinct banks; the kernel stage is [channel
-//     in][channel out], read as 8 consecutive float4s a warp.  The epilogue
-//     adds the bias, applies y + h * relu(z), and in B2's recompute writes
-//     the relu mask 1[z > 0] as whole 32-bit words (OR-reduced across the 8
-//     lanes that hold a word's channels), so the mask needs no zeroing and
-//     no atomics.
+//     threads of 4 pixels x 8 channels, over a whole tap a stage where 48 <
+//     Cp: a thread does 2,048 FFMAs between two barriers at either width.  On an H100,
+//     the whole-tap stages took the Cp <= 64 conv of B2's state cotangent
+//     from 3.68 to 3.41 ms (128 x 32x32x64, L = 12), and its step from 3.25
+//     to 3.13; threads of 8 pixels x 16 channels on 256-pixel tiles, with
+//     the 16-step ring, took 3.55 and 4.45 (PERF.md §6).  The patch stage is
+//     kept [pixel][16 or 64 channels + 4 floats of padding]: a thread reads
+//     4 reduction steps of a pixel as one float4, and the 4 pixels a warp
+//     reads at once (rows 20 or 68 floats apart) fall on distinct banks; the
+//     kernel stage is [channel in][channel out], read as 8 consecutive
+//     float4s a warp.  The epilogue adds the bias, applies y + h * relu(z),
+//     and in B2's recompute writes the relu mask 1[z > 0] as whole 32-bit
+//     words (OR-reduced across the 8 lanes that hold a word's channels), so
+//     the mask needs no zeroing and no atomics.
 //   - B2 forms g_z = h * 1[z > 0] * g from the mask bits as its operands
 //     arrive: once a thread's own copies of a stage have landed (waited for
 //     after it computed the stage before, off the barrier's path), it
@@ -76,7 +82,9 @@
 //     operand is done in the same rewrite.
 //   - B2's weight gradient (wide_dk): rows the 9*Cp (tap, input) pairs,
 //     columns the Cp outputs, in tiles of 128 rows (64 at Cp <= 64, so that
-//     9*Cp divides at Cp = 64 as at 128), a thread 4 rows x 8*NG channels;
+//     9*Cp divides at Cp = 64 as at 128), a thread 4 rows x 8*NG channels
+//     (512 or 1,024 FFMAs a stage: 8 rows a thread on 64-thread blocks, or
+//     32-pixel stages, were 8-33% slower on an H100, PERF.md §6);
 //     the reduction over pixels split into S fixed chunks, one block each
 //     (row tile, chunk), so that the pass fills the card (S = 29 at
 //     32x32x128, B = 32); its patch stage lands [pixel][row] (a thread reads
@@ -100,10 +108,8 @@ using namespace deqres;
 namespace {
 
 constexpr int kBM = 128;             // pixels of a conv tile
-constexpr int kBK = 16;              // reduction steps a stage
-constexpr int kStages = 4;           // stages in the shared-memory ring
-constexpr int kAStride = kBK + 4;    // floats a pixel of the conv's patch stage
-constexpr int kPatchCopies = kBM * kBK / 4;  // float4s of a patch stage
+constexpr int kBK = 16;              // pixels a dK stage
+constexpr int kStages = 4;           // stages in the dK pass's ring
 constexpr int kMinBlocks = 2;        // conv blocks an SM (255 registers at 128 threads)
 constexpr int kStep = 0;             // y + h * relu(conv(y, K) + b), relu mask optional
 constexpr int kAccumulate = 1;       // g_out = g + conv(g_z(g), K^T), after summing dK
@@ -119,23 +125,30 @@ constexpr int kAccumulate = 1;       // g_out = g + conv(g_z(g), K^T), after sum
 constexpr int kConvThreadsNarrow = 256;
 constexpr int kConvThreadsWide = 128;
 
+// The conv's stages of BK reduction steps: 16 in a ring of 4, or, where a
+// tap's Cp channels fill four chunks of 16 at Cp <= 64 (48 < Cp <= 64), the
+// whole tap (64) in a ring of 2, so that two blocks an SM still fit.
+__host__ __device__ constexpr int conv_stages(int BK) { return BK == 64 ? 2 : 4; }
+
 __host__ __device__ constexpr int dk_rows(int NG) { return NG == 2 ? 128 : 64; }
 __host__ __device__ constexpr int dk_threads(int NG) { return NG == 2 ? 256 : 128; }
 __host__ __device__ constexpr int dk_blocks(int NG) { return NG == 2 ? 2 : 4; }
 
-// A conv block of T threads: (T / 8) x 8 threads, each kTM pixels x 8*NG
-// channels; each copies kACopies float4s of a patch stage.
-template <int T>
+// A conv block of T threads over stages of BK reduction steps: (T / 8) x 8
+// threads, each kTM pixels x 8*NG channels; each copies kACopies float4s of
+// a patch stage (quad tid % kAQuads of pixels tid / kAQuads + T / kAQuads j).
+template <int T, int BK>
 struct Threads {
   static constexpr int kTM = kBM * 8 / T;
   static constexpr int kRowThreads = T / 8;
-  static constexpr int kACopies = kPatchCopies / T;
+  static constexpr int kAQuads = BK / 4;
+  static constexpr int kACopies = kBM * kAQuads / T;
 };
 
 struct Wide {
   int B, H, W, C, Cp, L;
   int K;        // 9 * Cp: the reduction of a conv, the rows of dK
-  int nc;       // chunks of kBK input channels a tap
+  int nc;       // chunks of 16 input channels a tap
   int nw;       // relu-mask words a pixel
   long long M;  // B * H * W pixels
 };
@@ -149,7 +162,7 @@ Wide make_wide(int B, int H, int W, int C, int L) {
   g.Cp = (C + 3) / 4 * 4;
   g.L = L;
   g.K = 9 * g.Cp;
-  g.nc = (g.Cp + kBK - 1) / kBK;
+  g.nc = (g.Cp + 15) / 16;
   g.nw = (g.Cp + 31) / 32;
   g.M = static_cast<long long>(B) * H * W;
   return g;
@@ -167,9 +180,9 @@ int groups(const Wide& g) { return g.Cp > 64 ? 2 : 1; }
 constexpr int kMaskPixels = kBM + 2;
 constexpr int kConvMaskWords = 3 * kMaskPixels * 4;
 
-template <int NG>
+template <int NG, int BK>
 __host__ __device__ constexpr int conv_stage_floats() {
-  return kBM * kAStride + kBK * 64 * NG;
+  return kBM * (BK + 4) + BK * 64 * NG;
 }
 
 template <int NG>
@@ -177,9 +190,9 @@ __host__ __device__ constexpr int dk_stage_floats() {
   return kBK * dk_rows(NG) + kBK * 64 * NG + kBK * 2 * NG;
 }
 
-template <int NG>
+template <int NG, int BK>
 __host__ __device__ constexpr int conv_smem_bytes() {
-  return 4 * (kStages * conv_stage_floats<NG>() + kConvMaskWords);
+  return 4 * (conv_stages(BK) * conv_stage_floats<NG, BK>() + kConvMaskWords);
 }
 
 template <int NG>
@@ -282,31 +295,36 @@ __device__ __noinline__ void sum_partials(const float* __restrict__ part,
 // recorded).  MODE kAccumulate: first dK_l and db_l from the partials, then
 // dst = src + g_z(src) (*) K^T.  Each output sums its 9*Cp products in one
 // fixed order: tap, then input channel.
-template <bool BF16, int MODE, int NG, int T>
+template <bool BF16, int MODE, int NG, int T, int BK>
 __global__ void __launch_bounds__(T, kMinBlocks) wide_conv(const ConvArgs a, const Wide g) {
-  constexpr int kThreads = T, kTM = Threads<T>::kTM, kRowThreads = Threads<T>::kRowThreads;
-  constexpr int kACopies = Threads<T>::kACopies;
+  // BK reduction steps a stage, kRing stages.
+  constexpr int kRing = conv_stages(BK), kAStride = BK + 4;
+  constexpr int kThreads = T, kTM = Threads<T, BK>::kTM;
+  constexpr int kRowThreads = Threads<T, BK>::kRowThreads;
+  constexpr int kAQuads = Threads<T, BK>::kAQuads, kACopies = Threads<T, BK>::kACopies;
   constexpr int kN = 64 * NG;             // output channels of the tile
   constexpr int kQuads = kN / 4;          // float4s a kernel-tile row
-  constexpr int kBCopies = kBK * kQuads / kThreads;
-  constexpr int kStageFloats = conv_stage_floats<NG>();
+  constexpr int kBCopies = BK * kQuads / kThreads;
+  constexpr int kStageFloats = conv_stage_floats<NG, BK>();
   constexpr bool kRewrite = BF16 || MODE == kAccumulate;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
   const long long hw = static_cast<long long>(g.H) * g.W;
+  const int nc = BK == 64 ? 1 : g.nc;  // chunks of BK input channels a tap (Cp <= 64 at 64)
 
   // Copies: each thread brings kACopies float4s of the patch tile (pixels
-  // tid/4 + kThreads/4 j of the tile, channel quad tid % 4 of the stage's
-  // 16) and kBCopies of the kernel tile.  Which taps of its pixels land
-  // inside the image, and the copies' offsets, computed once; a stage adds
-  // the tap's and the chunk's offset, the same for every copy.
-  const int qa = tid % 4;
+  // tid / kAQuads + kThreads / kAQuads j of the tile, channel quad tid %
+  // kAQuads of the stage's BK) and kBCopies of the kernel tile.  Which taps
+  // of its pixels land inside the image, and the copies' offsets, computed
+  // once; a stage adds the tap's and the chunk's offset, the same for every
+  // copy.
+  const int qa = tid % kAQuads;
   const float* tile = a.src + m0 * g.Cp;
   unsigned inside[kACopies];
 #pragma unroll
   for (int j = 0; j < kACopies; ++j) {
-    const long long m = m0 + tid / 4 + kThreads / 4 * j;
+    const long long m = m0 + tid / kAQuads + kThreads / kAQuads * j;
     inside[j] = 0u;
     if (m < g.M) {
       const int r = static_cast<int>(m % hw);
@@ -323,12 +341,12 @@ __global__ void __launch_bounds__(T, kMinBlocks) wide_conv(const ConvArgs a, con
   auto issue = [&](int slot) {
     float* As = smem + slot * kStageFloats;
     float* Bs = As + kBM * kAStride;
-    const int ci0 = it_c * kBK, ci = ci0 + 4 * qa;
+    const int ci0 = it_c * BK, ci = ci0 + 4 * qa;
     const int shift = (it_t / 3 - 1) * g.W + (it_t % 3 - 1);
     const bool quad_ok = ci < g.Cp;
 #pragma unroll
     for (int j = 0; j < kACopies; ++j) {
-      const int mm = tid / 4 + kThreads / 4 * j;
+      const int mm = tid / kAQuads + kThreads / kAQuads * j;
       const bool ok = quad_ok && ((inside[j] >> it_t) & 1u);
       copy16(As + mm * kAStride + 4 * qa, ok ? tile + (mm + shift) * g.Cp + ci : a.src, ok);
     }
@@ -340,7 +358,7 @@ __global__ void __launch_bounds__(T, kMinBlocks) wide_conv(const ConvArgs a, con
       const bool ok = ci0 + r < g.Cp && col < g.Cp;
       copy16(Bs + r * kN + col, ok ? k_rows + r * g.Cp + col : a.K, ok);
     }
-    if (++it_c == g.nc) {
+    if (++it_c == nc) {
       it_c = 0;
       ++it_t;
     }
@@ -349,7 +367,7 @@ __global__ void __launch_bounds__(T, kMinBlocks) wide_conv(const ConvArgs a, con
   // kAccumulate: the mask words of every pixel a tap reaches, with the
   // first stage (zero outside the batch; a tap that leaves its image reads
   // zeros, so its bits do not matter).
-  unsigned* Mt = reinterpret_cast<unsigned*>(smem + kStages * kStageFloats);
+  unsigned* Mt = reinterpret_cast<unsigned*>(smem + kRing * kStageFloats);
   if constexpr (MODE == kAccumulate) {
     const int words = 3 * kMaskPixels * g.nw;
     for (int i = tid; i < words; i += kThreads) {
@@ -360,9 +378,9 @@ __global__ void __launch_bounds__(T, kMinBlocks) wide_conv(const ConvArgs a, con
       copy4(Mt + 4 * px + w, ok ? a.mask + q * g.nw + w : a.mask, ok);
     }
   }
-  const int n = 9 * g.nc;
+  const int n = 9 * nc;
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < kRing - 1; ++s) {
     if (s < n) issue(s);
     commit_copies();
   }
@@ -383,36 +401,36 @@ __global__ void __launch_bounds__(T, kMinBlocks) wide_conv(const ConvArgs a, con
   int rw_t = 0, rw_c = 0;
   auto rewrite = [&](int stage) {
     if constexpr (kRewrite) {
-      float* As = smem + stage % kStages * kStageFloats;
-      const int ci = rw_c * kBK + 4 * qa;
+      float* As = smem + stage % kRing * kStageFloats;
+      const int ci = rw_c * BK + 4 * qa;
       // The tap's row of mask words, shifted by its column.
       const unsigned* row = Mt + 4 * (rw_t / 3 * kMaskPixels + rw_t % 3) + ci / 32;
 #pragma unroll
       for (int j = 0; j < kACopies; ++j) {
-        const int mm = tid / 4 + kThreads / 4 * j;
+        const int mm = tid / kAQuads + kThreads / kAQuads * j;
         float* v = As + mm * kAStride + 4 * qa;
         float4 x = ld4(v);
         if constexpr (MODE == kAccumulate) x = masked(x, row[4 * mm] >> (ci & 31), a.h);
         st4(v, operand4<BF16>(x));
       }
-      if (++rw_c == g.nc) {
+      if (++rw_c == nc) {
         rw_c = 0;
         ++rw_t;
       }
     }
   };
-  wait_copies<kStages - 2>();
+  wait_copies<kRing - 2>();
   if constexpr (MODE == kAccumulate) __syncthreads();  // every thread's mask words
   rewrite(0);
   for (int it = 0; it < n; ++it) {
-    const float* As = smem + it % kStages * kStageFloats;
+    const float* As = smem + it % kRing * kStageFloats;
     const float* Bs = As + kBM * kAStride;
     __syncthreads();
     // The slot computed last iteration is free once every thread passed the barrier.
-    if (it + kStages - 1 < n) issue((it + kStages - 1) % kStages);
+    if (it + kRing - 1 < n) issue((it + kRing - 1) % kRing);
     commit_copies();
 #pragma unroll
-    for (int kq = 0; kq < kBK / 4; ++kq) {
+    for (int kq = 0; kq < BK / 4; ++kq) {
       float4 av[kTM];
 #pragma unroll
       for (int i = 0; i < kTM; ++i) av[i] = ld4(As + (tm + kRowThreads * i) * kAStride + 4 * kq);
@@ -432,10 +450,10 @@ __global__ void __launch_bounds__(T, kMinBlocks) wide_conv(const ConvArgs a, con
         }
       }
     }
-    // The next stage, issued kStages - 2 stages ago, has landed by now: its
+    // The next stage, issued kRing - 2 stages ago, has landed by now: its
     // rewrite runs while other warps still compute this one.
     if (it + 1 < n) {
-      wait_copies<kStages - 2>();
+      wait_copies<kRing - 2>();
       rewrite(it + 1);
     }
   }
@@ -691,10 +709,15 @@ template <bool BF16, int MODE>
 cudaError_t conv(const ConvArgs& args, const Wide& g, cudaStream_t s) {
   constexpr int t1 = kConvThreadsNarrow, t2 = kConvThreadsWide;
   if (groups(g) == 2) {
-    return launch(wide_conv<BF16, MODE, 2, t2>, conv_grid(g), t2, conv_smem_bytes<2>(), s, args,
-                  g);
+    return launch(wide_conv<BF16, MODE, 2, t2, 16>, conv_grid(g), t2, conv_smem_bytes<2, 16>(), s,
+                  args, g);
   }
-  return launch(wide_conv<BF16, MODE, 1, t1>, conv_grid(g), t1, conv_smem_bytes<1>(), s, args, g);
+  if (g.Cp > 48) {
+    return launch(wide_conv<BF16, MODE, 1, t1, 64>, conv_grid(g), t1, conv_smem_bytes<1, 64>(), s,
+                  args, g);
+  }
+  return launch(wide_conv<BF16, MODE, 1, t1, 16>, conv_grid(g), t1, conv_smem_bytes<1, 16>(), s,
+                args, g);
 }
 
 cudaError_t dk(const DkArgs& args, const Wide& g, int S, cudaStream_t s) {
@@ -785,11 +808,13 @@ cudaError_t backward(const float* K, const float* bias, const float* KT, float* 
 extern "C" {
 
 // Bytes of dynamic shared memory the largest block of the wide variants
-// asks for at C channels: the conv's (kStages ring stages and its mask
-// rows) or the dK pass's (kStages ring stages), whichever is larger.
+// asks for at C channels: the conv's (its ring stages and its mask rows) or
+// the dK pass's (kStages ring stages), whichever is larger.
 long long deqres_euler_wide_smem(int C) {
   const Wide g = make_wide(1, 1, 1, C, 1);
-  const int conv = groups(g) == 2 ? conv_smem_bytes<2>() : conv_smem_bytes<1>();
+  const int conv = groups(g) == 2 ? conv_smem_bytes<2, 16>()
+                   : g.Cp > 48    ? conv_smem_bytes<1, 64>()
+                                  : conv_smem_bytes<1, 16>();
   const int dk = groups(g) == 2 ? dk_smem_bytes<2>() : dk_smem_bytes<1>();
   return conv > dk ? conv : dk;
 }

@@ -222,36 +222,55 @@ def kernel_variant(x_shape, backward: bool = False) -> str:
 
 # The wide variants' tiles (``csrc/fused_euler_wide.cu``), by the column
 # tile: 64 output channels where Cp <= 64, else 128 (one tile holds every
-# channel).  The conv computes 128 pixels a block (256 threads, or 128 where
-# Cp > 64); the dK pass a tile of (tap, input) rows (64 rows of 128 threads,
-# four blocks an SM, where Cp <= 64; else 128 rows of 256 threads, two an
-# SM).  Each runs a ring of 4 shared-memory stages of 16 reduction steps
-# filled by cp.async; the conv's patch stage keeps 4 floats of padding after
-# each pixel's 16, and beside the ring the relu-mask words of 3 rows of 130
-# pixels; the dK stage 16 pixels' mask words.  B1 launches once a layer; B2
-# once a layer in its recompute and twice in reverse (the dK pass, then the
-# state cotangent's conv, which also sums the dK partials).
+# channel).  The conv computes 128 pixels a block (256 threads of 4 pixels
+# x 8 channels, or where Cp > 64 128 threads of 8 x 16); the dK pass a tile
+# of (tap, input) rows (64 rows of 128 threads of 4 rows x 8 channels, four
+# blocks an SM, where Cp <= 64; else 128 rows of 256 threads of 4 x 16, two
+# an SM).  Each runs a ring of shared-memory stages filled by cp.async (the
+# conv's `wide_conv_stage`; the dK pass's 4 stages of 16 pixels); the
+# conv's patch stage keeps 4 floats of padding after each pixel's reduction
+# steps, and beside the ring the relu-mask words of 3 rows of 130 pixels;
+# the dK stage 16 pixels' mask words.  B1 launches once a layer; B2 once a
+# layer in its recompute and twice in reverse (the dK pass, then the state
+# cotangent's conv, which also sums the dK partials).
 WIDE_THREADS = {64: 256, 128: 128}  # the conv's, by the column tile
 WIDE_DK_ROWS = {64: 64, 128: 128}
+WIDE_DK_THREADS = {64: 128, 128: 256}
 WIDE_DK_BLOCKS_PER_SM = {64: 4, 128: 2}
 WIDE_TILE_ROWS = 128
 WIDE_STAGE = 16
 WIDE_STAGES = 4
+# The conv's stage where a tap's channels fill four chunks of 16 at Cp <= 64
+# (48 < Cp <= 64): the whole tap, in a ring of 2.
+WIDE_TAP_STAGE = 64
+WIDE_TAP_STAGES = 2
 
 
 def _wide_cols(padded: int) -> int:
     return 128 if padded > 64 else 64
 
 
+def wide_conv_stage(padded: int) -> Tuple[int, int]:
+    """(reduction steps a stage, stages in the ring) of the wide conv at Cp
+    = ``padded`` channels: a whole tap in a ring of 2 where its channels
+    fill four chunks of 16 at Cp <= 64, else 16 steps in a ring of 4.  A
+    stage never holds more zero-filled channels than the 16-step chunks."""
+    if 48 < padded <= 64:
+        return WIDE_TAP_STAGE, WIDE_TAP_STAGES
+    return WIDE_STAGE, WIDE_STAGES
+
+
 def wide_smem_bytes(channels: int) -> int:
     """Dynamic shared memory of the largest wide block at C channels: the
-    conv's (4 ring stages of a (128, 16 + 4) patch tile and a (16, 64 or
-    128) kernel tile, and the relu-mask words of the pixels its taps reach:
-    3 rows of 130 pixels x 4 words) or the dK pass's (4 stages of a (16, 64
-    or 128 rows) patch tile, a (16, 64 or 128) g tile and 16 x 2 or 4 mask
-    words), whichever is larger."""
-    cols = _wide_cols(_ceil(channels, 4) * 4)
-    conv = (WIDE_STAGES * (WIDE_TILE_ROWS * (WIDE_STAGE + 4) + WIDE_STAGE * cols)
+    conv's (the ring stages of a (128, steps + 4) patch tile and a (steps,
+    64 or 128) kernel tile, `wide_conv_stage`, and the relu-mask words of
+    the pixels its taps reach: 3 rows of 130 pixels x 4 words) or the dK
+    pass's (4 stages of a (16, 64 or 128 rows) patch tile, a (16, 64 or 128)
+    g tile and 16 x 2 or 4 mask words), whichever is larger."""
+    padded = _ceil(channels, 4) * 4
+    cols = _wide_cols(padded)
+    steps, stages = wide_conv_stage(padded)
+    conv = (stages * (WIDE_TILE_ROWS * (steps + 4) + steps * cols)
             + 3 * (WIDE_TILE_ROWS + 2) * 4)
     dk = WIDE_STAGES * (WIDE_STAGE * WIDE_DK_ROWS[cols] + WIDE_STAGE * cols
                         + WIDE_STAGE * cols // 32)
@@ -277,18 +296,18 @@ def wide_splits(x_shape, sms: int = SM_COUNT) -> Tuple[int, int]:
 
 def wide_plan(x_shape, backward: bool = False) -> dict:
     """The wide variant's launches at a (B, H, W, C) state: the grid of a
-    layer's conv (pixel tiles x channel tiles), its threads and shared
-    memory a block, and in the backward the dK pass's grid and its (S,
-    chunk) split."""
+    layer's conv (pixel tiles x channel tiles), its threads, (reduction
+    steps a stage, stages) and shared memory a block, and in the backward
+    the dK pass's grid, threads and its (S, chunk) split."""
     batch, height, width, channels = x_shape
     padded = _ceil(channels, 4) * 4
     cols = _wide_cols(padded)
     plan = {"variant": "wide", "threads": WIDE_THREADS[cols],
-            "smem_bytes": wide_smem_bytes(channels),
+            "conv_stage": wide_conv_stage(padded), "smem_bytes": wide_smem_bytes(channels),
             "conv_grid": (_ceil(batch * height * width, WIDE_TILE_ROWS), _ceil(padded, cols))}
     if backward:
         splits, chunk = wide_splits(x_shape)
-        plan.update(splits=splits, chunk=chunk,
+        plan.update(splits=splits, chunk=chunk, dk_threads=WIDE_DK_THREADS[cols],
                     dk_grid=(_ceil(9 * padded, WIDE_DK_ROWS[cols]), splits))
     return plan
 

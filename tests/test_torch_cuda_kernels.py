@@ -514,7 +514,10 @@ def test_a_width_the_kernels_decline_raises_on_the_card(card):
 # the wide tiles: the dK pass's last 128-row tile part full (9 * 68 = 612 and
 # 9 * 100 = 900 rows), a last pixel chunk shorter than the others (23x23 at
 # batch 5: 11 chunks of 256 pixels, the last of 85) and a ragged last
-# 128-pixel tile (432 and 2645 pixels).
+# 128-pixel tile (432 and 2645 pixels).  The conv's tap-a-stage ring at 48 <
+# Cp <= 64 (7x9x57 too): Cp = 52, 12 zero-filled steps a stage, on 1587
+# pixels, and Cp = 60 on 5120; 69,828 pixels (546 tiles, the last of 68) on
+# the 16-step ring at Cp = 20.
 WIDE_CASES = {
     "32x32x72": ((2, 32, 32, 72, 3), 45),
     "32x32x128": ((2, 32, 32, 128, 2), 37),
@@ -525,6 +528,9 @@ WIDE_CASES = {
     "32x32x68": ((2, 32, 32, 68, 2), 31),
     "12x12x100": ((3, 12, 12, 100, 2), 30),
     "23x23x68": ((5, 23, 23, 68, 2), 35),
+    "23x23x52": ((3, 23, 23, 52, 2), 30),
+    "32x32x60": ((5, 32, 32, 60, 2), 59),
+    "132x23x23x20": ((132, 23, 23, 20, 1), 2174),
 }
 
 

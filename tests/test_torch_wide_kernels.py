@@ -95,12 +95,15 @@ def test_the_dk_split_is_fixed_by_the_shape():
         assert fi.wide_plan(shape, backward=True)["splits"] == fi.wide_splits(shape)[0]
     assert fi.wide_splits((32, 32, 32, 128)) == (29, 1136)
     assert fi.wide_splits((32, 32, 32, 64)) == (57, 576)
-    # The conv's block is the larger: 4 ring stages of its (128 x (16 + 4))
-    # patch and (16 x 64 or 128) kernel tiles, and 3 x 130 x 4 mask words;
+    # The conv's block is the larger: the ring stages of its (128 x (steps +
+    # 4)) patch and (steps x 64 or 128) kernel tiles, and 3 x 130 x 4 mask
+    # words: 2 stages of a tap's 64 steps at 48 < Cp <= 64, else 4 of 16;
     # two blocks fit an SM's 228 KB (and four of the dK pass's at Cp <= 64:
     # 4 stages of (16 x 64) + (16 x 64) floats and 16 x 2 words).
-    assert fi.wide_smem_bytes(64) == 4 * (4 * (128 * 20 + 16 * 64) + 3 * 130 * 4) == 63584
+    assert fi.wide_smem_bytes(64) == 4 * (2 * (128 * 68 + 64 * 64) + 3 * 130 * 4) == 108640
+    assert fi.wide_smem_bytes(48) == 4 * (4 * (128 * 20 + 16 * 64) + 3 * 130 * 4) == 63584
     assert fi.wide_smem_bytes(128) == 4 * (4 * (128 * 20 + 16 * 128) + 3 * 130 * 4) == 79968
+    assert 2 * (fi.wide_smem_bytes(64) + 1024) <= 233472
     assert 2 * (fi.wide_smem_bytes(128) + 1024) <= 233472
     assert 4 * (4 * 4 * (16 * 64 + 16 * 64 + 32) + 1024) <= 233472
 
@@ -120,6 +123,57 @@ def test_the_wide_tiles_at_the_widths_that_matter(channels, tiles, cols, waste):
     assert tiles * fi.WIDE_DK_ROWS[cols] - 9 * padded == waste
     assert fi._wide_cols(padded) == cols and plan["conv_grid"] == (256, 1)
     assert plan["threads"] == {64: 256, 128: 128}[cols]
+    assert plan["dk_threads"] == {64: 128, 128: 256}[cols]
+
+
+@pytest.mark.parametrize("channels,steps", [
+    (1, 16), (33, 16), (44, 16), (48, 16), (49, 64), (52, 64), (57, 64), (64, 64), (65, 16),
+    (100, 16), (128, 16)])
+def test_the_wide_conv_takes_a_tap_a_stage_where_its_channels_fill_it(channels, steps):
+    """The conv's stage is a whole tap (64 reduction steps, a ring of 2)
+    where Cp > 48 and Cp <= 64, else 16 steps (a ring of 4): a stage never
+    zero-fills more channels than the chunks of 16 do (at Cp = 48 a
+    64-step stage would compute a third more, and took the conv from 0.42
+    to 0.55 ms on an H100, PERF.md §6)."""
+    padded = -(-channels // 4) * 4
+    stage = fi.wide_conv_stage(padded)
+    assert stage == (steps, 2 if steps == 64 else 4)
+    assert -(-padded // steps) * steps == -(-padded // 16) * 16 or steps == 16
+    assert fi.wide_plan((8, 32, 32, channels))["conv_stage"] == stage
+
+
+def _stage_ffmas(kernel, padded):
+    """A thread's FFMAs between two barriers of ``kernel``'s ring at Cp =
+    ``padded`` (its outputs a thread times a stage's reduction steps), its
+    threads and the blocks an SM holds by shared memory (1 KB reserved a
+    block), from the mirror's constants."""
+    cols = fi._wide_cols(padded)
+    if kernel == "conv":
+        threads, steps = fi.WIDE_THREADS[cols], fi.wide_conv_stage(padded)[0]
+        outputs, smem = fi.WIDE_TILE_ROWS * cols // threads, fi.wide_smem_bytes(padded)
+    else:
+        threads, steps = fi.WIDE_DK_THREADS[cols], fi.WIDE_STAGE
+        outputs = fi.WIDE_DK_ROWS[cols] * cols // threads
+        smem = 4 * fi.WIDE_STAGES * fi.WIDE_STAGE * (fi.WIDE_DK_ROWS[cols] + cols + cols // 32)
+    return outputs * steps, threads, 233472 // (smem + 1024)
+
+
+@pytest.mark.parametrize("kernel,padded,ffmas", [
+    ("conv", 64, 2048), ("conv", 128, 2048), ("conv", 48, 512),
+    ("dk", 64, 512), ("dk", 128, 1024)])
+def test_the_ffmas_a_wide_thread_does_between_barriers(kernel, padded, ffmas):
+    """A thread of the wide conv does 2,048 FFMAs between two barriers at Cp
+    = 64 (4 pixels x 8 channels x a tap's 64 steps) and at Cp = 128 (8 x 16
+    x 16), 512 where a 64-step stage would zero-fill a quarter or more; the
+    dK pass's 512 (4 rows x 8 channels x 16 pixels) or 1,024 (4 x 16 x 16):
+    on an H100 its 2,048-FFMA stages (8 rows a thread on 64-thread blocks,
+    or 32-pixel stages) were 8-33% slower (PERF.md §6).  Every block fits
+    two an SM or more, the dK pass's the blocks its splits count on."""
+    got, threads, blocks = _stage_ffmas(kernel, padded)
+    assert got == ffmas and threads % 32 == 0 and blocks >= 2
+    if kernel == "dk":
+        blocks_per_sm = fi.WIDE_DK_BLOCKS_PER_SM[fi._wide_cols(padded)]
+        assert blocks >= blocks_per_sm and threads * blocks_per_sm <= 2048
 
 
 def jax_grads(case, h, w, matmul_dtype):
